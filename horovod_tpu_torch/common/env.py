@@ -1,0 +1,480 @@
+"""HOROVOD_* environment-knob parsing.
+
+The port's own copy of ``horovod_tpu/common/env.py``: the same knob names,
+the same ``Config`` fields and defaults, and the same rejection of an
+unknown ``HOROVOD_XLA_PERF_PRESET`` value, so a script or config written
+for the JAX package keeps working. It is copied rather than imported
+because importing anything under ``horovod_tpu`` pulls in JAX. The code
+that applies the XLA presets to ``XLA_FLAGS`` is left out: nothing in the
+port runs XLA.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+
+# --- knob names (reference common.h:62-87) ---
+HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
+HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
+HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
+HOROVOD_PROFILER_DIR = "HOROVOD_PROFILER_DIR"
+HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
+HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
+HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
+HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
+HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE = "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"
+HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
+HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
+HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
+HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
+HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
+HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
+HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
+HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
+HOROVOD_LOG_HIDE_TIMESTAMP = "HOROVOD_LOG_HIDE_TIMESTAMP"
+HOROVOD_ADASUM_MPI_CHUNK_SIZE = "HOROVOD_ADASUM_MPI_CHUNK_SIZE"
+HOROVOD_NUM_STREAMS = "HOROVOD_NUM_NCCL_STREAMS"  # kept for config parity
+# Rank/topology env (reference gloo_context.cc:38-49 + gloo_run.py env).
+HOROVOD_RANK = "HOROVOD_RANK"
+HOROVOD_SIZE = "HOROVOD_SIZE"
+HOROVOD_LOCAL_RANK = "HOROVOD_LOCAL_RANK"
+HOROVOD_LOCAL_SIZE = "HOROVOD_LOCAL_SIZE"
+HOROVOD_CROSS_RANK = "HOROVOD_CROSS_RANK"
+HOROVOD_CROSS_SIZE = "HOROVOD_CROSS_SIZE"
+HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
+HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+HOROVOD_CONTROLLER = "HOROVOD_CONTROLLER"
+HOROVOD_CPU_OPERATIONS = "HOROVOD_CPU_OPERATIONS"
+# TPU-native additions.
+HOROVOD_TPU_MESH_AXES = "HOROVOD_TPU_MESH_AXES"
+HOROVOD_TPU_EAGER_BACKEND = "HOROVOD_TPU_EAGER_BACKEND"
+# Streamed (overlap) gradient reduction: size of the FIRST bucket to reduce
+# in the backward pass (DDP idiom — small, so the wire starts early;
+# docs/overlap.md). The reference HOROVOD_FUSION_THRESHOLD above is honored
+# as the default for every later bucket.
+HOROVOD_FUSION_FIRST_BUCKET_BYTES = "HOROVOD_FUSION_FIRST_BUCKET_BYTES"
+# XLA performance-flag preset (docs/overlap.md): "auto" (default — the
+# overlap preset when a TPU platform is detected, off elsewhere),
+# "overlap" (async collectives + latency-hiding scheduler), or "off".
+HOROVOD_XLA_PERF_PRESET = "HOROVOD_XLA_PERF_PRESET"
+# Opt-in collective-safety pre-flight (docs/static_analysis.md).
+HOROVOD_TPU_STATIC_CHECKS = "HOROVOD_TPU_STATIC_CHECKS"
+# Fault tolerance (docs/fault_tolerance.md).
+# Stall escalation ladder: periodic re-warn and per-tensor abort windows
+# on top of the reference's warn/shutdown pair.
+HOROVOD_STALL_REWARN_TIME_SECONDS = "HOROVOD_STALL_REWARN_TIME_SECONDS"
+HOROVOD_STALL_ABORT_TIME_SECONDS = "HOROVOD_STALL_ABORT_TIME_SECONDS"
+# Control-plane RPC retry budget (fault/backoff.py reads these directly —
+# launcher-side processes never construct a Config).
+HOROVOD_RPC_RETRIES = "HOROVOD_RPC_RETRIES"
+HOROVOD_RPC_BACKOFF_BASE_S = "HOROVOD_RPC_BACKOFF_BASE_S"
+HOROVOD_RPC_BACKOFF_MAX_S = "HOROVOD_RPC_BACKOFF_MAX_S"
+HOROVOD_RPC_BACKOFF_JITTER = "HOROVOD_RPC_BACKOFF_JITTER"
+# Rendezvous server-side wait window (replaces the old hardcoded 60 s).
+HOROVOD_COORD_WAIT_TIMEOUT_S = "HOROVOD_COORD_WAIT_TIMEOUT_S"
+# Elastic blacklist quarantine: a blacklisted host is re-admitted after
+# this many seconds (0 = never), and failure counts decay after it too.
+HOROVOD_BLACKLIST_COOLDOWN_S = "HOROVOD_BLACKLIST_COOLDOWN_S"
+# Graceful preemption drain (elastic workers): 0 disables the SIGTERM
+# notice handler.
+HOROVOD_PREEMPTION_GRACEFUL = "HOROVOD_PREEMPTION_GRACEFUL"
+# Deterministic fault injection (fault/plan.py): the plan itself, the
+# event-log path, and the seed for retry jitter in chaos runs.
+HOROVOD_FAULT_PLAN = "HOROVOD_FAULT_PLAN"
+HOROVOD_FAULT_EVENT_LOG = "HOROVOD_FAULT_EVENT_LOG"
+HOROVOD_FAULT_SEED = "HOROVOD_FAULT_SEED"
+# Runtime metrics (docs/metrics.md; horovod_tpu/metrics reads these
+# directly, like the fault knobs — launcher-side processes never build a
+# Config): enable the tap, pin the elastic launcher's /metrics (KV) port,
+# and set the worker snapshot push cadence.
+HOROVOD_METRICS = "HOROVOD_METRICS"
+HOROVOD_METRICS_PORT = "HOROVOD_METRICS_PORT"
+HOROVOD_METRICS_PUSH_INTERVAL_S = "HOROVOD_METRICS_PUSH_INTERVAL_S"
+# Respawn-mode data-loss guard: fail (instead of loudly warning) when a
+# restart generation > 1 finds no restored snapshot on any rank.
+HOROVOD_ELASTIC_REQUIRE_SNAPSHOT = "HOROVOD_ELASTIC_REQUIRE_SNAPSHOT"
+# Data-plane integrity guard (docs/fault_tolerance.md "Data-plane
+# integrity"; horovod_tpu/guard reads these directly, like the fault and
+# metrics knobs): non-finite gradient policy (off|warn|zero|skip|abort),
+# parameter-digest agreement cadence in commits (0 = off), and what a
+# digest mismatch without an agreeing majority does (rollback|root).
+HOROVOD_GUARD_NONFINITE = "HOROVOD_GUARD_NONFINITE"
+HOROVOD_GUARD_DIGEST_STEPS = "HOROVOD_GUARD_DIGEST_STEPS"
+HOROVOD_GUARD_NO_QUORUM = "HOROVOD_GUARD_NO_QUORUM"
+# Control-plane availability (docs/fault_tolerance.md "Control-plane
+# availability"; run/journal.py + run/elastic_driver.py + elastic read
+# these directly): explicit launcher-journal path (default:
+# <output-dir>/driver_journal.json), consecutive failed commit-time
+# launcher probes before a worker votes to park, the --auto-resume
+# supervisor's restart budget, and the KV blackout that the restart fault
+# holds before replaying the journal in-process.
+HOROVOD_DRIVER_JOURNAL = "HOROVOD_DRIVER_JOURNAL"
+HOROVOD_DRIVER_LOST_PROBES = "HOROVOD_DRIVER_LOST_PROBES"
+HOROVOD_DRIVER_MAX_RESTARTS = "HOROVOD_DRIVER_MAX_RESTARTS"
+HOROVOD_FAULT_DRIVER_BLACKOUT_S = "HOROVOD_FAULT_DRIVER_BLACKOUT_S"
+# Topology-aware collective compositor (docs/topology.md; horovod_tpu/topo
+# reads these directly). HOROVOD_TOPOLOGY_MODEL is a JSON file path or
+# inline JSON overriding the detected interconnect model (per-hop
+# bandwidth/latency, or a full hop list). HOROVOD_TOPOLOGY_PLAN="auto"
+# lets the eager executor enable hierarchical lowerings whenever the
+# compositor's cost model selects a non-flat plan (the legacy
+# HOROVOD_HIERARCHICAL_* booleans force them unconditionally); "off"
+# (default) keeps plan selection advisory (metrics/introspection only).
+HOROVOD_TOPOLOGY_MODEL = "HOROVOD_TOPOLOGY_MODEL"
+HOROVOD_TOPOLOGY_PLAN = "HOROVOD_TOPOLOGY_PLAN"
+# Quantized wire compression (docs/overlap.md "Quantized wire
+# compression"): default for the compiled-mode ``quantized`` knob when
+# the call site leaves it unset — "1"/"true"/"int8" moves gradient
+# buckets over the int8+scales wire (flat: every hop; hierarchical:
+# DCN only), with the EF residual carried in optimizer state.
+HOROVOD_QUANTIZED_WIRE = "HOROVOD_QUANTIZED_WIRE"
+# Fused TP overlap (docs/parallelism.md "Fused TP overlap"): route the
+# composed DP×TP fast path's column/row layers through the chunked
+# collective-matmul primitives (ops/collective_matmul.py) so the
+# model-axis psums dissolve into ppermute chains that ride the wire
+# while the MXU multiplies. HOROVOD_TP_OVERLAP_CHUNKS sub-chunks each
+# ring hop's payload (0 = auto: one token chunk per rank).
+HOROVOD_TP_OVERLAP = "HOROVOD_TP_OVERLAP"
+HOROVOD_TP_OVERLAP_CHUNKS = "HOROVOD_TP_OVERLAP_CHUNKS"
+# Compiled-path offline tuning (docs/autotune.md "Compiled-path offline
+# tuning"): path to a ``tuned.json`` emitted by
+# tools/autotune_compiled.py. ``make_train_step`` / DistributedOptimizer
+# read it when their ``tuned`` argument is left unset and apply the
+# pinned knobs IF the live step's signature matches; a mismatch warns
+# loudly and runs untuned. horovod_tpu/tune reads this directly.
+HOROVOD_TUNED_FILE = "HOROVOD_TUNED_FILE"
+# Fleet-simulation calibration (docs/simulation.md): path to a
+# ``calibration.json`` fitted by ``tools/fleet_sim.py --calibrate`` from
+# merged trace data. The simulator, the tuner's cost objectives
+# (``tune(calibration=...)``), and bench's sim block read it when their
+# ``calibration`` argument is left unset and apply the per-hop constants
+# IF the interconnect-model signature (hop ladder) matches; a mismatch
+# warns loudly and runs on generation defaults. sim/calibrate.py reads
+# this directly.
+HOROVOD_CALIBRATION_FILE = "HOROVOD_CALIBRATION_FILE"
+# Fleet tracing (docs/timeline.md "Fleet tracing"; horovod_tpu/trace
+# reads these directly, like the fault/metrics/guard knobs):
+# HOROVOD_TRACE arms the span ring + step tap + KV shipping;
+# HOROVOD_TRACE_DIR points the flight recorder and the launcher's
+# collection at a directory (setting it alone also arms the recorder);
+# the remaining knobs set the ring capacity (events), the worker push
+# cadence, and the cross-rank step skew above which the slowest rank is
+# charged one hvd_straggler_total count.
+HOROVOD_TRACE = "HOROVOD_TRACE"
+HOROVOD_TRACE_DIR = "HOROVOD_TRACE_DIR"
+HOROVOD_TRACE_RING_EVENTS = "HOROVOD_TRACE_RING_EVENTS"
+HOROVOD_TRACE_PUSH_INTERVAL_S = "HOROVOD_TRACE_PUSH_INTERVAL_S"
+HOROVOD_TRACE_STRAGGLER_THRESHOLD_S = "HOROVOD_TRACE_STRAGGLER_THRESHOLD_S"
+# Self-driving fleet (docs/fault_tolerance.md "Self-driving fleet";
+# run/selfdrive.py reads these directly, like the trace knobs):
+# HOROVOD_QUARANTINE_STRIKES arms the slowness quarantine — a rank
+# charged the last finisher for that many of the last
+# HOROVOD_QUARANTINE_WINDOW observed steps (default 2x strikes) gets its
+# host quarantined with the blacklist cooldown/decay/relapse-doubling
+# machinery on an independent reason="slow" ledger
+# (HOROVOD_QUARANTINE_COOLDOWN_S, default = the blacklist cooldown;
+# 0 = permanent). HOROVOD_REPLAN_DIVERGENCE arms the live re-plan: when
+# the calibrated per-hop constants (HOROVOD_CALIBRATION_FILE) drift from
+# the generation defaults beyond this |ratio-1| threshold, the launcher
+# re-prices the tuner's free objectives, verifies the winning plans
+# symbolically, and publishes a commit-boundary re-plan notice (checked
+# every HOROVOD_REPLAN_CHECK_S seconds; HOROVOD_REPLAN_SPEC optionally
+# pins the program priced). HOROVOD_SPARES keeps that many hot-spare
+# workers parked at the spare gate (hvdrun --spares wins). All unset =
+# the control loop is off, launcher behavior unchanged.
+HOROVOD_QUARANTINE_STRIKES = "HOROVOD_QUARANTINE_STRIKES"
+HOROVOD_QUARANTINE_WINDOW = "HOROVOD_QUARANTINE_WINDOW"
+HOROVOD_QUARANTINE_COOLDOWN_S = "HOROVOD_QUARANTINE_COOLDOWN_S"
+HOROVOD_REPLAN_DIVERGENCE = "HOROVOD_REPLAN_DIVERGENCE"
+# HOROVOD_REPLAN_SKEW_S is the second trigger: a SUSTAINED mean
+# cross-rank step skew (StepSkewTracker trend over the recent window)
+# above this many seconds also re-plans, once per generation.
+HOROVOD_REPLAN_SKEW_S = "HOROVOD_REPLAN_SKEW_S"
+HOROVOD_REPLAN_CHECK_S = "HOROVOD_REPLAN_CHECK_S"
+HOROVOD_REPLAN_SPEC = "HOROVOD_REPLAN_SPEC"
+HOROVOD_SPARES = "HOROVOD_SPARES"
+
+# --- distributed inference serving (docs/serving.md) ---
+# HOROVOD_SERVE=1 switches a launched worker into serving mode (set by
+# `hvdrun --serve`); HOROVOD_SERVE_PORT pins the HTTP frontend.
+# HOROVOD_SERVE_REPLICAS is the number of DP serving replicas the engine
+# runs; HOROVOD_SERVE_MAX_BATCH x HOROVOD_SERVE_MAX_WAIT_US shape the
+# continuous batcher (a batch dispatches when full OR when its oldest
+# request has waited max-wait — the starvation-freedom bound);
+# HOROVOD_SERVE_QUEUE_BOUND caps admission (beyond it requests are
+# refused loudly, never queued unboundedly). HOROVOD_SERVE_SLO_MS is the
+# latency SLO target the selfdrive scale loop burns against;
+# HOROVOD_SERVE_MAX_TOKENS bounds tokens generated per request.
+# HOROVOD_SERVE_KV_PAGES x HOROVOD_SERVE_PAGE_SIZE size the paged
+# decode-state (KV-cache) pool, allocated/freed per request slot.
+HOROVOD_SERVE = "HOROVOD_SERVE"
+HOROVOD_SERVE_PORT = "HOROVOD_SERVE_PORT"
+HOROVOD_SERVE_REPLICAS = "HOROVOD_SERVE_REPLICAS"
+HOROVOD_SERVE_MAX_BATCH = "HOROVOD_SERVE_MAX_BATCH"
+HOROVOD_SERVE_MAX_WAIT_US = "HOROVOD_SERVE_MAX_WAIT_US"
+HOROVOD_SERVE_QUEUE_BOUND = "HOROVOD_SERVE_QUEUE_BOUND"
+HOROVOD_SERVE_SLO_MS = "HOROVOD_SERVE_SLO_MS"
+HOROVOD_SERVE_MAX_TOKENS = "HOROVOD_SERVE_MAX_TOKENS"
+HOROVOD_SERVE_KV_PAGES = "HOROVOD_SERVE_KV_PAGES"
+HOROVOD_SERVE_PAGE_SIZE = "HOROVOD_SERVE_PAGE_SIZE"
+# Queue-depth/SLO-burn scale triggers (run/selfdrive.ServeScalePolicy —
+# the PR 14 "Remaining" hook): sustained mean queue depth above
+# SCALE_OUT_DEPTH or an SLO-violation fraction above SLO_BURN proposes a
+# DP scale-out (spare promotion); sustained depth below SCALE_IN_DEPTH
+# with zero burn proposes a scale-in (quarantine-shrink). WINDOW is the
+# sliding observation window in supervision beats, COOLDOWN the minimum
+# beats between decisions (hysteresis).
+HOROVOD_SERVE_SCALE_OUT_DEPTH = "HOROVOD_SERVE_SCALE_OUT_DEPTH"
+HOROVOD_SERVE_SCALE_IN_DEPTH = "HOROVOD_SERVE_SCALE_IN_DEPTH"
+HOROVOD_SERVE_SLO_BURN = "HOROVOD_SERVE_SLO_BURN"
+HOROVOD_SERVE_SCALE_WINDOW = "HOROVOD_SERVE_SCALE_WINDOW"
+HOROVOD_SERVE_SCALE_COOLDOWN = "HOROVOD_SERVE_SCALE_COOLDOWN"
+
+# Fusion buffer rounding unit: reference common.h:94 FUSION_BUFFER_ATOMIC_UNIT=64.
+FUSION_BUFFER_ATOMIC_UNIT = 64
+
+# --- XLA performance-flag presets (docs/overlap.md) ---
+# The flags the streamed-reduction path needs to turn N independent bucket
+# psums into async all-reduce-start/-done pairs hidden behind backward
+# compute. Applied to XLA_FLAGS before the backend initializes (flag
+# parsing happens at first backend/compiler touch) and usable as
+# compiler_options for AOT compiles (tools/tpu_profile_overlap.py).
+XLA_PERF_PRESETS = {
+    "off": {},
+    "overlap": {
+        "xla_tpu_enable_latency_hiding_scheduler": "true",
+        "xla_tpu_enable_async_collective_fusion": "true",
+        "xla_tpu_enable_async_collective_fusion_fuse_all_reduce": "true",
+        "xla_enable_async_all_reduce": "true",
+    },
+}
+
+
+def _tpu_platform_hinted() -> bool:
+    """TPU detection WITHOUT initializing a jax backend: only an EXPLICIT
+    platform pin counts. A merely-importable libtpu wheel is not enough —
+    a CPU-platform process whose XLA flag registry doesn't know the
+    xla_tpu_* names dies with "Unknown flags in XLA_FLAGS" at first
+    backend touch, so guessing wrong is fatal, not just noisy. On a TPU VM
+    with an unpinned platform, set HOROVOD_XLA_PERF_PRESET=overlap."""
+    plats = (
+        os.environ.get("JAX_PLATFORMS", "")
+        or os.environ.get("JAX_PLATFORM_NAME", "")
+    ).lower()
+    return "tpu" in plats
+
+
+def resolve_perf_preset(preset: str | None = None) -> tuple:
+    """Resolve a preset name (None reads HOROVOD_XLA_PERF_PRESET, default
+    "auto") to (name, flags). "auto" means the overlap preset on TPU and
+    off elsewhere — the TPU-only xla_tpu_* flags would be noise on other
+    platforms."""
+    name = (preset or os.environ.get(HOROVOD_XLA_PERF_PRESET, "")
+            or "auto").strip().lower()
+    if name == "auto":
+        name = "overlap" if _tpu_platform_hinted() else "off"
+    if name not in XLA_PERF_PRESETS:
+        raise ValueError(
+            f"unknown {HOROVOD_XLA_PERF_PRESET} {name!r}; "
+            f"choose from {sorted(XLA_PERF_PRESETS)} or 'auto'"
+        )
+    return name, dict(XLA_PERF_PRESETS[name])
+
+
+def _get_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _get_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
+
+
+def _get_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        return default
+
+
+@dataclass
+class Config:
+    """Runtime knobs resolved at init.
+
+    Defaults follow the reference: 64 MB fusion threshold and 5 ms cycle time
+    (``operations.cc:411-417``), cache capacity 1024 (``global_state.h:88``),
+    60 s stall warning (``stall_inspector.h:72-80``).
+    """
+
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
+    # Streamed (overlap) reduction: first-bucket cap (DDP idiom) and the
+    # XLA perf-flag preset name ("auto" resolves per platform).
+    fusion_first_bucket_bytes: int = 1024 * 1024
+    xla_perf_preset: str = "auto"
+    # Compiled-path pinned tuning file ("" = untuned; docs/autotune.md).
+    tuned_file: str = ""
+    calibration_file: str = ""
+    cycle_time_ms: float = 5.0
+    cache_capacity: int = 1024
+    cache_enabled: bool = True
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # "auto" = the eager executor goes hierarchical whenever the topology
+    # compositor's cost model selects a non-flat plan; "off" = planner is
+    # advisory only (docs/topology.md).
+    topology_plan: str = "off"
+    autotune: bool = False
+    autotune_log_file: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+    timeline_filename: str = ""
+    # Optional jax.profiler trace directory: started at init,
+    # stopped at shutdown; plan executions inside carry the same
+    # hvd_plan_<id> annotation the timeline stamps (SURVEY §5).
+    profiler_dir: str = ""
+
+    timeline_mark_cycles: bool = False
+    stall_check_disable: bool = False
+    stall_warning_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    # Escalation ladder between warn and shutdown: re-warn every
+    # ``stall_rewarn_seconds`` (0 = reuse the warn interval) and abort the
+    # individual stalled tensor — a named Status.Aborted handed to its
+    # waiters — after ``stall_abort_time_seconds`` (0 = disabled).
+    stall_rewarn_seconds: float = 0.0
+    stall_abort_time_seconds: float = 0.0
+    adasum_chunk_size: int = 1 << 26
+    log_level: str = "warning"
+    eager_backend: str = "auto"  # auto | xla | local
+    mesh_axes: str = ""  # e.g. "data:8" or "data:4,model:2"
+    # Run the collective-safety static analyzers as a pre-flight on
+    # DistributedOptimizer/allreduce setup (analysis/preflight.py).
+    static_checks: bool = False
+    # Distributed inference serving (docs/serving.md): serve=True flips
+    # a launched worker into `hvd.serve()` mode; the remaining fields
+    # shape the continuous batcher, the paged KV-cache pool, and the
+    # SLO target the selfdrive scale loop burns against.
+    # Fused TP overlap: collective-matmul path selection for the
+    # composed train step's tensor-parallel layers, and its chunking.
+    tp_overlap: bool = False
+    tp_overlap_chunks: int = 0
+    serve: bool = False
+    serve_port: int = 0
+    serve_replicas: int = 1
+    serve_max_batch: int = 8
+    serve_max_wait_us: int = 2000
+    serve_queue_bound: int = 1024
+    serve_slo_ms: float = 500.0
+    serve_max_tokens: int = 32
+    serve_kv_pages: int = 256
+    serve_page_size: int = 16
+    extra: dict = field(default_factory=dict)
+
+    @staticmethod
+    def from_env() -> "Config":
+        cfg = Config()
+        cfg.fusion_threshold_bytes = _get_int(
+            HOROVOD_FUSION_THRESHOLD, cfg.fusion_threshold_bytes
+        )
+        cfg.fusion_first_bucket_bytes = _get_int(
+            HOROVOD_FUSION_FIRST_BUCKET_BYTES, cfg.fusion_first_bucket_bytes
+        )
+        cfg.xla_perf_preset = (
+            os.environ.get(HOROVOD_XLA_PERF_PRESET, "") or cfg.xla_perf_preset
+        )
+        cfg.tuned_file = os.environ.get(HOROVOD_TUNED_FILE, cfg.tuned_file)
+        cfg.calibration_file = os.environ.get(
+            HOROVOD_CALIBRATION_FILE, cfg.calibration_file
+        )
+        # Reference accepts cycle time in ms as float via HOROVOD_CYCLE_TIME.
+        cfg.cycle_time_ms = _get_float(HOROVOD_CYCLE_TIME, cfg.cycle_time_ms)
+        cfg.cache_capacity = _get_int(HOROVOD_CACHE_CAPACITY, cfg.cache_capacity)
+        cfg.cache_enabled = cfg.cache_capacity > 0
+        cfg.hierarchical_allreduce = _get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE)
+        cfg.hierarchical_allgather = _get_bool(HOROVOD_HIERARCHICAL_ALLGATHER)
+        cfg.topology_plan = (
+            os.environ.get(HOROVOD_TOPOLOGY_PLAN, "") or cfg.topology_plan
+        ).strip().lower()
+        cfg.autotune = _get_bool(HOROVOD_AUTOTUNE)
+        cfg.autotune_log_file = os.environ.get(HOROVOD_AUTOTUNE_LOG, "")
+        cfg.autotune_warmup_samples = _get_int(
+            HOROVOD_AUTOTUNE_WARMUP_SAMPLES, cfg.autotune_warmup_samples
+        )
+        cfg.autotune_steps_per_sample = _get_int(
+            HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, cfg.autotune_steps_per_sample
+        )
+        cfg.autotune_bayes_opt_max_samples = _get_int(
+            HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, cfg.autotune_bayes_opt_max_samples
+        )
+        cfg.autotune_gaussian_process_noise = _get_float(
+            HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE,
+            cfg.autotune_gaussian_process_noise,
+        )
+        cfg.timeline_filename = os.environ.get(HOROVOD_TIMELINE, "")
+        cfg.profiler_dir = os.environ.get(HOROVOD_PROFILER_DIR, "")
+        cfg.timeline_mark_cycles = _get_bool(HOROVOD_TIMELINE_MARK_CYCLES)
+        cfg.stall_check_disable = _get_bool(HOROVOD_STALL_CHECK_DISABLE)
+        cfg.stall_warning_time_seconds = _get_float(
+            HOROVOD_STALL_CHECK_TIME_SECONDS, cfg.stall_warning_time_seconds
+        )
+        cfg.stall_shutdown_time_seconds = _get_float(
+            HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, cfg.stall_shutdown_time_seconds
+        )
+        cfg.stall_rewarn_seconds = _get_float(
+            HOROVOD_STALL_REWARN_TIME_SECONDS, cfg.stall_rewarn_seconds
+        )
+        cfg.stall_abort_time_seconds = _get_float(
+            HOROVOD_STALL_ABORT_TIME_SECONDS, cfg.stall_abort_time_seconds
+        )
+        cfg.adasum_chunk_size = _get_int(
+            HOROVOD_ADASUM_MPI_CHUNK_SIZE, cfg.adasum_chunk_size
+        )
+        cfg.log_level = os.environ.get(HOROVOD_LOG_LEVEL, cfg.log_level)
+        cfg.eager_backend = os.environ.get(HOROVOD_TPU_EAGER_BACKEND, cfg.eager_backend)
+        cfg.mesh_axes = os.environ.get(HOROVOD_TPU_MESH_AXES, cfg.mesh_axes)
+        cfg.static_checks = _get_bool(HOROVOD_TPU_STATIC_CHECKS)
+        cfg.tp_overlap = _get_bool(HOROVOD_TP_OVERLAP)
+        cfg.tp_overlap_chunks = _get_int(
+            HOROVOD_TP_OVERLAP_CHUNKS, cfg.tp_overlap_chunks
+        )
+        cfg.serve = _get_bool(HOROVOD_SERVE)
+        cfg.serve_port = _get_int(HOROVOD_SERVE_PORT, cfg.serve_port)
+        cfg.serve_replicas = _get_int(
+            HOROVOD_SERVE_REPLICAS, cfg.serve_replicas
+        )
+        cfg.serve_max_batch = _get_int(
+            HOROVOD_SERVE_MAX_BATCH, cfg.serve_max_batch
+        )
+        cfg.serve_max_wait_us = _get_int(
+            HOROVOD_SERVE_MAX_WAIT_US, cfg.serve_max_wait_us
+        )
+        cfg.serve_queue_bound = _get_int(
+            HOROVOD_SERVE_QUEUE_BOUND, cfg.serve_queue_bound
+        )
+        cfg.serve_slo_ms = _get_float(HOROVOD_SERVE_SLO_MS, cfg.serve_slo_ms)
+        cfg.serve_max_tokens = _get_int(
+            HOROVOD_SERVE_MAX_TOKENS, cfg.serve_max_tokens
+        )
+        cfg.serve_kv_pages = _get_int(
+            HOROVOD_SERVE_KV_PAGES, cfg.serve_kv_pages
+        )
+        cfg.serve_page_size = _get_int(
+            HOROVOD_SERVE_PAGE_SIZE, cfg.serve_page_size
+        )
+        return cfg

@@ -1,0 +1,218 @@
+"""Decoder-only Transformer LM: one forward, in two forms of the parameters.
+
+The counterpart of ``horovod_tpu/models/transformer.py``:
+
+- :class:`TransformerLM`, an ``nn.Module`` that holds the parameters under
+  the flax names (``embeddings``, ``pos_embeddings``, ``block_{i}/ln_1``,
+  ``block_{i}/attention/{query,key,value,out}``, ``block_{i}/ln_2``,
+  ``block_{i}/mlp/{up,down}``, ``ln_f``, ``lm_head``), so every parameter
+  name maps one to one onto the flax tree (``.`` for ``/``);
+- :func:`tp_apply`, the forward over the same tree as a nested dict of
+  tensors, with :func:`lm_loss` and :func:`make_gpt_loss_fn`. The module's
+  ``forward`` is ``tp_apply`` over its own parameters.
+
+The forward computes in ``dtype`` (bf16 by default) with an f32
+``lm_head``, and attention goes through the flash kernels
+(``ops/flash_attention.py``). Dense kernels keep the flax layout ``[in, out]`` and compute ``x @ w``;
+layer norm uses eps 1e-6 with f32 statistics; gelu is the tanh form, as
+``jax.nn.gelu`` is by default.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..common.basics import resolve_device
+from ..ops.flash_attention import flash_attention_bthd
+from ..utils.convert import param_tree
+
+# flax's truncated normal keeps std 1 over [-2, 2]: the stddev of a unit
+# normal truncated there is this factor, which lecun_normal divides out.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _layer_norm(x, p, dtype):
+    """nn.LayerNorm parity (eps 1e-6, f32 statistics) on a raw
+    {"scale","bias"} param dict."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``'s parameters: kernel ``[in, out]``, optional bias."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 use_bias: bool = True, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # flax's default kernel init, lecun_normal: truncated normal, std
+        # 1/sqrt(fan_in).
+        std = math.sqrt(1.0 / self.kernel.shape[0]) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``'s parameter: an f32 table."""
+
+    def __init__(self, num_embeddings: int, features: int, *, device=None):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # flax's default embedding init: normal, std 1/sqrt(features).
+        with torch.no_grad():
+            self.embedding.normal_(0.0, self.embedding.shape[1] ** -0.5,
+                                   generator=generator)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``'s parameters: scale and bias."""
+
+    def __init__(self, features: int, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+
+def _block(d_model: int, mlp_ratio: int = 4, *, device) -> nn.ModuleDict:
+    """The parameters of one ``block_{i}``, under the flax names."""
+    return nn.ModuleDict({
+        "ln_1": LayerNorm(d_model, device=device),
+        "attention": nn.ModuleDict({
+            name: Dense(d_model, d_model, use_bias=False, device=device)
+            for name in ("query", "key", "value", "out")
+        }),
+        "ln_2": LayerNorm(d_model, device=device),
+        "mlp": nn.ModuleDict({
+            "up": Dense(d_model, mlp_ratio * d_model, device=device),
+            "down": Dense(mlp_ratio * d_model, d_model, device=device),
+        }),
+    })
+
+
+class TransformerLM(nn.Module):
+    """GPT decoder. ``forward(tokens [B, T], positions=None)`` returns f32
+    logits ``[B, T, vocab]``; it is :func:`tp_apply` over the module's own
+    parameters. Weights are drawn from ``seed`` with flax's default
+    initialisers; ``device=None`` means the card."""
+
+    def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 8,
+                 n_layers: int = 4, max_len: int = 2048, *,
+                 dtype=torch.bfloat16, device=None, seed: int = 0):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError(f"d_model {d_model} not divisible by n_heads {n_heads}")
+        device = resolve_device(device)
+        self.n_heads = n_heads
+        self.dtype = dtype
+        self.embeddings = Embed(vocab_size, d_model, device=device)
+        self.pos_embeddings = Embed(max_len, d_model, device=device)
+        for i in range(n_layers):
+            self.add_module(f"block_{i}", _block(d_model, device=device))
+        self.ln_f = LayerNorm(d_model, device=device)
+        self.lm_head = Dense(d_model, vocab_size, use_bias=False, device=device)
+        if device.type != "meta":
+            generator = torch.Generator(device=device).manual_seed(seed)
+            for module in self.modules():
+                if isinstance(module, (Dense, Embed)):
+                    module.reset_parameters(generator)
+
+    def forward(self, tokens, positions=None):
+        return tp_apply(param_tree(self), tokens, n_heads=self.n_heads,
+                        positions=positions, dtype=self.dtype)
+
+
+# --- the forward, over a nested dict of parameters --------------------------
+
+
+def transformer_n_layers(params) -> int:
+    return sum(1 for k in params if str(k).startswith("block_"))
+
+
+def tp_apply(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    *,
+    n_heads: int,
+    model_axis: Optional[str] = None,
+    positions: Optional[torch.Tensor] = None,
+    dtype=torch.bfloat16,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Functional forward of the :class:`TransformerLM` parameter tree (a
+    nested dict of tensors, flax names). Only the dense reference form,
+    ``model_axis=None``, exists in this port so far."""
+    if model_axis is not None:
+        raise NotImplementedError(
+            "tensor parallelism (model_axis) is not ported yet"
+        )
+    B, T = tokens.shape
+    if positions is None:
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+    emb = params["embeddings"]["embedding"]
+    pos = params["pos_embeddings"]["embedding"]
+    x = (F.embedding(tokens, emb) + F.embedding(positions, pos)).to(dtype)
+    C = emb.shape[-1]
+    if C % n_heads:
+        raise ValueError(f"d_model {C} not divisible by n_heads {n_heads}")
+    shape = (B, T, n_heads, C // n_heads)
+    for i in range(transformer_n_layers(params)):
+        bp = params[f"block_{i}"]
+        h = _layer_norm(x, bp["ln_1"], dtype)
+        att = bp["attention"]
+        q = h @ att["query"]["kernel"].to(dtype)
+        k = h @ att["key"]["kernel"].to(dtype)
+        v = h @ att["value"]["kernel"].to(dtype)
+        a = flash_attention_bthd(
+            q.reshape(shape), k.reshape(shape), v.reshape(shape), causal=causal,
+        )
+        x = x + a.reshape(B, T, C) @ att["out"]["kernel"].to(dtype)
+        h = _layer_norm(x, bp["ln_2"], dtype)
+        mlp = bp["mlp"]
+        u = F.gelu(h @ mlp["up"]["kernel"].to(dtype) + mlp["up"]["bias"].to(dtype),
+                   approximate="tanh")
+        x = x + (u @ mlp["down"]["kernel"].to(dtype) + mlp["down"]["bias"].to(dtype))
+    x = _layer_norm(x, params["ln_f"], dtype)
+    return x.float() @ params["lm_head"]["kernel"].float()
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels[..., None].long()).mean()
+
+
+def make_gpt_loss_fn(
+    n_heads: int,
+    *,
+    model_axis: Optional[str] = None,
+    dtype=torch.bfloat16,
+) -> Callable:
+    """``loss_fn(params, (tokens, labels))`` over :func:`tp_apply`."""
+
+    def loss_fn(params, batch):
+        tokens, labels = batch
+        logits = tp_apply(params, tokens, n_heads=n_heads,
+                          model_axis=model_axis, dtype=dtype)
+        return lm_loss(logits, labels)
+
+    return loss_fn

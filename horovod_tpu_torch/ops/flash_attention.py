@@ -1,0 +1,347 @@
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
+
+The counterpart of ``horovod_tpu/ops/pallas_attention.py``. The kernels
+(``csrc/flash_attention.cu``) replace the TPU kernel ``_fwd_kernel`` and
+the ``lax.scan`` backward ``_flash_vjp_bwd``: a forward that writes O and
+the row logsumexp, and two backward kernels, dQ and then dK/dV.
+
+Beside each kernel is its plain PyTorch version, ``_flash_fwd_plain`` and
+``_flash_bwd_plain``, which repeat the reference's arithmetic block by
+block. A wrapper takes the plain version only for tensors on the CPU (that
+is how the tests run); for CUDA tensors it launches the kernel or raises.
+
+``FWD_LAUNCHES`` counts launches of the forward kernel. ``BWD_LAUNCHES``
+counts backward launches, each of which launches the dQ kernel and then
+the dK/dV kernel once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+_NEG_INF = -1e30
+_HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+def _pick_block(t: int, pref: int) -> int:
+    """Largest block <= pref that divides t. A length whose best divisor
+    is below 8 is refused, as the reference kernel refuses it."""
+    cap = min(pref, t)
+    b = cap
+    while t % b:
+        b -= 1
+    if b < 8 and b < cap:
+        raise ValueError(
+            f"sequence length {t} has no block divisor >= 8 under "
+            f"{pref}; pad the sequence or pass explicit block sizes"
+        )
+    return b
+
+
+def flashable(t_q: int, t_k: int, block_q: int = 128,
+              block_k: int = 128) -> bool:
+    """Whether the flash path accepts these sequence lengths (callers with
+    arbitrary shapes use this to take the dense path instead)."""
+    try:
+        _pick_block(t_q, block_q)
+        _pick_block(t_k, block_k)
+        return True
+    except ValueError:
+        return False
+
+
+def _dense_full(q, k, v, causal, sm_scale):
+    """Dense [BH, T, D] attention, for lengths the flash path refuses."""
+    s = q.float() @ k.float().transpose(1, 2) * sm_scale
+    if causal:
+        t_q, t_k = q.shape[1], k.shape[1]
+        mask = (torch.arange(t_q, device=q.device)[:, None]
+                >= torch.arange(t_k, device=q.device)[None, :])
+        s = torch.where(mask, s, _NEG_INF)
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Plain versions: the reference's arithmetic, one K block at a time.
+# --------------------------------------------------------------------------
+
+def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
+                     block_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_fwd_kernel`` with ``normalize=True``: the online softmax over K
+    blocks in f32. Returns O in the input dtype and lse = m + log l (f32)."""
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    bk = _pick_block(t_k, block_k)
+    qf = q.float()
+    acc = torch.zeros(bh, t_q, d, dtype=torch.float32, device=q.device)
+    m = torch.full((bh, t_q, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(bh, t_q, 1, dtype=torch.float32, device=q.device)
+    q_pos = torch.arange(t_q, device=q.device)[:, None]
+    for k0 in range(0, t_k, bk):
+        s = qf @ k[:, k0:k0 + bk].float().transpose(1, 2) * sm_scale
+        if causal:
+            mask = q_pos >= torch.arange(k0, k0 + bk, device=q.device)[None, :]
+            s = torch.where(mask, s, _NEG_INF)
+        m_curr = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_curr)
+        p = torch.exp(s - m_curr)
+        if causal:
+            # A fully masked row has m_curr == -1e30: re-mask p.
+            p = torch.where(mask, p, 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ v[:, k0:k0 + bk].float()
+        m = m_curr
+    l = torch.where(l == 0.0, 1.0, l)   # fully masked rows -> 0 out
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
+                     block_k: int = 128):
+    """``_flash_vjp_bwd``: recompute P per K block from lse, with
+    D = rowsum(dO * O) and dS = P (dP - D) * scale."""
+    t_q = q.shape[1]
+    t_k = k.shape[1]
+    bk = _pick_block(t_k, block_k)
+    qf = q.float()
+    dof = do.float()
+    dsum = (dof * o.float()).sum(dim=-1)
+    q_pos = torch.arange(t_q, device=q.device)[:, None]
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, t_k, bk):
+        kb = k[:, k0:k0 + bk].float()
+        vb = v[:, k0:k0 + bk].float()
+        s = qf @ kb.transpose(1, 2) * sm_scale
+        if causal:
+            mask = q_pos >= torch.arange(k0, k0 + bk, device=q.device)[None, :]
+            s = torch.where(mask, s, _NEG_INF)
+        p = torch.exp(s - lse[:, :, None])
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        dp = dof @ vb.transpose(1, 2)
+        ds = p * (dp - dsum[:, :, None]) * sm_scale
+        dq = dq + ds @ kb
+        dks.append(ds.transpose(1, 2) @ qf)
+        dvs.append(p.transpose(1, 2) @ dof)
+    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+# --------------------------------------------------------------------------
+# The kernels.
+# --------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_hvt_bound", False):
+        lib.hvt_flash_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_F, _I, _P]
+        lib.hvt_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
+        lib.hvt_flash_bwd_dkdv.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
+        for fn in (lib.hvt_flash_fwd, lib.hvt_flash_bwd_dq,
+                   lib.hvt_flash_bwd_dkdv):
+            fn.restype = ctypes.c_int
+        lib._hvt_bound = True
+    return lib
+
+
+def _check_cuda(q, k, v, *like_q: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Validate the kernels' inputs: q (and ``like_q``: o, dO) [BH, T_q, D],
+    k and v [BH, T_k, D], contiguous, one CUDA device, one dtype (f32 or
+    bf16), D in 32/64/128. Returns (bh, t_q, t_k, d)."""
+    tensors = (q, k, v, *like_q)
+    for t in tensors:
+        if t.device != q.device or t.device.type != "cuda":
+            raise ValueError(
+                f"flash attention kernels need every tensor on one CUDA "
+                f"device; got {t.device} beside {q.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError("flash attention kernels need contiguous tensors")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(
+            f"flash attention kernels take float32 or bfloat16 q/k/v/o of "
+            f"one dtype; got {[t.dtype for t in tensors]}"
+        )
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"expected [BH, T, D] tensors, got {tuple(q.shape)}")
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {_HEAD_DIMS}")
+    if bh > 65535:
+        raise ValueError(f"batch x heads {bh} exceeds the grid limit 65535")
+    if k.shape != (bh, t_k, d) or v.shape != k.shape or any(
+            t.shape != q.shape for t in like_q):
+        raise ValueError(
+            f"shapes {[tuple(t.shape) for t in tensors]} do not fit q {tuple(q.shape)}"
+        )
+    return bh, t_q, t_k, d
+
+
+def _check_rows(q: torch.Tensor, *stats: torch.Tensor) -> None:
+    """lse and Dsum: contiguous f32 [BH, T_q] beside q."""
+    for t in stats:
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != q.device or t.shape != q.shape[:2]):
+            raise ValueError(
+                f"row statistics must be contiguous float32 {tuple(q.shape[:2])} "
+                f"tensors on {q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def _run(entry: str, device: torch.device, *args) -> None:
+    """Call a C entry on ``device``'s current stream; raise on its error."""
+    with torch.cuda.device(device):
+        rc = getattr(_lib(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
+
+
+def _launch_fwd(q, k, v, causal: bool, sm_scale: float):
+    global FWD_LAUNCHES
+    bh, t_q, t_k, d = _check_cuda(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
+    _run("hvt_flash_fwd", q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
+    FWD_LAUNCHES += 1
+    return o, lse
+
+
+def _launch_bwd_dq(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """The dQ kernel; also returns Dsum = rowsum(dO * O), f32 [BH, T]."""
+    bh, t_q, t_k, d = _check_cuda(q, k, v, o, do)
+    _check_rows(q, lse)
+    dq = torch.empty_like(q)
+    dsum = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
+    _run("hvt_flash_bwd_dq", q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+         lse.data_ptr(), dq.data_ptr(), dsum.data_ptr(),
+         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
+    return dq, dsum
+
+
+def _launch_bwd_dkdv(q, k, v, do, lse, dsum, causal: bool, sm_scale: float):
+    bh, t_q, t_k, d = _check_cuda(q, k, v, do)
+    _check_rows(q, lse, dsum)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _run("hvt_flash_bwd_dkdv", q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+         lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    global BWD_LAUNCHES
+    dq, dsum = _launch_bwd_dq(q, k, v, o, lse, do, causal, sm_scale)
+    dk, dv = _launch_bwd_dkdv(q, k, v, do, lse, dsum, causal, sm_scale)
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"flash attention runs on cpu or cuda tensors, not {t.device}")
+
+
+def _flash_fwd(q, k, v, causal, sm_scale):
+    if _on_cpu(q):
+        return _flash_fwd_plain(q, k, v, causal, sm_scale)
+    return _launch_fwd(q, k, v, causal, sm_scale)
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal, sm_scale):
+    if _on_cpu(q):
+        return _flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale)
+    return _launch_bwd(q, k, v, o, lse, do, causal, sm_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the reference's ``jax.custom_vjp`` ``_flash``:
+    the forward saves (q, k, v, o, lse) and the backward recomputes P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o, lse = _flash_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(
+            q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.sm_scale
+        )
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused attention over ``[..., T, D]`` (leading dims fold into one
+    batch x heads axis). Differentiable; the backward recomputes P.
+    ``sm_scale`` defaults to ``D ** -0.5``."""
+    if q.dim() < 3:
+        raise ValueError("expected [..., T, D] with at least one batch dim")
+    lead = q.shape[:-2]
+    t_q, d = q.shape[-2:]
+    t_k = k.shape[-2]
+    # The same lengths as the reference kernel's grid accepts.
+    _pick_block(t_q, 128)
+    _pick_block(t_k, 128)
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    out = _FlashAttention.apply(
+        q.reshape(-1, t_q, d).contiguous(), k.reshape(-1, t_k, d).contiguous(),
+        v.reshape(-1, t_k, d).contiguous(), causal, scale,
+    )
+    return out.reshape(*lead, t_q, d)
+
+
+def flash_attention_bthd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Layout adapter for the transformer's ``[B, T, H, D]`` attention:
+    fold heads into the batch axis, run the flash path, unfold. Lengths
+    with no block divisor of 8 or more take the dense path, chosen by shape
+    as the reference chooses it."""
+    B, T, H, D = q.shape
+    fold = lambda x: x.transpose(1, 2).reshape(B * H, x.shape[1], D)
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    if flashable(T, k.shape[1]):
+        out = flash_attention(qf, kf, vf, causal=causal, sm_scale=scale)
+    else:
+        out = _dense_full(qf, kf, vf, causal, scale)
+    return out.reshape(B, H, T, D).transpose(1, 2)

@@ -1,0 +1,138 @@
+"""The PyTorch port stands alone: no JAX at import, no reference imports,
+the same knob registry as the JAX package, and no quiet CPU fallback for
+an entry point that asks for the card."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu.common.env as ref_env
+import horovod_tpu_torch.common.env as port_env
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "horovod_tpu_torch")
+
+
+def test_import_loads_no_jax():
+    # A subprocess: this test process imported jax already (conftest).
+    code = (
+        "import sys, horovod_tpu_torch, horovod_tpu_torch.models.transformer, "
+        "horovod_tpu_torch.utils.convert, horovod_tpu_torch.ops.flash_attention\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _knobs(mod):
+    return {k: getattr(mod, k) for k in dir(mod) if k.startswith("HOROVOD_")}
+
+
+def test_knob_registry_matches_reference():
+    """Mirrors the reference's env surface: the same names, values and
+    Config fields with the same defaults."""
+    assert _knobs(port_env) == _knobs(ref_env)
+    assert port_env.FUSION_BUFFER_ATOMIC_UNIT == ref_env.FUSION_BUFFER_ATOMIC_UNIT
+    assert port_env.XLA_PERF_PRESETS == ref_env.XLA_PERF_PRESETS
+    ref_fields = {f.name: f.default for f in dataclasses.fields(ref_env.Config)}
+    port_fields = {f.name: f.default for f in dataclasses.fields(port_env.Config)}
+    assert port_fields == ref_fields
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("HOROVOD_FUSION_THRESHOLD", "12345"),
+    ("HOROVOD_CYCLE_TIME", "2.5"),
+    ("HOROVOD_HIERARCHICAL_ALLREDUCE", "1"),
+    ("HOROVOD_SERVE_MAX_BATCH", "16"),
+])
+def test_config_from_env_matches_reference(monkeypatch, knob, value):
+    monkeypatch.setenv(knob, value)
+    ref = dataclasses.asdict(ref_env.Config.from_env())
+    port = dataclasses.asdict(port_env.Config.from_env())
+    assert port == ref
+
+
+def test_unknown_preset_rejected_like_reference(monkeypatch):
+    monkeypatch.setenv("HOROVOD_XLA_PERF_PRESET", "bogus")
+    with pytest.raises(ValueError, match="unknown HOROVOD_XLA_PERF_PRESET"):
+        ref_env.resolve_perf_preset()
+    with pytest.raises(ValueError, match="unknown HOROVOD_XLA_PERF_PRESET"):
+        port_env.resolve_perf_preset()
+
+
+def test_source_imports_nothing_of_jax_or_reference():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|horovod_tpu)\b|horovod_tpu\.",
+                         re.MULTILINE)
+    offenders = []
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    text = f.read()
+                if "import jax" in text or pattern.search(text):
+                    offenders.append(os.path.relpath(path, REPO))
+    assert offenders == []
+
+
+def test_topology_from_env(monkeypatch):
+    from horovod_tpu_torch.common import topology
+
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    assert (topology.detect().rank, topology.detect().size) == (0, 1)
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    t = topology.detect()
+    assert (t.rank, t.size, t.local_rank, t.local_size, t.source) == (3, 4, 1, 2, "torchrun")
+    monkeypatch.setenv("HOROVOD_RANK", "0")
+    monkeypatch.setenv("HOROVOD_SIZE", "2")
+    assert topology.detect().source == "env"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(no_gpu):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.utils.convert import params_from_flax
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hvd.init()
+    assert not hvd.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(64, d_model=32, n_heads=1, n_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_flax({"w": np.zeros(2, np.float32)})
+    # Asking for the CPU explicitly works.
+    TransformerLM(64, d_model=32, n_heads=1, n_layers=1, device="cpu")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The launchers never fall back: a CPU tensor handed to a kernel
+    wrapper is refused before anything is built."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(2, 16, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._launch_fwd(q, q, q, True, 1.0)
+    lse = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._launch_bwd(q, q, q, q, lse, q, True, 1.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
