@@ -16,14 +16,33 @@ Phases, each printed as it ends:
    its plain version's time, its bound and, where one exists, the time of
    the library call that computes the same function
    (``scaled_dot_product_attention``, timed only as a yardstick);
-4. the slice: a small f32 model on the card (kernels) against the same model
-   on the CPU (plain versions), then ``init()`` over NCCL, GPT-2-small width
-   (d_model 768, 12 heads, 12 layers, vocab 32768, T 1024),
-   ``broadcast_parameters``, ``DistributedOptimizer(AdamW)`` and 5 steps of
-   ``make_train_step`` on one seeded batch: the loss must be finite and
-   fall, and both flash launch counters must have moved; then one more step
-   under ``torch.profiler`` for the device time by kernel family and the
-   device's busy share (host time there includes the profiler's own cost).
+4. the ring block kernel (B2) against its plain version: in f32 with TF32
+   off at the small shapes, causal and not, at delta -T, 0, +T/2 and +T
+   (O, m, l at 2e-4 / 2e-5; at delta >= T exactly m = -1e30, l = 0, O = 0),
+   and in bf16 at the long-context shape (BH 2 x 12, T 4096, D 64) at delta
+   0 and -T, f32 outputs at the f32 forward tolerance (O relative to its
+   row sum l), with its time, the
+   plain version's and its bound; beside it the time of the block's dense
+   backward (PyTorch, not a kernel);
+5. the ring's merge on one card: one bf16 GPT-2-small attention input at T
+   4096 cut into 4 sequence pieces; each piece merges its 4 ring blocks in
+   the order a ring rank sees them, and the result must match B1's forward
+   over the whole sequence within two bf16 ulps;
+6. the data-parallel slice: a small f32 model on the card (kernels) against
+   the same model on the CPU (plain versions), then ``init()`` over NCCL,
+   GPT-2-small width (d_model 768, 12 heads, 12 layers, vocab 32768, T
+   1024), ``broadcast_parameters``, ``DistributedOptimizer(AdamW)`` and 5
+   steps of ``make_train_step`` on one seeded batch: the loss must be finite
+   and fall, and both flash launch counters must have moved; then one more
+   step under ``torch.profiler`` for the device time by kernel family and
+   the device's busy share (host time there includes the profiler's own
+   cost);
+7. the sequence-parallel slice: ``init()`` over NCCL, ``build_mesh({"data":
+   1, "seq": 1})``, GPT-2-small width at T 4096 with ``ring_attention`` over
+   the seq group and ``remat=True``, 5 AdamW steps of ``make_sp_train_step``
+   at batch 2 x 4096: the loss must be finite and fall and the ring block
+   kernel must have run; then one profiled step, with the block's dense
+   backward as a family of its own.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -44,7 +63,10 @@ GPT2_SMALL = dict(vocab_size=32768, d_model=768, n_heads=12, n_layers=12)
 STEPS = 5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense tensor cores
+SP_BATCH, SP_SEQ = 2, 4096   # the sequence-parallel slice: 8192 tokens a step, as above
+F32_RTOL, F32_ATOL = 2e-4, 2e-5
 KERNEL_SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+REPLACED = "horovod_tpu/ops/pallas_attention.py"
 # The kernels and the plain versions both compute in f32 from the same bf16
 # inputs and round O, dQ, dK and dV to bf16 once, at the end: they differ by
 # at most one bf16 ulp (2^-7 of the value) plus f32 summation noise. The
@@ -90,6 +112,13 @@ def max_err(out, ref, rtol: float, atol: float, what: str) -> float:
           f"{what}: {int(bad.sum())} elements beyond rtol {rtol} / atol {atol}, "
           f"max abs err {float(diff.max()):.3e}")
     return float(diff.max())
+
+
+def bound(nbytes: float, flops: float):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the bf16 peak, whichever is larger (ms, and which)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def phase_card():
@@ -198,11 +227,6 @@ def phase_kernels_bench():
     # operations on the causal entries (T(T+1)/2 per row block), bf16 peak.
     el, rows = bh * t * D, bh * t
     entries = bh * t * (t + 1) / 2
-
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
-
     b_fwd = bound(2 * 4 * el + 4 * rows, 4 * D * entries)
     b_dq = bound(2 * 6 * el + 4 * 2 * rows, 6 * D * entries)
     b_dkdv = bound(2 * 6 * el + 4 * 2 * rows, 8 * D * entries)
@@ -210,7 +234,7 @@ def phase_kernels_bench():
           f"bound {b_fwd[0]:.4f} by {b_fwd[1]}); bwd dQ {ms_dq:.4f} + dK/dV {ms_dkdv:.4f} "
           f"(plain {plain_bwd:.4f}, sdpa backward dQ+dK+dV {lib_bwd:.4f}, bounds "
           f"{b_dq[0]:.4f} by {b_dq[1]} + {b_dkdv[0]:.4f} by {b_dkdv[1]})", flush=True)
-    replaced = "horovod_tpu/ops/pallas_attention.py"
+    replaced = REPLACED
     return {
         "flash_fwd": dict(replaces=f"{replaced}:98", max_abs_err=err_fwd, ms=ms_fwd,
                           plain_ms=plain_fwd, bound=b_fwd, library_ms=lib_fwd),
@@ -222,6 +246,119 @@ def phase_kernels_bench():
                                ms=ms_dkdv, plain_ms=plain_bwd, bound=b_dkdv,
                                library_ms=None),
     }
+
+
+def phase_block_f32():
+    """B2 in f32 with TF32 off at the small shapes (ragged lengths
+    included), causal and not, at delta -T, 0, +T/2 (cutting through tiles)
+    and +T (no key visible)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (bh, t, d) in ((3, 200, 32), (4, 256, 64), (2, 136, 128)):
+        q, k, v, _ = _attention_inputs(bh, t, d, torch.float32, seed=t + d + 1)
+        scale = d ** -0.5
+        errs = []
+        for causal in (True, False):
+            for delta in (-t, 0, t // 2, t):
+                o, m, l = fa._launch_block_fwd(q, k, v, delta, causal, scale)
+                refs = fa._flash_block_plain(q, k, v, delta, causal, scale)
+                tag = f"block f32 bh={bh} t={t} d={d} causal={causal} delta={delta}"
+                for name, a, b in zip(("O", "m", "l"), (o, m, l), refs):
+                    errs.append(max_err(a, b, F32_RTOL, F32_ATOL, f"{tag} {name}"))
+                if causal and delta >= t:
+                    check(bool((m == -1e30).all() and (l == 0).all() and (o == 0).all()),
+                          f"{tag}: a block with no visible key must give m = -1e30, "
+                          f"l = 0, O = 0 exactly")
+        print(f"[block] f32 bh={bh} t={t} d={d}, causal and not, delta -T/0/+T/2/+T: "
+              f"max abs err {max(errs):.2e}; delta >= T exact", flush=True)
+
+
+def phase_block_bench():
+    """B2 in bf16 at the long-context slice's shape: parity at delta 0 (the
+    one-rank ring's only block) and -T (a block from an earlier rank: every
+    key visible), the times, and the block's dense backward."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    H, D = GPT2_SMALL["n_heads"], GPT2_SMALL["d_model"] // GPT2_SMALL["n_heads"]
+    bh, t = SP_BATCH * H, SP_SEQ
+    q, k, v, _ = _attention_inputs(bh, t, D, torch.bfloat16, seed=4)
+    scale = D ** -0.5
+    rows = {}
+    for delta in (0, -t):
+        o, m, l = fa._launch_block_fwd(q, k, v, delta, True, scale)
+        o_ref, m_ref, l_ref = fa._flash_block_plain(q, k, v, delta, True, scale)
+        # O is unnormalised: a sum of l ~ 1e2 terms p v at T 4096, whose f32
+        # rounding grows with l. The f32 forward tolerance holds O / l (the
+        # attention output it scales), with the reference's l for both.
+        l_div = torch.where(l_ref == 0, 1.0, l_ref)[..., None]
+        err = max(max_err(o / l_div, o_ref / l_div, F32_RTOL, F32_ATOL,
+                          f"block bf16 delta={delta} O / l"),
+                  max_err(m, m_ref, F32_RTOL, F32_ATOL, f"block bf16 delta={delta} m"),
+                  max_err(l, l_ref, F32_RTOL, F32_ATOL, f"block bf16 delta={delta} l"))
+        ms = time_ms(lambda: fa._launch_block_fwd(q, k, v, delta, True, scale), reps=10)
+        plain = time_ms(lambda: fa._flash_block_plain(q, k, v, delta, True, scale),
+                        reps=2, warmup=1)
+        visible = bh * (t * (t + 1) / 2 if delta == 0 else t * t)
+        b = bound(2 * 3 * bh * t * D + 4 * bh * t * D + 4 * 2 * bh * t, 4 * D * visible)
+        rows[delta] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=b)
+        print(f"[block] bf16 bh={bh} t={t} d={D} causal delta={delta}: max abs err "
+              f"{err:.2e}; ms {ms:.4f} (plain {plain:.4f}, bound {b[0]:.4f} by {b[1]}, "
+              f"{ms / b[0]:.1f}x)", flush=True)
+
+    # The block's backward is the reference's: a dense recompute of
+    # (O, m, l), differentiated by autograd (PyTorch ops, not a kernel).
+    o, m, l = fa._launch_block_fwd(q, k, v, 0, True, scale)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cts = [torch.randn(x.shape, device="cuda", generator=g) for x in (o, m, l)]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def dense_bwd():
+        out = fa._dense_block(qg, kg, vg, 0, scale, True)
+        return torch.autograd.grad(out, (qg, kg, vg), cts)
+
+    torch.cuda.reset_peak_memory_stats()
+    bwd_ms = time_ms(dense_bwd, reps=3, warmup=1)
+    print(f"[block] dense block backward (PyTorch) at bh={bh} t={t} d={D}: {bwd_ms:.4f} ms, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return rows[0]
+
+
+def phase_ring_merge():
+    """One card plays a 4-rank ring: each sequence piece of a bf16
+    GPT-2-small attention input at T 4096 merges its 4 B2 blocks in the
+    order ring rank r sees them (source (r - s) mod 4 at step s), and the
+    whole must match B1's forward over the full sequence."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    H, D = GPT2_SMALL["n_heads"], GPT2_SMALL["d_model"] // GPT2_SMALL["n_heads"]
+    bh, t, n = SP_BATCH * H, SP_SEQ, 4
+    tl = t // n
+    q, k, v, _ = _attention_inputs(bh, t, D, torch.bfloat16, seed=6)
+    scale = D ** -0.5
+    full, _ = fa._launch_fwd(q, k, v, True, scale)
+    piece = lambda x, i: x[:, i * tl:(i + 1) * tl].contiguous()
+    outs = []
+    for r in range(n):
+        m = torch.full((bh, tl), -1e30, device="cuda")
+        l = torch.zeros(bh, tl, device="cuda")
+        o = torch.zeros(bh, tl, D, device="cuda")
+        for s in range(n):
+            src = (r - s) % n
+            o_s, m_s, l_s = fa._launch_block_fwd(piece(q, r), piece(k, src), piece(v, src),
+                                                 (src - r) * tl, True, scale)
+            m_new = torch.maximum(m, m_s)
+            c, c_s = torch.exp(m - m_new), torch.exp(m_s - m_new)
+            o = o * c[..., None] + o_s * c_s[..., None]
+            l = l * c + l_s * c_s
+            m = m_new
+        outs.append((o / torch.where(l == 0, 1.0, l)[..., None]).to(torch.bfloat16))
+    err = max_err(torch.cat(outs, dim=1), full, BF16_RTOL, BF16_ATOL, "ring merge vs B1")
+    print(f"[ring] 4 pieces x 4 blocks merged on one card vs B1 over T {t} "
+          f"(bh={bh}, d={D}, causal, bf16): max abs err {err:.2e}", flush=True)
 
 
 def phase_small_model():
@@ -302,10 +439,65 @@ def phase_train():
         hvd.shutdown()
 
 
-def profile_step(run_step) -> None:
+def phase_sp_train():
+    import numpy as np
+    import torch
+    from functools import partial
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+    from horovod_tpu_torch.parallel.sp import make_sp_train_step
+
+    hvd.init()
+    try:
+        mesh = build_mesh({"data": 1, "seq": 1})
+        model = TransformerLM(
+            **GPT2_SMALL, max_len=SP_SEQ, dtype=torch.bfloat16, seed=0, remat=True,
+            attn_fn=partial(ring_attention, group=mesh.get_group("seq"), causal=True))
+        rng = np.random.RandomState(1)
+        tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                                       (SP_BATCH, SP_SEQ))).cuda()
+                          for _ in range(2))
+        step = make_sp_train_step(
+            lambda m, tok, lab, pos: lm_loss(m(tok, positions=pos), lab),
+            torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8),
+            mesh)
+        torch.cuda.reset_peak_memory_stats()
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fa.BLOCK_LAUNCHES = 0
+        losses, times = [], []
+        for _ in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(model, tokens, labels)))
+            times.append(time.perf_counter() - t0)
+        launches = {"block": fa.BLOCK_LAUNCHES, "fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
+        print(f"[sp] GPT-2-small, ring attention on a data 1 x seq 1 mesh, remat, batch "
+              f"{SP_BATCH} x {SP_SEQ} tokens: losses {losses}", flush=True)
+        check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(launches["block"] > 0, f"ring block launches {launches}")
+        per_step = launches["block"] / STEPS
+        med = statistics.median(times[1:])
+        print(f"[sp] step ms median {med * 1e3:.2f} (steps 2-{STEPS}; first "
+              f"{times[0] * 1e3:.1f}), tokens/s {SP_BATCH * SP_SEQ / med:.0f}, launches "
+              f"{launches} ({per_step:g} block launches a step; expected 24: 12 forward "
+              f"+ 12 recomputed under remat), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        profile_step(lambda: float(step(model, tokens, labels)),
+                     span="flash_block_backward")
+        return launches
+    finally:
+        hvd.shutdown()
+
+
+def profile_step(run_step, span=None) -> None:
     """One more step under torch.profiler: device time by kernel family and
     the device's busy share of the step (taken after the timed steps, so the
-    profiler's cost touches no reported step time)."""
+    profiler's cost touches no reported step time). Kernels that start
+    inside a ``record_function`` range named ``span`` form a family of
+    their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -315,17 +507,25 @@ def profile_step(run_step) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events, without the annotation ranges (Optimizer.step...)
     # that span other kernels.
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not e.is_user_annotation]
     if not kernels:
         print("[profile] the profiler saw no device activity: not measured", flush=True)
         return
+    ranges = [(e.time_range.start, e.time_range.end) for e in device
+              if e.is_user_annotation and e.name == span]
     families = {"flash": 0.0, "gemm": 0.0, "nccl": 0.0, "other": 0.0}
+    if span is not None:
+        families[span] = 0.0
+        if not ranges:
+            print(f"[profile] no device range named {span}: its family is not measured",
+                  flush=True)
     others = {}
     for e in kernels:
         name, us = e.name.lower(), e.time_range.elapsed_us()
+        start = e.time_range.start
         fam = ("flash" if "flash_" in name     # the port's kernels: no SDPA in the step
+               else span if any(a <= start < b for a, b in ranges)
                else "gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet"))
                else "nccl" if "nccl" in name else "other")
         families[fam] += us / 1e3
@@ -360,10 +560,18 @@ def main() -> int:
     phase_build()
     phase_kernels_f32()
     rows = phase_kernels_bench()
+    phase_block_f32()
+    rows["flash_block_fwd"] = dict(
+        phase_block_bench(), replaces=f"{REPLACED}:369",
+        # No PyTorch call returns the unnormalised O with the row max and
+        # sum; scaled_dot_product_attention normalises.
+        library_ms=None)
+    phase_ring_merge()
     phase_small_model()
     launches = phase_train()
+    sp_launches = phase_sp_train()
     counts = {"flash_fwd": launches["fwd"], "flash_bwd_dq": launches["bwd"],
-              "flash_bwd_dkdv": launches["bwd"]}
+              "flash_bwd_dkdv": launches["bwd"], "flash_block_fwd": sp_launches["block"]}
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": r["replaces"], "launches": counts[name],

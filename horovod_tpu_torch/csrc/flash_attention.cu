@@ -1,14 +1,23 @@
-// Flash attention for Hopper (sm_90a): forward, backward dQ, backward dK/dV.
+// Flash attention for Hopper (sm_90a): forward, ring block forward, backward
+// dQ, backward dK/dV.
 //
-// Replaces the TPU kernel horovod_tpu/ops/pallas_attention.py:_fwd_kernel
-// (launched by _flash_call, normalize=True, delta=0) and the XLA lax.scan
-// backward horovod_tpu/ops/pallas_attention.py:_flash_vjp_bwd.
+// Replaces the TPU kernel horovod_tpu/ops/pallas_attention.py:_fwd_kernel in
+// both its modes (launched by _flash_call: normalize=True with delta=0, and
+// normalize=False with a delta for the ring-attention block) and the XLA
+// lax.scan backward horovod_tpu/ops/pallas_attention.py:_flash_vjp_bwd.
 //
-// What it computes, over q, k, v of shape [BH, T, D] (row-major, contiguous):
+// What it computes, over q [BH, Tq, D] and k, v [BH, Tk, D] (row-major,
+// contiguous):
 //   forward:  O = softmax(Q K^T * scale [causal mask]) V, in the input dtype,
 //             and lse = m + log(l == 0 ? 1 : l) in f32 [BH, T], with the online
 //             softmax in f32. Masked scores are -1e30 and p is masked again, so
 //             a fully masked row gives 0, as _fwd_kernel does.
+//   block:    the same loop with the causal mask qi >= kj + delta, written
+//             without normalising: O = sum P V in f32, the row max m and the
+//             row sum l = sum exp(s - m), f32 [BH, Tq] each, for the ring's
+//             online-softmax merge. A row that sees no key gives m = -1e30,
+//             l = 0, O = 0. The block's backward is a dense recompute in
+//             PyTorch, as the reference's (_flash_block_vjp_bwd) is in XLA.
 //   backward: P is recomputed from the saved lse; Dsum = rowsum(dO * O);
 //             dS = P * (dP - Dsum) * scale; dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
@@ -18,14 +27,20 @@
 // GPT-2-small shape (BH = 96, T = 1024, D = 64) that is 50 MB against 12.9 GFLOP:
 // 15 us of HBM traffic against 13 us at the 989 TFLOP/s tensor-core peak, so
 // the work sits near the ridge, and a kernel that runs its products on the CUDA
-// cores (67 TFLOP/s f32) is bound by operations.
+// cores (67 TFLOP/s f32) is bound by operations. The block forward at the
+// long-context shape (BH = 24, T = 4096, D = 64, delta = 0) reads 38 MB of bf16
+// q, k, v and writes 26 MB of f32 O, m, l (19 us) against 51.5 GFLOP (52 us at
+// the tensor-core peak): bound by operations too. At delta = -T it sees every
+// key, twice the work; at delta >= T it sees none and only writes.
 //
 // What this simple design does about it. Each block keeps its 64-row tiles in
 // shared memory as f32 and never writes the T x T score matrix to device
 // memory, so device traffic stays near the one-read-one-write minimum; the
 // causal loops skip the tiles above the diagonal, halving the work. The
 // products are f32 FMAs on the CUDA cores, a 4 x 4 register tile per thread:
-// right first, and the same code serves the f32 parity check. Tensor cores
+// right first, and the same code serves the f32 parity check. Both forwards
+// share one Q-tile loop (fwd_q_tile), whose causal bound moves with delta, so
+// the ring block skips the tiles its shifted mask hides. Tensor cores
 // (mma/wgmma), TMA and warp specialisation are later work. The two backward
 // kernels use no atomics, so gradients are deterministic: dQ loops over K tiles
 // for one Q tile and also writes Dsum; dK/dV then loops over Q tiles for one K
@@ -81,30 +96,26 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
 }
 
 // ---------------------------------------------------------------- forward --
-// One block per (Q tile, bh). Heavier causal tiles (late Q rows) launch first.
+// The online softmax of one 64-row Q tile over the K tiles it can see: on
+// return acc holds the unnormalised sum P V, m the row max of the scaled
+// scores and l the sum of exp(s - m), per row of the thread's 4 x 4 tile.
+// Under the causal mask key kj is visible to query qi when qi >= kj + delta
+// (delta = the K block's sequence origin minus Q's; 0 for self-attention).
+// Without causal, delta is ignored.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int tq, int tk, float scale,
-                 int causal) {
+__device__ __forceinline__ void fwd_q_tile(const T* __restrict__ qb, const T* __restrict__ kb,
+                                           const T* __restrict__ vb, float* smem, int q0, int tq,
+                                           int tk, float scale, int causal, int delta,
+                                           float (&acc)[4][D / 16], float (&m)[4], float (&l)[4]) {
   constexpr int LD = D + 1, LP = kBlockK + 1, DJ = D / 16;
-  extern __shared__ float smem[];
   float* sq = smem;                 // [kBlockQ][LD]
   float* sk = sq + kBlockQ * LD;    // [kBlockK][LD]
   float* sv = sk + kBlockK * LD;    // [kBlockK][LD]
   float* sp = sv + kBlockK * LD;    // [kBlockQ][LP]
-
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* qb = q + (int64_t)bh * tq * D;
-  const T* kb = k + (int64_t)bh * tk * D;
-  const T* vb = v + (int64_t)bh * tk * D;
 
   load_tile<T, D, kBlockQ>(sq, qb, q0, tq);
 
-  float acc[4][DJ];
-  float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
@@ -113,8 +124,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  // Under the causal mask no key past this tile's last query row is seen.
-  const int k_end = causal ? min(tk, q0 + kBlockQ) : tk;
+  // Under the causal mask no key at or past q0 + kBlockQ - delta is seen by
+  // this tile; a delta of a whole tile or more leaves it no key at all.
+  const int k_end = causal ? max(0, min(tk, q0 + kBlockQ - delta)) : tk;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's sk/sv/sp are no longer read
     load_tile<T, D, kBlockK>(sk, kb, k0, tk);
@@ -147,7 +159,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        ok[j] = kj < tk && (!causal || qi >= kj);
+        ok[j] = kj < tk && (!causal || qi >= kj + delta);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         row_max = fmaxf(row_max, s[i][j]);
       }
@@ -182,6 +194,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
   }
+}
+
+// B1: one block per (Q tile, bh); heavier causal tiles (late Q rows) launch
+// first. Writes O = acc / l in the input dtype and lse = m + log l.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int tq, int tk, float scale,
+                 int causal) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][DJ], m[4], l[4];
+  fwd_q_tile<T, D>(q + (int64_t)bh * tq * D, k + (int64_t)bh * tk * D, v + (int64_t)bh * tk * D,
+                   smem, q0, tq, tk, scale, causal, 0, acc, m, l);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -192,6 +221,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / li);
     if (tx == 0) lse[(int64_t)bh * tq + qi] = m[i] + logf(li);
+  }
+}
+
+// B2, the ring-attention block: the same tile loop with the causal mask
+// shifted by delta, and no normalisation. Writes the f32 triple the ring
+// merges across ranks: O = sum P V unnormalised, m and l exactly as the loop
+// keeps them. A row that sees no key keeps m = -1e30, l = 0 and O = 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_block_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       float* __restrict__ o, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int tq, int tk, float scale, int causal,
+                       int delta) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][DJ], m[4], l[4];
+  fwd_q_tile<T, D>(q + (int64_t)bh * tq * D, k + (int64_t)bh * tk * D, v + (int64_t)bh * tk * D,
+                   smem, q0, tq, tk, scale, causal, delta, acc, m, l);
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= tq) continue;
+    float* orow = o + ((int64_t)bh * tq + qi) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j];
+    if (tx == 0) {
+      m_out[(int64_t)bh * tq + qi] = m[i];
+      l_out[(int64_t)bh * tq + qi] = l[i];
+    }
   }
 }
 
@@ -466,6 +528,21 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
 }
 
 template <typename T, int D>
+cudaError_t launch_block_fwd(const void* q, const void* k, const void* v, void* o, void* m,
+                             void* l, int bh, int tq, int tk, float scale, int causal, int delta,
+                             cudaStream_t stream) {
+  auto kernel = flash_block_fwd_kernel<T, D>;
+  const size_t smem = fwd_smem(D);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(tq, kBlockQ), bh), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (float*)o, (float*)m, (float*)l, tq, tk, scale,
+      causal, delta);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const void* lse, void* dq, void* dsum, int bh, int tq,
                           int tk, float scale, int causal, cudaStream_t stream) {
@@ -517,6 +594,13 @@ extern "C" {
 int hvt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq,
                   int tk, int d, int dtype, float scale, int causal, void* stream) {
   HVT_DISPATCH(dtype, d, launch_fwd, q, k, v, o, lse, bh, tq, tk, scale, causal,
+               (cudaStream_t)stream);
+}
+
+int hvt_flash_block_fwd(const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                        int bh, int tq, int tk, int d, int dtype, float scale, int causal,
+                        int delta, void* stream) {
+  HVT_DISPATCH(dtype, d, launch_block_fwd, q, k, v, o, m, l, bh, tq, tk, scale, causal, delta,
                (cudaStream_t)stream);
 }
 

@@ -8,8 +8,15 @@ The counterpart of ``horovod_tpu/models/transformer.py``:
   ``block_{i}/mlp/{up,down}``, ``ln_f``, ``lm_head``), so every parameter
   name maps one to one onto the flax tree (``.`` for ``/``);
 - :func:`tp_apply`, the forward over the same tree as a nested dict of
-  tensors, with :func:`lm_loss` and :func:`make_gpt_loss_fn`. The module's
-  ``forward`` is ``tp_apply`` over its own parameters.
+  tensors, with :func:`lm_loss` and :func:`make_gpt_loss_fn`.
+
+Both forms run the same blocks (:func:`_forward`) and differ where their
+JAX counterparts differ, in the input embedding: the flax module looks each
+table up through ``nn.Embed(dtype=dtype)`` and adds the two lookups in
+``dtype``; the JAX ``tp_apply`` adds in f32 and casts once. The module
+also takes the flax module's ``attn_fn`` (ring or Ulysses attention for
+sequence parallelism) and ``remat`` (each block recomputed in the backward,
+``nn.remat(Block)``).
 
 The forward computes in ``dtype`` (bf16 by default) with an f32
 ``lm_head``, and attention goes through the flash kernels
@@ -21,11 +28,13 @@ layer norm uses eps 1e-6 with f32 statistics; gelu is the tanh form, as
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..common.basics import resolve_device
 from ..ops.flash_attention import flash_attention_bthd
@@ -111,19 +120,25 @@ def _block(d_model: int, mlp_ratio: int = 4, *, device) -> nn.ModuleDict:
 
 class TransformerLM(nn.Module):
     """GPT decoder. ``forward(tokens [B, T], positions=None)`` returns f32
-    logits ``[B, T, vocab]``; it is :func:`tp_apply` over the module's own
-    parameters. Weights are drawn from ``seed`` with flax's default
-    initialisers; ``device=None`` means the card."""
+    logits ``[B, T, vocab]``. Weights are drawn from ``seed`` with flax's
+    default initialisers; ``device=None`` means the card.
+
+    ``attn_fn(q, k, v)`` takes and returns ``[B, T, H, D]``; None means
+    causal flash attention. ``remat=True`` recomputes each block's
+    activations in the backward instead of keeping them."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 8,
                  n_layers: int = 4, max_len: int = 2048, *,
-                 dtype=torch.bfloat16, device=None, seed: int = 0):
+                 dtype=torch.bfloat16, device=None, seed: int = 0,
+                 attn_fn: Optional[Callable] = None, remat: bool = False):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by n_heads {n_heads}")
         device = resolve_device(device)
         self.n_heads = n_heads
         self.dtype = dtype
+        self.attn_fn = attn_fn
+        self.remat = remat
         self.embeddings = Embed(vocab_size, d_model, device=device)
         self.pos_embeddings = Embed(max_len, d_model, device=device)
         for i in range(n_layers):
@@ -137,8 +152,15 @@ class TransformerLM(nn.Module):
                     module.reset_parameters(generator)
 
     def forward(self, tokens, positions=None):
-        return tp_apply(param_tree(self), tokens, n_heads=self.n_heads,
-                        positions=positions, dtype=self.dtype)
+        B, T = tokens.shape
+        if positions is None:
+            positions = torch.arange(T, device=tokens.device).expand(B, T)
+        # nn.Embed(dtype=dtype): each lookup in dtype, added in dtype.
+        x = (F.embedding(tokens, self.embeddings.embedding).to(self.dtype)
+             + F.embedding(positions, self.pos_embeddings.embedding).to(self.dtype))
+        attn = self.attn_fn or partial(flash_attention_bthd, causal=True)
+        return _forward(param_tree(self), x, n_heads=self.n_heads, dtype=self.dtype,
+                        attn=attn, remat=self.remat)
 
 
 # --- the forward, over a nested dict of parameters --------------------------
@@ -146,6 +168,37 @@ class TransformerLM(nn.Module):
 
 def transformer_n_layers(params) -> int:
     return sum(1 for k in params if str(k).startswith("block_"))
+
+
+def _apply_block(bp, x, *, n_heads: int, dtype, attn: Callable):
+    B, T, C = x.shape
+    shape = (B, T, n_heads, C // n_heads)
+    h = _layer_norm(x, bp["ln_1"], dtype)
+    att = bp["attention"]
+    q = h @ att["query"]["kernel"].to(dtype)
+    k = h @ att["key"]["kernel"].to(dtype)
+    v = h @ att["value"]["kernel"].to(dtype)
+    a = attn(q.reshape(shape), k.reshape(shape), v.reshape(shape))
+    x = x + a.reshape(B, T, C) @ att["out"]["kernel"].to(dtype)
+    h = _layer_norm(x, bp["ln_2"], dtype)
+    mlp = bp["mlp"]
+    u = F.gelu(h @ mlp["up"]["kernel"].to(dtype) + mlp["up"]["bias"].to(dtype),
+               approximate="tanh")
+    return x + (u @ mlp["down"]["kernel"].to(dtype) + mlp["down"]["bias"].to(dtype))
+
+
+def _forward(params, x, *, n_heads: int, dtype, attn: Callable, remat: bool = False):
+    """The blocks, ``ln_f`` and the f32 ``lm_head`` over the embedded
+    input ``x`` [B, T, C]."""
+    C = x.shape[-1]
+    if C % n_heads:
+        raise ValueError(f"d_model {C} not divisible by n_heads {n_heads}")
+    for i in range(transformer_n_layers(params)):
+        block = partial(_apply_block, params[f"block_{i}"], n_heads=n_heads,
+                        dtype=dtype, attn=attn)
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+    x = _layer_norm(x, params["ln_f"], dtype)
+    return x.float() @ params["lm_head"]["kernel"].float()
 
 
 def tp_apply(
@@ -171,28 +224,8 @@ def tp_apply(
     emb = params["embeddings"]["embedding"]
     pos = params["pos_embeddings"]["embedding"]
     x = (F.embedding(tokens, emb) + F.embedding(positions, pos)).to(dtype)
-    C = emb.shape[-1]
-    if C % n_heads:
-        raise ValueError(f"d_model {C} not divisible by n_heads {n_heads}")
-    shape = (B, T, n_heads, C // n_heads)
-    for i in range(transformer_n_layers(params)):
-        bp = params[f"block_{i}"]
-        h = _layer_norm(x, bp["ln_1"], dtype)
-        att = bp["attention"]
-        q = h @ att["query"]["kernel"].to(dtype)
-        k = h @ att["key"]["kernel"].to(dtype)
-        v = h @ att["value"]["kernel"].to(dtype)
-        a = flash_attention_bthd(
-            q.reshape(shape), k.reshape(shape), v.reshape(shape), causal=causal,
-        )
-        x = x + a.reshape(B, T, C) @ att["out"]["kernel"].to(dtype)
-        h = _layer_norm(x, bp["ln_2"], dtype)
-        mlp = bp["mlp"]
-        u = F.gelu(h @ mlp["up"]["kernel"].to(dtype) + mlp["up"]["bias"].to(dtype),
-                   approximate="tanh")
-        x = x + (u @ mlp["down"]["kernel"].to(dtype) + mlp["down"]["bias"].to(dtype))
-    x = _layer_norm(x, params["ln_f"], dtype)
-    return x.float() @ params["lm_head"]["kernel"].float()
+    return _forward(params, x, n_heads=n_heads, dtype=dtype,
+                    attn=partial(flash_attention_bthd, causal=causal))
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,13 @@ is how the tests run); for CUDA tensors it launches the kernel or raises.
 ``FWD_LAUNCHES`` counts launches of the forward kernel. ``BWD_LAUNCHES``
 counts backward launches, each of which launches the dQ kernel and then
 the dK/dV kernel once.
+
+The ring-attention block (``flash_attention_block``, the reference's
+``normalize=False`` mode of the same TPU kernel) has its own kernel,
+counted by ``BLOCK_LAUNCHES``, and its plain version
+``_flash_block_plain``. Its backward is a dense recompute
+(``_dense_block``) differentiated by autograd, as the reference's is a
+dense XLA recompute.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BLOCK_LAUNCHES = 0
 
 
 def _pick_block(t: int, pref: int) -> int:
@@ -74,10 +82,12 @@ def _dense_full(q, k, v, causal, sm_scale):
 # Plain versions: the reference's arithmetic, one K block at a time.
 # --------------------------------------------------------------------------
 
-def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
-                     block_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_fwd_kernel`` with ``normalize=True``: the online softmax over K
-    blocks in f32. Returns O in the input dtype and lse = m + log l (f32)."""
+def _online_softmax_plain(q, k, v, causal: bool, sm_scale: float, delta: int,
+                          block_k: int = 128):
+    """The loop of ``_fwd_kernel``: the online softmax over K blocks in f32,
+    with key ``j`` visible to query ``i`` under the causal mask when
+    ``i >= j + delta``. Returns the unnormalised sum P V [BH, T_q, D] and the
+    row max m and row sum l, [BH, T_q, 1] each."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     bk = _pick_block(t_k, block_k)
@@ -89,7 +99,7 @@ def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
     for k0 in range(0, t_k, bk):
         s = qf @ k[:, k0:k0 + bk].float().transpose(1, 2) * sm_scale
         if causal:
-            mask = q_pos >= torch.arange(k0, k0 + bk, device=q.device)[None, :]
+            mask = q_pos >= torch.arange(k0, k0 + bk, device=q.device)[None, :] + delta
             s = torch.where(mask, s, _NEG_INF)
         m_curr = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_curr)
@@ -100,8 +110,44 @@ def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p @ v[:, k0:k0 + bk].float()
         m = m_curr
+    return acc, m, l
+
+
+def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
+                     block_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_fwd_kernel`` with ``normalize=True``: returns O in the input dtype
+    and lse = m + log l (f32)."""
+    acc, m, l = _online_softmax_plain(q, k, v, causal, sm_scale, 0, block_k)
     l = torch.where(l == 0.0, 1.0, l)   # fully masked rows -> 0 out
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _flash_block_plain(q, k, v, delta: int, causal: bool, sm_scale: float,
+                       block_k: int = 128):
+    """``_fwd_kernel`` with ``normalize=False``, the ring-attention block:
+    the f32 triple (unnormalised O, m, l) with the causal mask shifted by
+    ``delta``. A row that sees no key keeps m = -1e30, l = 0, O = 0."""
+    acc, m, l = _online_softmax_plain(q, k, v, causal, sm_scale, delta, block_k)
+    return acc, m[..., 0], l[..., 0]
+
+
+def _dense_block(q, k, v, delta: int, sm_scale: float, causal: bool):
+    """The block's (O, m, l) computed densely in f32: the recompute target
+    of the block's backward (``pallas_attention.py:_dense_block``). m is
+    ``amax`` and ``maximum``, whose gradients ties share, as they share
+    ``jnp.max``'s and ``jnp.maximum``'s."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = qf @ kf.transpose(1, 2) * sm_scale
+    if causal:
+        t_q, t_k = q.shape[1], k.shape[1]
+        mask = (torch.arange(t_q, device=q.device)[:, None]
+                >= torch.arange(t_k, device=q.device)[None, :] + delta)
+        s = torch.where(mask, s, _NEG_INF)
+    m = torch.maximum(torch.amax(s, dim=-1), s.new_tensor(_NEG_INF))
+    p = torch.exp(s - m[..., None])
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    return p @ vf, m, p.sum(dim=-1)
 
 
 def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
@@ -149,10 +195,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_hvt_bound", False):
         lib.hvt_flash_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_F, _I, _P]
+        lib.hvt_flash_block_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]
         lib.hvt_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
         lib.hvt_flash_bwd_dkdv.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
-        for fn in (lib.hvt_flash_fwd, lib.hvt_flash_bwd_dq,
-                   lib.hvt_flash_bwd_dkdv):
+        for fn in (lib.hvt_flash_fwd, lib.hvt_flash_block_fwd,
+                   lib.hvt_flash_bwd_dq, lib.hvt_flash_bwd_dkdv):
             fn.restype = ctypes.c_int
         lib._hvt_bound = True
     return lib
@@ -221,6 +268,21 @@ def _launch_fwd(q, k, v, causal: bool, sm_scale: float):
          bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
     FWD_LAUNCHES += 1
     return o, lse
+
+
+def _launch_block_fwd(q, k, v, delta: int, causal: bool, sm_scale: float):
+    """The ring block kernel: (O f32, m, l) with the causal mask shifted by
+    ``delta``."""
+    global BLOCK_LAUNCHES
+    bh, t_q, t_k, d = _check_cuda(q, k, v)
+    o = torch.empty(bh, t_q, d, dtype=torch.float32, device=q.device)
+    m = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
+    l = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
+    _run("hvt_flash_block_fwd", q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal), int(delta))
+    BLOCK_LAUNCHES += 1
+    return o, m, l
 
 
 def _launch_bwd_dq(q, k, v, o, lse, do, causal: bool, sm_scale: float):
@@ -345,3 +407,46 @@ def flash_attention_bthd(
     else:
         out = _dense_full(qf, kf, vf, causal, scale)
     return out.reshape(B, H, T, D).transpose(1, 2)
+
+
+class _FlashBlock(torch.autograd.Function):
+    """The counterpart of the reference's ``_flash_block`` custom VJP: the
+    forward runs the block kernel; the backward recomputes (O, m, l) densely
+    from q, k, v and differentiates against all three cotangents."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, delta: int, causal: bool, sm_scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.delta, ctx.causal, ctx.sm_scale = delta, causal, sm_scale
+        if _on_cpu(q):
+            return _flash_block_plain(q, k, v, delta, causal, sm_scale)
+        return _launch_block_fwd(q, k, v, delta, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, do, dm, dl):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad(), torch.profiler.record_function("flash_block_backward"):
+            out = _dense_block(q, k, v, ctx.delta, ctx.sm_scale, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), (do, dm, dl))
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_block(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    delta: int,
+    *,
+    sm_scale: float,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ring-attention block over q ``[BH, T_q, D]`` and k, v
+    ``[BH, T_k, D]``. ``delta`` is the K block's global sequence origin
+    minus Q's (key j sits at position j + delta). Returns the f32 triple
+    ``(o_unnormalised, m, l)`` for the caller's online-softmax merge
+    (``parallel/ring_attention.py``). Differentiable in q, k and v. Lengths
+    the reference kernel's grid refuses are refused here too."""
+    _pick_block(q.shape[1], 128)
+    _pick_block(k.shape[1], 128)
+    return _FlashBlock.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                             int(delta), causal, sm_scale)

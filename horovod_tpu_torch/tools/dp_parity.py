@@ -21,35 +21,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import subprocess
 import sys
-import tempfile
+
+from .launch import launch_ranks, store_url
 
 DIMS = dict(vocab_size=1024, d_model=256, n_heads=4, n_layers=2, max_len=256)
 PER_RANK_BATCH, SEQ, STEPS, LR = 2, 256, 3, 3e-4
-
-
-def _launch(n: int, device: str) -> int:
-    store_dir = tempfile.mkdtemp(prefix="hvd_dp_parity_")
-    procs = []
-    try:
-        for r in range(n):
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "horovod_tpu_torch.tools.dp_parity",
-                 "--ranks", str(n), "--device", device],
-                env={**os.environ, "HOROVOD_RANK": str(r), "HOROVOD_SIZE": str(n),
-                     "HOROVOD_LOCAL_RANK": str(r), "HOROVOD_LOCAL_SIZE": str(n),
-                     "HVD_DP_PARITY_DIR": store_dir},
-            ))
-        codes = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        shutil.rmtree(store_dir, ignore_errors=True)
-    return max(abs(c) for c in codes)
 
 
 def _worker(device) -> None:
@@ -60,7 +37,7 @@ def _worker(device) -> None:
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    hvd.init(device, init_method=f"file://{os.environ['HVD_DP_PARITY_DIR']}/store")
+    hvd.init(device, init_method=store_url())
     try:
         r, n = hvd.rank(), hvd.size()
         dev = hvd.device()
@@ -124,7 +101,9 @@ def main() -> int:
     ap.add_argument("--device", default=None, help="cpu for gloo; default: one GPU per rank")
     args = ap.parse_args()
     if "HOROVOD_RANK" not in os.environ:
-        return _launch(args.ranks, args.device or "cuda")
+        return launch_ranks("horovod_tpu_torch.tools.dp_parity",
+                            ["--ranks", str(args.ranks), "--device", args.device or "cuda"],
+                            args.ranks)
     _worker(args.device)
     return 0
 

@@ -23,7 +23,11 @@ def test_import_loads_no_jax():
     # A subprocess: this test process imported jax already (conftest).
     code = (
         "import sys, horovod_tpu_torch, horovod_tpu_torch.models.transformer, "
-        "horovod_tpu_torch.utils.convert, horovod_tpu_torch.ops.flash_attention\n"
+        "horovod_tpu_torch.utils.convert, horovod_tpu_torch.ops.flash_attention, "
+        "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.parallel.ring_attention, "
+        "horovod_tpu_torch.parallel.sp, horovod_tpu_torch.tools.sp_parity, "
+        "horovod_tpu_torch.tools.dp_parity, horovod_tpu_torch.tools.kernel_bounds, "
+        "horovod_tpu_torch.examples.long_context_sp\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -123,6 +127,19 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_gpu):
     TransformerLM(64, d_model=32, n_heads=1, n_layers=1, device="cpu")
 
 
+def test_long_context_example_defaults_to_the_card(no_gpu, monkeypatch, capsys):
+    """The sequence-parallel example starts one rank per card and refuses
+    to start without one unless asked for the CPU."""
+    from horovod_tpu_torch.examples import long_context_sp
+
+    monkeypatch.delenv("HOROVOD_RANK", raising=False)
+    monkeypatch.setattr(sys, "argv", ["long_context_sp"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(SystemExit):
+        long_context_sp.main()
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The launchers never fall back: a CPU tensor handed to a kernel
     wrapper is refused before anything is built."""
@@ -134,5 +151,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     lse = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         fa._launch_bwd(q, q, q, q, lse, q, True, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._launch_block_fwd(q, q, q, 0, True, 1.0)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_attention_block(q.to("meta"), q.to("meta"), q.to("meta"), 0, sm_scale=1.0)
