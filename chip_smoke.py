@@ -42,7 +42,30 @@ Phases, each printed as it ends:
    the seq group and ``remat=True``, 5 AdamW steps of ``make_sp_train_step``
    at batch 2 x 4096: the loss must be finite and fall and the ring block
    kernel must have run; then one profiled step, with the block's dense
-   backward as a family of its own.
+   backward as a family of its own;
+8. ``[tp-kernels]``: the collective-matmul kernels B3 (chunk product) and B4
+   (partial product and epilogue) against their plain versions: at small
+   ragged shapes (batch > 1, sub-chunks 1 and 2, row offsets) in f32 with
+   TF32 off at 2e-4 / 2e-5 and in bf16, and in bf16 at the GPT-2-small tp-4
+   per-rank shapes (B3: q/k/v and MLP up; B4: attention out and MLP down),
+   B3's bf16 output at two bf16 ulps and B4's f32 accumulator at 2e-4 / 2e-5, with
+   the time of one rank's call (4 chunk products; 4 partial products and
+   the epilogue), the plain versions' time, the bound and ``torch.matmul``
+   over the same product (timed only as a yardstick);
+9. ``[tp-ring]``: a 4-rank bidirectional ring played on one card by four
+   threads, one per virtual rank, through the port's own schedule
+   (``_ag_matmul``, ``_mrs`` and their dual-primitive backwards), the hops
+   being device copies between the virtual ranks' buffers: B3's output
+   bitwise equal to the kernel over the gathered input, and through an
+   identity weight bitwise equal to the gathered x; B4's outputs, gathered,
+   equal to the sum over ranks of y_r @ w_r (the psum identity) within two
+   bf16 ulps; the backwards against their dense forms. The B3/B4 launch
+   counts of the kernels line come from this phase;
+10. ``[tp]``: the composed DP×TP step, ``make_train_step(rules="gpt")`` on a
+   ``data 1 x model 1`` mesh, GPT-2-small at batch 8 x 1024, 5 AdamW steps:
+   the loss must be finite and fall. (With one model rank the all-reduces
+   are no-ops and the fused path is not taken, as in the reference; the
+   fused path runs across cards in ``tools/tp_parity.py``.)
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -67,6 +90,9 @@ SP_BATCH, SP_SEQ = 2, 4096   # the sequence-parallel slice: 8192 tokens a step, 
 F32_RTOL, F32_ATOL = 2e-4, 2e-5
 KERNEL_SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
 REPLACED = "horovod_tpu/ops/pallas_attention.py"
+CM_SOURCE = "horovod_tpu_torch/csrc/collective_matmul.cu"
+CM_REPLACED = "horovod_tpu/ops/collective_matmul.py"
+TP = 4              # the model axis the tp phases play: GPT-2-small on 4 cards
 # The kernels and the plain versions both compute in f32 from the same bf16
 # inputs and round O, dQ, dK and dV to bf16 once, at the end: they differ by
 # at most one bf16 ulp (2^-7 of the value) plus f32 summation noise. The
@@ -114,6 +140,20 @@ def max_err(out, ref, rtol: float, atol: float, what: str) -> float:
     return float(diff.max())
 
 
+def rel_err(out, ref, what: str, limit: float = 2e-2) -> float:
+    """max |out - ref| over max |ref|. For the bf16 weight gradients: the
+    ring adds its n per-source terms in bf16, as the reference's
+    ``_ring_grad_w`` does, so elements where the terms cancel carry errors
+    of the terms' size; a missing or repeated term moves it by ~1/n."""
+    import torch
+
+    out, ref = out.detach().float(), ref.detach().float()
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite values")
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    check(rel <= limit, f"{what}: max error {rel:.3e} of the largest value, limit {limit}")
+    return rel
+
+
 def bound(nbytes: float, flops: float):
     """The least time the card could take: bytes over the memory rate or
     operations over the bf16 peak, whichever is larger (ms, and which)."""
@@ -137,13 +177,14 @@ def phase_build():
     from horovod_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(["flash_attention"])
+    reports = _build.build(["flash_attention", "collective_matmul"])
     secs = time.perf_counter() - t0
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
-    print(f"[build] flash_attention built in {secs:.1f} s", flush=True)
+    print(f"[build] flash_attention and collective_matmul built in {secs:.1f} s "
+          f"(one nvcc each, in parallel)", flush=True)
 
 
 def _attention_inputs(bh, t, d, dtype, seed):
@@ -492,6 +533,295 @@ def phase_sp_train():
         hvd.shutdown()
 
 
+def _randn(shape, dtype, seed, scale=1.0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, device="cuda", generator=g) * scale).to(dtype)
+
+
+def phase_tp_kernels_f32():
+    """B3 and B4 at small ragged shapes: batch > 1, sub-chunks 1 and 2 of a
+    chunk at its row offset in the gathered output, the partial product
+    with and without an arriving accumulator, and the epilogue. In f32 with
+    TF32 off (the FMA kernel) at 2e-4 / 2e-5, and in bf16 (the WMMA kernel's
+    masked edges and its scalar loads where rows are not 16-byte aligned)
+    with B3's output at two bf16 ulps and B4's f32 accumulator at 2e-4 /
+    2e-5."""
+    import torch
+    from horovod_tpu_torch.ops import collective_matmul as cm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {torch.float32: [], torch.bfloat16: []}
+    for dtype in (torch.float32, torch.bfloat16):
+        out_tol = (F32_RTOL, F32_ATOL) if dtype == torch.float32 else (BF16_RTOL, BF16_ATOL)
+        for (b, tc, k, n) in ((3, 50, 40, 70), (2, 64, 128, 96), (1, 130, 72, 200)):
+            tag = f"{dtype} {(b, tc, k, n)}"
+            x = _randn((b, tc, k), dtype, tc + k)
+            w = _randn((k, n), dtype, n, k ** -0.5)
+            for c in (1, 2):
+                sc = tc // c
+                out = torch.zeros(b, 4 * tc, n, dtype=dtype, device="cuda")
+                ref = torch.zeros_like(out)
+                for s in range(c):
+                    row = 2 * tc + s * sc
+                    cm._launch_chunk_product(x[:, s * sc:(s + 1) * sc], w, out[:, row:row + sc])
+                    cm._chunk_product_plain(x[:, s * sc:(s + 1) * sc], w, ref[:, row:row + sc])
+                errs[dtype].append(max_err(out, ref, *out_tol, f"B3 {tag} chunks {c}"))
+                check(bool((out[:, :2 * tc] == 0).all() and (out[:, 2 * tc + c * sc:] == 0).all()),
+                      f"B3 {tag}: rows outside the chunk were written")
+            y = _randn((b, 4 * tc, k), dtype, tc + k + 1)
+            acc_in = _randn((b, tc // 2, n), torch.float32, 7)
+            for acc in (None, acc_in):
+                got = cm._launch_partial_product(y[:, tc:tc + tc // 2], w, acc)
+                want = cm._partial_product_plain(y[:, tc:tc + tc // 2], w, acc)
+                errs[dtype].append(max_err(got, want, F32_RTOL, F32_ATOL, f"B4 {tag}"))
+        parts = [_randn((2, 50, 70), torch.float32, 10 + i) for i in range(3)]
+        for f, bk in ((parts[1], parts[2]), (parts[1], None), (None, None)):
+            got = cm._launch_epilogue(parts[0], f, bk, dtype)
+            want = cm._epilogue_plain(parts[0], f, bk, dtype)
+            check(bool(torch.equal(got, want)), f"B4 epilogue {dtype} differs from its plain version")
+    print(f"[tp-kernels] B3 (chunks 1/2, row offsets, batch 1-3) and B4 (with and without an "
+          f"arriving accumulator) at 3 ragged shapes: max abs err f32 "
+          f"{max(errs[torch.float32]):.2e}, bf16 {max(errs[torch.bfloat16]):.2e}; "
+          f"epilogue bitwise", flush=True)
+
+
+def phase_tp_kernels_bench():
+    """B3 and B4 in bf16 at the GPT-2-small tp-4 per-rank shapes: parity of
+    one rank's call against the plain versions, its time, the bound and
+    torch.matmul over the same product."""
+    import torch
+    from horovod_tpu_torch.ops import collective_matmul as cm
+
+    d, tokens = GPT2_SMALL["d_model"], BATCH * SEQ
+    tc = SEQ // TP
+    rows = {}
+    for call, kernel, fin, fout in (("qkv", "B3", d, 3 * d // TP), ("mlp_up", "B3", d, 4 * d // TP),
+                                    ("attn_out", "B4", d // TP, d), ("mlp_down", "B4", 4 * d // TP, d)):
+        w = _randn((fin, fout), torch.bfloat16, fout, fin ** -0.5)
+        if kernel == "B3":
+            x = [_randn((BATCH, tc, fin), torch.bfloat16, 20 + r) for r in range(TP)]
+            out = torch.empty(BATCH, SEQ, fout, dtype=torch.bfloat16, device="cuda")
+            ref = torch.empty_like(out)
+
+            def run(fn, out=out, x=x, w=w):
+                for r in range(TP):
+                    fn(x[r], w, out[:, r * tc:(r + 1) * tc])
+
+            run(cm._launch_chunk_product)
+            run(cm._chunk_product_plain, out=ref)
+            err = max_err(out, ref, BF16_RTOL, BF16_ATOL, f"B3 bf16 {call}")
+            ms = time_ms(lambda: run(cm._launch_chunk_product), reps=20)
+            plain = time_ms(lambda: run(cm._chunk_product_plain, out=ref), reps=5)
+            gathered = torch.cat(x, dim=1)
+            lib = time_ms(lambda: torch.matmul(gathered, w), reps=20)
+            nbytes = 2 * (tokens * fin + fin * fout + tokens * fout)
+        else:
+            y = _randn((BATCH, SEQ, fin), torch.bfloat16, 30)
+
+            def run(partial, epilogue):
+                # One rank (r = 0) of 4: forward ring 2 hops, backward 1.
+                f = partial(y[:, 2 * tc:3 * tc], w, None)
+                bk = partial(y[:, 3 * tc:4 * tc], w, None)
+                own = partial(y[:, 0:tc], w, None)
+                f = partial(y[:, tc:2 * tc], w, f)
+                return f, epilogue(own, f, bk, torch.bfloat16)
+
+            f, out = run(cm._launch_partial_product, cm._launch_epilogue)
+            f_ref, ref = run(cm._partial_product_plain, cm._epilogue_plain)
+            err = max(max_err(f, f_ref, F32_RTOL, F32_ATOL, f"B4 bf16 {call} f32 accumulator"),
+                      max_err(out, ref, BF16_RTOL, BF16_ATOL, f"B4 bf16 {call} output"))
+            ms = time_ms(lambda: run(cm._launch_partial_product, cm._launch_epilogue), reps=20)
+            plain = time_ms(lambda: run(cm._partial_product_plain, cm._epilogue_plain), reps=5)
+            lib = time_ms(lambda: torch.matmul(y, w), reps=20)
+            nbytes = 2 * (tokens * fin + fin * fout + tc * BATCH * fout)
+        b = bound(nbytes, 2 * tokens * fin * fout)
+        rows[call] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=b, library_ms=lib)
+        print(f"[tp-kernels] {kernel} {call} bf16 (w {fin} x {fout}, {tokens} tokens over tp "
+              f"{TP}): max abs err {err:.2e}; one rank's call ms {ms:.4f} (plain {plain:.4f}, "
+              f"torch.matmul {lib:.4f}, bound {b[0]:.4f} by {b[1]}, {ms / b[0]:.1f}x)", flush=True)
+    return rows
+
+
+class VirtualRing:
+    """One rank of a ring played on one card by threads: ``post`` hands the
+    sends to the neighbours through a shared mailbox, and each hop is a
+    device copy of what the neighbour sent (the same stream for all ranks,
+    so the copy follows the kernel that made the data)."""
+
+    def __init__(self, rank, n, mailbox, barrier):
+        self.rank, self.n, self.mailbox, self.barrier = rank, n, mailbox, barrier
+
+    def post(self, sends):
+        self.mailbox[self.rank] = sends
+        self.barrier.wait()
+        recvs = []
+        for i, (_, step) in enumerate(sends):
+            sent, sent_step = self.mailbox[(self.rank - step) % self.n][i]
+            check(sent_step == step, "virtual ring: the ranks posted different hops")
+            recvs.append(sent.clone())
+        self.barrier.wait()
+        return recvs, None
+
+    @staticmethod
+    def wait(handle):
+        return handle[0]
+
+
+def play_ring(n, fn):
+    """Run ``fn(ring)`` for n virtual ranks in n threads; their results by
+    rank. A failure in any rank fails the phase."""
+    import threading
+
+    barrier = threading.Barrier(n, timeout=120)
+    mailbox = [None] * n
+    results, errors = [None] * n, []
+
+    def body(r):
+        try:
+            results[r] = fn(VirtualRing(r, n, mailbox, barrier))
+        except BaseException as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    import torch
+
+    torch.cuda.synchronize()
+    return results
+
+
+def phase_tp_ring():
+    """A 4-rank bidirectional ring on one card through the port's schedule,
+    at the GPT-2-small tp-4 shapes in bf16: B3 forward (q/k/v), B3 through
+    an identity weight with sub-chunks 2, B4 forward (MLP down), and both
+    dual-primitive backwards. Returns the B3/B4 launch counts."""
+    import torch
+    from horovod_tpu_torch.ops import collective_matmul as cm
+
+    d, n = GPT2_SMALL["d_model"], TP
+    tc = SEQ // n
+    bf = torch.bfloat16
+    x = [_randn((BATCH, tc, d), bf, 40 + r) for r in range(n)]
+    gathered = torch.cat(x, dim=1)
+    wq = _randn((d, 3 * d // n), bf, 44, d ** -0.5)
+    launches = {"b3": 0, "b4": 0}
+
+    def ring_run(fn):
+        # The counts cover the rings alone, not the comparisons' launches.
+        cm.AGMM_LAUNCHES = cm.MRS_LAUNCHES = 0
+        results = play_ring(n, fn)
+        launches["b3"] += cm.AGMM_LAUNCHES
+        launches["b4"] += cm.MRS_LAUNCHES
+        return results
+
+    outs = ring_run(lambda ring: cm._ag_matmul(x[ring.rank], wq, ring, 1))
+    ref = torch.empty(BATCH, SEQ, wq.shape[1], dtype=bf, device="cuda")
+    cm._launch_chunk_product(gathered, wq, ref)
+    for r in range(n):
+        check(bool(torch.equal(outs[r], ref)),
+              f"B3 ring rank {r}: not bitwise the kernel over the gathered input")
+    eye = torch.eye(d, dtype=bf, device="cuda")
+    outs = ring_run(lambda ring: cm._ag_matmul(x[ring.rank], eye, ring, 2))
+    for r in range(n):
+        check(bool(torch.equal(outs[r], gathered)),
+              f"B3 ring rank {r} through an identity weight: rows not bitwise the gathered x")
+    print(f"[tp-ring] B3 over {n} virtual ranks (x [{BATCH}, {tc}, {d}] each, w {tuple(wq.shape)}): "
+          f"every rank bitwise the kernel over the gathered input; identity weight, sub-chunks "
+          f"2: bitwise the gathered x", flush=True)
+
+    f = 4 * d // n
+    y = [_randn((BATCH, SEQ, f), bf, 50 + r) for r in range(n)]
+    w = [_randn((f, d), bf, 54 + r, f ** -0.5) for r in range(n)]
+    z = ring_run(lambda ring: cm._mrs(y[ring.rank], w[ring.rank], ring, 1))
+    psum = sum(y[r].float() @ w[r].float() for r in range(n))
+    err_mrs = max_err(torch.cat(z, dim=1), psum.to(bf), BF16_RTOL, BF16_ATOL,
+                      "B4 ring gathered vs the sum over ranks")
+    print(f"[tp-ring] B4 over {n} virtual ranks (y [{BATCH}, {SEQ}, {f}], w [{f}, {d}] each): "
+          f"gathered outputs vs sum_r y_r @ w_r: max abs err {err_mrs:.2e}", flush=True)
+
+    # The dual-primitive backwards with one cotangent per rank.
+    ct3 = [_randn((BATCH, SEQ, wq.shape[1]), bf, 60 + r) for r in range(n)]
+    g3 = ring_run(lambda ring: cm._agmm_bwd(x[ring.rank], wq, ct3[ring.rank], ring, 1))
+    ct_sum = sum(c.float() for c in ct3)
+    dx_want = (ct_sum @ wq.float().t()).to(bf)
+    err = max_err(torch.cat([g[0] for g in g3], dim=1), dx_want, BF16_RTOL, BF16_ATOL,
+                  "B3 backward dx (through B4)")
+    for r in range(n):
+        dw_want = gathered.float().reshape(-1, d).t() @ ct3[r].float().reshape(-1, wq.shape[1])
+        err = max(err, rel_err(g3[r][1], dw_want, f"B3 backward dw rank {r}"))
+    ct4 = [_randn((BATCH, tc, d), bf, 70 + r) for r in range(n)]
+    ct4_all = torch.cat(ct4, dim=1)
+    g4 = ring_run(lambda ring: cm._mrs_bwd(y[ring.rank], w[ring.rank], ct4[ring.rank], ring, 1))
+    for r in range(n):
+        dy_ref = torch.empty(BATCH, SEQ, f, dtype=bf, device="cuda")
+        cm._launch_chunk_product(ct4_all, w[r].t().contiguous(), dy_ref)
+        check(bool(torch.equal(g4[r][0], dy_ref)),
+              f"B4 backward dy rank {r} (through B3): not bitwise the kernel over the gathered ct")
+        dw_want = y[r].float().reshape(-1, f).t() @ ct4_all.float().reshape(-1, d)
+        err = max(err, rel_err(g4[r][1], dw_want, f"B4 backward dw rank {r}"))
+    # Expected: B3 60 (4 ranks x 4 chunk products for q/k/v; x (1 + 2 x 3)
+    # with sub-chunks 2; x 4 in the B4 backward), B4 32 (4 ranks x 4 partial
+    # products, forward and in the B3 backward).
+    print(f"[tp-ring] dual-primitive backwards (dx of B3 through B4, dy of B4 through B3 "
+          f"bitwise, dw rings): max err {err:.2e}; launches {launches}", flush=True)
+    check(launches == {"b3": 60, "b4": 32}, f"B3/B4 launches {launches}, expected 60/32")
+    return launches
+
+
+def phase_tp_train():
+    """The composed DP×TP step on one card: GPT-2-small, data 1 x model 1."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, make_gpt_loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.parallel.rules import named_tree_paths
+    from horovod_tpu_torch.utils.convert import local_params_from_flax, params_to_numpy
+
+    hvd.init()
+    try:
+        mesh = build_mesh({"data": 1, "model": 1})
+        flat = params_to_numpy(TransformerLM(**GPT2_SMALL, max_len=SEQ, seed=0))
+        params = local_params_from_flax(flat, "gpt", mesh)
+        rng = np.random.RandomState(2)
+        tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                                       (BATCH, SEQ))).cuda() for _ in range(2))
+        step = hvd.make_train_step(
+            make_gpt_loss_fn(GPT2_SMALL["n_heads"], model_axis="model"),
+            torch.optim.AdamW([t for _, t in named_tree_paths(params)], lr=3e-4,
+                              weight_decay=1e-4, eps=1e-8),
+            mesh=mesh, rules="gpt")
+        torch.cuda.reset_peak_memory_stats()
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        losses, times = [], []
+        for _ in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(params, (tokens, labels))))
+            times.append(time.perf_counter() - t0)
+        print(f"[tp] GPT-2-small, composed make_train_step(rules='gpt') on a data 1 x model 1 "
+              f"mesh, batch {BATCH} x {SEQ}: losses {losses}", flush=True)
+        check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(fa.FWD_LAUNCHES > 0 and fa.BWD_LAUNCHES > 0,
+              f"flash launches {fa.FWD_LAUNCHES}/{fa.BWD_LAUNCHES}")
+        med = statistics.median(times[1:])
+        print(f"[tp] step ms median {med * 1e3:.2f} (steps 2-{STEPS}; first "
+              f"{times[0] * 1e3:.1f}), tokens/s {BATCH * SEQ / med:.0f}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    finally:
+        hvd.shutdown()
+
+
 def profile_step(run_step, span=None) -> None:
     """One more step under torch.profiler: device time by kernel family and
     the device's busy share of the step (taken after the timed steps, so the
@@ -570,10 +900,20 @@ def main() -> int:
     phase_small_model()
     launches = phase_train()
     sp_launches = phase_sp_train()
+    phase_tp_kernels_f32()
+    tp_rows = phase_tp_kernels_bench()
+    tp_launches = phase_tp_ring()
+    phase_tp_train()
+    # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
+    # largest of each at the main path's shapes; every call is printed above.
+    rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")
+    rows["matmul_reduce_scatter"] = dict(tp_rows["mlp_down"], replaces=f"{CM_REPLACED}:352")
     counts = {"flash_fwd": launches["fwd"], "flash_bwd_dq": launches["bwd"],
-              "flash_bwd_dkdv": launches["bwd"], "flash_block_fwd": sp_launches["block"]}
+              "flash_bwd_dkdv": launches["bwd"], "flash_block_fwd": sp_launches["block"],
+              "ag_matmul": tp_launches["b3"], "matmul_reduce_scatter": tp_launches["b4"]}
     kernels = [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": name, "route": "cuda",
+         "source": CM_SOURCE if name in ("ag_matmul", "matmul_reduce_scatter") else KERNEL_SOURCE,
          "replaces": r["replaces"], "launches": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

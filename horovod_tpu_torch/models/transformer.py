@@ -170,35 +170,61 @@ def transformer_n_layers(params) -> int:
     return sum(1 for k in params if str(k).startswith("block_"))
 
 
-def _apply_block(bp, x, *, n_heads: int, dtype, attn: Callable):
-    B, T, C = x.shape
-    shape = (B, T, n_heads, C // n_heads)
-    h = _layer_norm(x, bp["ln_1"], dtype)
+def _dense_row(y, w, b=None):
+    out = y @ w
+    return out if b is None else out + b
+
+
+def _check_heads(width: int, head_dim: int) -> int:
+    if width % head_dim:
+        raise ValueError(
+            f"local q/k/v width {width} is not whole heads of dim {head_dim} — "
+            f"n_heads must divide by the model-axis size"
+        )
+    return width // head_dim
+
+
+def _apply_block(bp, x, *, head_dim: int, dtype, attn: Callable,
+                 f: Callable = lambda y: y, row: Callable = _dense_row):
+    """One block. ``f`` marks the replicated input of the column-parallel
+    products and ``row`` is the row-parallel product (identity and ``y @ w
+    + b`` on whole weights; Megatron's conjugate and ``row_parallel`` on
+    shards)."""
+    B, T, _ = x.shape
+    h = f(_layer_norm(x, bp["ln_1"], dtype))
     att = bp["attention"]
     q = h @ att["query"]["kernel"].to(dtype)
     k = h @ att["key"]["kernel"].to(dtype)
     v = h @ att["value"]["kernel"].to(dtype)
+    hl = _check_heads(q.shape[-1], head_dim)
+    shape = (B, T, hl, head_dim)
     a = attn(q.reshape(shape), k.reshape(shape), v.reshape(shape))
-    x = x + a.reshape(B, T, C) @ att["out"]["kernel"].to(dtype)
-    h = _layer_norm(x, bp["ln_2"], dtype)
+    x = x + row(a.reshape(B, T, hl * head_dim), att["out"]["kernel"].to(dtype))
+    h = f(_layer_norm(x, bp["ln_2"], dtype))
     mlp = bp["mlp"]
     u = F.gelu(h @ mlp["up"]["kernel"].to(dtype) + mlp["up"]["bias"].to(dtype),
                approximate="tanh")
-    return x + (u @ mlp["down"]["kernel"].to(dtype) + mlp["down"]["bias"].to(dtype))
+    return x + row(u, mlp["down"]["kernel"].to(dtype), mlp["down"]["bias"].to(dtype))
 
 
-def _forward(params, x, *, n_heads: int, dtype, attn: Callable, remat: bool = False):
+def _head(params, x, dtype):
+    """``ln_f`` and the f32 ``lm_head``."""
+    x = _layer_norm(x, params["ln_f"], dtype)
+    return x.float() @ params["lm_head"]["kernel"].float()
+
+
+def _forward(params, x, *, n_heads: int, dtype, attn: Callable, remat: bool = False,
+             f: Callable = lambda y: y, row: Callable = _dense_row):
     """The blocks, ``ln_f`` and the f32 ``lm_head`` over the embedded
     input ``x`` [B, T, C]."""
     C = x.shape[-1]
     if C % n_heads:
         raise ValueError(f"d_model {C} not divisible by n_heads {n_heads}")
     for i in range(transformer_n_layers(params)):
-        block = partial(_apply_block, params[f"block_{i}"], n_heads=n_heads,
-                        dtype=dtype, attn=attn)
+        block = partial(_apply_block, params[f"block_{i}"], head_dim=C // n_heads,
+                        dtype=dtype, attn=attn, f=f, row=row)
         x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-    x = _layer_norm(x, params["ln_f"], dtype)
-    return x.float() @ params["lm_head"]["kernel"].float()
+    return _head(params, x, dtype)
 
 
 def tp_apply(
@@ -206,26 +232,104 @@ def tp_apply(
     tokens: torch.Tensor,
     *,
     n_heads: int,
-    model_axis: Optional[str] = None,
+    model_axis=None,
     positions: Optional[torch.Tensor] = None,
     dtype=torch.bfloat16,
     causal: bool = True,
+    tp_overlap: Optional[bool] = None,
 ) -> torch.Tensor:
     """Functional forward of the :class:`TransformerLM` parameter tree (a
-    nested dict of tensors, flax names). Only the dense reference form,
-    ``model_axis=None``, exists in this port so far."""
-    if model_axis is not None:
-        raise NotImplementedError(
-            "tensor parallelism (model_axis) is not ported yet"
-        )
+    nested dict of tensors, flax names) on whole weights or on this rank's
+    tensor-parallel shards.
+
+    ``n_heads`` is the GLOBAL head count (the head dim derives from the
+    replicated ``d_model``). ``model_axis`` is None (whole weights: the
+    dense single-card form), the model axis's process group, or an axis
+    name of the mesh in scope (``parallel.tp.mesh_scope``, which the
+    composed ``make_train_step`` opens). With a model axis each rank runs
+    its local H/n heads and F/n MLP columns through ``parallel/tp.py``:
+    q/k/v and the MLP up-projection column-parallel, attention-out and
+    MLP-down row-parallel (one all-reduce each, the MLP-down bias
+    scattered inside it).
+
+    ``tp_overlap`` selects the fused collective-matmul path (kernels B3 and
+    B4): the residual stream rides token-sharded between blocks, q/k/v ride
+    one all-gather-matmul, attention-out and MLP-down become
+    matmul-reduce-scatters. ``None`` defers to
+    ``parallel.tp.tp_overlap_enabled()``. With one rank on the axis the
+    classic path runs, as in the reference.
+
+    The embedding lookups are added in f32 and cast once, as the JAX
+    ``tp_apply`` does."""
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
     emb = params["embeddings"]["embedding"]
     pos = params["pos_embeddings"]["embedding"]
     x = (F.embedding(tokens, emb) + F.embedding(positions, pos)).to(dtype)
-    return _forward(params, x, n_heads=n_heads, dtype=dtype,
-                    attn=partial(flash_attention_bthd, causal=causal))
+    attn = partial(flash_attention_bthd, causal=causal)
+    if model_axis is None:
+        return _forward(params, x, n_heads=n_heads, dtype=dtype, attn=attn)
+
+    from ..parallel import tp
+
+    C = emb.shape[-1]
+    if C % n_heads:
+        raise ValueError(f"d_model {C} not divisible by n_heads {n_heads}")
+    group = tp.resolve_group(model_axis)
+    n = tp.axis_size(group)
+    if tp.tp_overlap_enabled(tp_overlap) and n > 1:
+        if T % n:
+            raise ValueError(
+                f"tp_overlap needs the sequence length ({T}) divisible by the "
+                f"model-axis size ({n}) — the fused path token-shards the "
+                f"residual stream"
+            )
+        return _tp_apply_fused(params, x, group=group, head_dim=C // n_heads,
+                               dtype=dtype, attn=attn)
+    return _forward(params, x, n_heads=n_heads, dtype=dtype, attn=attn,
+                    f=partial(tp.tp_block_input, axis_name=group),
+                    row=partial(tp.row_parallel, axis_name=group))
+
+
+def _tp_apply_fused(params, x, *, group, head_dim: int, dtype, attn: Callable):
+    """The collective-matmul forward (``_tp_apply_fused`` of the JAX
+    package): token-sharded residual stream.
+
+    Per block: LN on the token shard, q/k/v through ONE all-gather-matmul
+    over the concatenated kernels, flash attention on all tokens and the
+    local heads, attention-out through a matmul-reduce-scatter, LN, MLP up
+    (all-gather-matmul, gelu), MLP down (matmul-reduce-scatter). Tokens
+    scatter once at entry and gather once before ``ln_f``, so the lm head
+    sees the classic path's replicated activation. The block layer norms'
+    parameters go through ``tp_replicated_params``: on the sharded stream
+    their gradients cover one token chunk per rank."""
+    from ..parallel import tp
+
+    B, T, _ = x.shape
+    x = tp.tp_scatter_tokens(x, axis_name=group)            # [B, T/n, C]
+    for i in range(transformer_n_layers(params)):
+        bp = params[f"block_{i}"]
+        h = _layer_norm(x, tp.tp_replicated_params(bp["ln_1"], axis_name=group), dtype)
+        att = bp["attention"]
+        wqkv = torch.cat([att[name]["kernel"].to(dtype) for name in ("query", "key", "value")],
+                         dim=-1)
+        qkv = tp.column_parallel_fused(h, wqkv, axis_name=group)
+        q, k, v = qkv.chunk(3, dim=-1)
+        hl = _check_heads(q.shape[-1], head_dim)
+        shape = (B, T, hl, head_dim)
+        a = attn(q.reshape(shape), k.reshape(shape), v.reshape(shape))
+        x = x + tp.row_parallel_fused(a.reshape(B, T, hl * head_dim),
+                                      att["out"]["kernel"].to(dtype), axis_name=group)
+        h = _layer_norm(x, tp.tp_replicated_params(bp["ln_2"], axis_name=group), dtype)
+        mlp = bp["mlp"]
+        u = F.gelu(tp.column_parallel_fused(h, mlp["up"]["kernel"].to(dtype),
+                                            mlp["up"]["bias"].to(dtype), axis_name=group),
+                   approximate="tanh")
+        x = x + tp.row_parallel_fused(u, mlp["down"]["kernel"].to(dtype),
+                                      mlp["down"]["bias"].to(dtype), axis_name=group)
+    x = tp.tp_gather_tokens(x, axis_name=group)             # [B, T, C] replicated
+    return _head(params, x, dtype)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -237,15 +341,20 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_gpt_loss_fn(
     n_heads: int,
     *,
-    model_axis: Optional[str] = None,
+    model_axis=None,
     dtype=torch.bfloat16,
+    tp_overlap: Optional[bool] = None,
 ) -> Callable:
-    """``loss_fn(params, (tokens, labels))`` over :func:`tp_apply`."""
+    """``loss_fn(params, (tokens, labels))`` over :func:`tp_apply`.
+    ``model_axis`` and ``tp_overlap`` are :func:`tp_apply`'s; with the
+    composed ``make_train_step(rules=...)``, ``model_axis="model"``
+    resolves in the step's mesh and ``tp_overlap=None`` follows the step's
+    ``tp_overlap``."""
 
     def loss_fn(params, batch):
         tokens, labels = batch
-        logits = tp_apply(params, tokens, n_heads=n_heads,
-                          model_axis=model_axis, dtype=dtype)
+        logits = tp_apply(params, tokens, n_heads=n_heads, model_axis=model_axis,
+                          dtype=dtype, tp_overlap=tp_overlap)
         return lm_loss(logits, labels)
 
     return loss_fn

@@ -1,5 +1,5 @@
-"""Collectives on ``torch.distributed``: allreduce, allgather, broadcast,
-alltoall and the ring shift.
+"""Collectives on ``torch.distributed``: allreduce, allgather,
+reducescatter, broadcast, alltoall and the ring shift.
 
 The counterpart of ``horovod_tpu/ops/collectives.py``. The JAX package
 lowers each collective to an XLA collective over a named mesh axis; here
@@ -9,16 +9,20 @@ each is one call on a process group (NCCL on the card, gloo on the CPU):
 new tensors and leave their input as it was, as the JAX ones do;
 ``broadcast_`` writes in place for the callers that own the tensor.
 
-``alltoall`` and ``ring_shift`` are differentiable (``autograd.Function``s
-whose backward is the transposed exchange), because sequence parallelism
-differentiates through them, as JAX differentiates ``all_to_all`` and
-``ppermute``.
+``allgather``, ``alltoall`` and ``ring_shift`` are differentiable
+(``autograd.Function``s whose backward is the transposed exchange: the
+reduce-scatter for the gather, the inverse exchange for the others), because
+sequence and tensor parallelism differentiate through them, as JAX
+differentiates ``all_gather``, ``all_to_all`` and ``ppermute``.
 
 Reference semantics kept:
  - op=Average sums, then divides by the number of ranks in the group;
  - the prescale and postscale factors of ``_maybe_scale`` (scaled in f32
    for half-precision inputs);
- - allgather concatenates equal shapes along dim 0;
+ - allgather concatenates equal shapes along ``dim`` (0 by default) in
+   rank order, as ``lax.all_gather(..., tiled=True)`` does;
+ - reducescatter is ``lax.psum_scatter(..., tiled=True)``: the sum over
+   ranks, split along ``dim`` into one chunk per rank, chunk r to rank r;
  - broadcast gives every rank the root's value, and rejects a root out of
    range (``root_rank`` is a rank of the group);
  - alltoall is ``lax.all_to_all(..., tiled=True)``: split along
@@ -28,7 +32,7 @@ Reference semantics kept:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -94,12 +98,69 @@ def allreduce(
     )
 
 
-def allgather(x: torch.Tensor, *, group: Group = None) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0. All ranks pass the same
-    shape, as the JAX package requires."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+def _allgather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((n * front.shape[0], *front.shape[1:]))
+    dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+def _reducescatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(
+            f"reducescatter: dim {dim} of size {x.shape[dim]} does not split "
+            f"into {n} equal chunks"
+        )
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
+    dist.reduce_scatter_tensor(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        out = _allgather(x, group, dim)
+        return out if out is not x else x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        # The transpose of a tiled all-gather is the tiled reduce-scatter.
+        return _reducescatter(grad, *ctx.args), None, None
+
+
+def allgather(x: torch.Tensor, *, group: Group = None, dim: int = 0) -> torch.Tensor:
+    """Concatenate every rank's tensor along ``dim`` in rank order
+    (``lax.all_gather(..., tiled=True)``). All ranks pass the same shape, as
+    the JAX package requires. Differentiable: the backward is the tiled
+    reduce-scatter (SUM) of the cotangent."""
+    return _AllGather.apply(x, group, dim % x.dim())
+
+
+def reducescatter(
+    x: torch.Tensor,
+    *,
+    op: ReduceOp = ReduceOp.SUM,
+    group: Group = None,
+    dim: int = 0,
+) -> torch.Tensor:
+    """Sum ``x`` over the group's ranks and keep this rank's chunk of
+    ``dim`` (``lax.psum_scatter(..., tiled=True)``): ``dim`` splits into one
+    equal chunk per rank, chunk r to rank r. ``op=Average`` divides the sum
+    by the group's size. ``x`` is left unchanged."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"reducescatter reduces SUM or AVERAGE, not {op}")
+    out = _reducescatter(x, group, dim % x.dim())
+    if op == ReduceOp.AVERAGE:
+        out = out / dist.get_world_size(group)
+    return out if out is not x else x.clone()
 
 
 def _check_root(root_rank: int, group: Group) -> None:
@@ -164,19 +225,30 @@ def alltoall(
     return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
+def ring_exchange(sends: Sequence[Tuple[torch.Tensor, int]], group: Group = None):
+    """Post every ``(tensor, step)`` of ``sends`` in ONE
+    ``batch_isend_irecv`` over the group: send the tensor to group rank
+    r + step and receive a tensor of its shape from r - step (mod n), in the
+    order given; every rank of the group posts the same steps. Point-to-point
+    calls name global ranks, so this works on a subgroup. Returns the
+    receive buffers and the works to wait on: on the card the transfers run
+    on the process group's stream, and ``work.wait()`` makes the current
+    stream wait for them, not the host."""
+    group = group or dist.group.WORLD
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    recvs = [torch.empty_like(t) for t, _ in sends]
+    ops = []
+    for (t, step), buf in zip(sends, recvs):
+        ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, (r + step) % n), group))
+        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, (r - step) % n), group))
+    return recvs, dist.batch_isend_irecv(ops)
+
+
 def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
     """Send ``x`` to group rank r + step, receive from r - step (mod n)."""
-    group = group or dist.group.WORLD
-    n = dist.get_world_size(group)
-    if n == 1:
+    if dist.get_world_size(group) == 1:
         return x
-    r = dist.get_rank(group)
-    out = torch.empty_like(x)
-    # Point-to-point calls name global ranks, also on a subgroup.
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + step) % n), group),
-        dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - step) % n), group),
-    ])
+    (out,), works = ring_exchange([(x, step)], group)
     for w in works:
         w.wait()
     return out
@@ -184,21 +256,22 @@ def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
 
 class _RingShift(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _shift(x, group, +1)
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
 
     @staticmethod
     def backward(ctx, grad):
-        # The transpose of ppermute(i -> i+1) sends the cotangent back.
-        return _shift(grad.contiguous(), ctx.group, -1), None
+        # The transpose of ppermute(i -> i+step) sends the cotangent back.
+        return _shift(grad.contiguous(), ctx.group, -ctx.step), None, None
 
 
-def ring_shift(x: torch.Tensor, *, group: Group = None) -> torch.Tensor:
-    """One step of the ring: ``lax.ppermute`` with perm ``[(i, (i+1) % n)]``
-    over the group. Every rank sends ``x`` to the next rank and returns what
-    the previous rank sent, in one ``batch_isend_irecv`` (every rank of the
-    group must call it, in the same order as the others). Differentiable:
-    the backward sends the cotangent the other way. With one rank it is the
-    identity and sends nothing."""
-    return _RingShift.apply(x.contiguous(), group)
+def ring_shift(x: torch.Tensor, *, group: Group = None, step: int = 1) -> torch.Tensor:
+    """One step of the ring: ``lax.ppermute`` with perm
+    ``[(i, (i + step) % n)]`` over the group (``step=-1`` turns the ring the
+    other way). Every rank sends ``x`` to rank r + step and returns what rank
+    r - step sent, in one ``batch_isend_irecv`` (every rank of the group must
+    call it, in the same order as the others). Differentiable: the backward
+    sends the cotangent the other way. With one rank it is the identity and
+    sends nothing."""
+    return _RingShift.apply(x.contiguous(), group, int(step))

@@ -92,11 +92,14 @@ def fused_allreduce(
     threshold_bytes: Optional[int] = None,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
+    group: collectives.Group = None,
 ) -> List[torch.Tensor]:
     """Allreduce every tensor of ``leaves`` with bucket fusion: one
     collective per bucket. Returns the reduced tensors in the input order;
     the inputs are left unchanged. ``threshold_bytes=None`` resolves the
-    HOROVOD_FUSION_THRESHOLD knob."""
+    HOROVOD_FUSION_THRESHOLD knob. ``group`` is the process group to reduce
+    over (a mesh axis's, as the JAX package's ``axis_name``; None: every
+    rank); Average divides by its size."""
     threshold_bytes = default_threshold_bytes(threshold_bytes)
     results: List[Optional[torch.Tensor]] = [None] * len(leaves)
     for bucket in plan_buckets(leaves, threshold_bytes):
@@ -104,13 +107,13 @@ def fused_allreduce(
             i = bucket[0]
             results[i] = collectives.allreduce(
                 leaves[i], op=op, prescale_factor=prescale_factor,
-                postscale_factor=postscale_factor,
+                postscale_factor=postscale_factor, group=group,
             )
             continue
         reduced = collectives.allreduce_(
             pack_bucket([leaves[i] for i in bucket]), op=op,
             prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor,
+            postscale_factor=postscale_factor, group=group,
         )
         unpacked = unpack_bucket(reduced, [leaves[i].shape for i in bucket])
         for i, r in zip(bucket, unpacked):

@@ -5,6 +5,11 @@ path (``block_0/attention/query/kernel``, the naming of the JAX package's
 ``parallel/rules.py:named_tree_paths``). The port keeps the flax layout
 (Dense kernels ``[in, out]``), so conversion is a rename: ``/`` in the
 flat names, ``.`` in ``nn.Module`` names, nesting in the functional tree.
+
+For tensor parallelism, :func:`local_params_from_flax` cuts a whole flax
+tree to this rank's shards by a rule table (``parallel/rules.py``), and
+:func:`gather_params` puts the whole tree back together from every rank's
+shards.
 """
 
 from __future__ import annotations
@@ -49,6 +54,46 @@ def params_from_flax(flat: Mapping[str, np.ndarray], device=None) -> Dict[str, A
     device = resolve_device(device)
     return nest({path: torch.tensor(np.asarray(a), device=device)
                  for path, a in flat.items()})
+
+
+def local_params_from_flax(flat: Mapping[str, np.ndarray], rules: Any, mesh,
+                           device=None) -> Dict[str, Any]:
+    """This rank's shards of a whole flax tree (flat ``/``-keyed numpy
+    arrays), as the nested tree the composed step trains: each leaf is
+    sliced at this rank's mesh coordinates by the spec ``rules`` gives it
+    (``rules.local_shard_tree``), moved to ``device`` (None: the card) and
+    made a leaf that requires grad. The rules are preflighted against the
+    whole shapes first."""
+    from ..parallel import rules as _rules
+
+    device = resolve_device(device)
+    tree = nest({path: np.asarray(a) for path, a in flat.items()})
+    _rules.preflight_rules(rules, mesh, {path: np.shape(a) for path, a in flat.items()})
+    specs = _rules.match_partition_rules(rules, tree)
+    local = _rules.local_shard_tree(tree, specs, _rules.mesh_coords(mesh))
+    return nest({path: torch.tensor(np.ascontiguousarray(a), device=device).requires_grad_()
+                 for path, a in flatten(local).items()})
+
+
+def gather_params(tree: Mapping[str, Any], rules: Any, mesh) -> Dict[str, Any]:
+    """The whole parameter tree from every rank's shards: each leaf sharded
+    along a dim over one mesh axis is all-gathered along that dim over the
+    axis's group (every rank of the mesh must call it). Replicated leaves
+    are returned as they are. Detached."""
+    from ..ops.collectives import allgather
+    from ..parallel import rules as _rules
+
+    specs = dict(_rules.named_tree_paths(_rules.match_partition_rules(rules, tree)))
+    out = {}
+    for path, leaf in _rules.named_tree_paths(tree):
+        leaf = leaf.detach()
+        for dim, axes in enumerate(_rules.normalize_spec(specs[path]) or ()):
+            if len(axes) > 1:
+                raise NotImplementedError(f"{path!r} dim {dim} shards over several axes {axes}")
+            if axes:
+                leaf = allgather(leaf, group=mesh.get_group(axes[0]), dim=dim)
+        out[path] = leaf
+    return nest(out)
 
 
 def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:

@@ -27,7 +27,9 @@ def test_import_loads_no_jax():
         "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.parallel.ring_attention, "
         "horovod_tpu_torch.parallel.sp, horovod_tpu_torch.tools.sp_parity, "
         "horovod_tpu_torch.tools.dp_parity, horovod_tpu_torch.tools.kernel_bounds, "
-        "horovod_tpu_torch.examples.long_context_sp\n"
+        "horovod_tpu_torch.examples.long_context_sp, horovod_tpu_torch.parallel.rules, "
+        "horovod_tpu_torch.parallel.tp, horovod_tpu_torch.ops.collective_matmul, "
+        "horovod_tpu_torch.tools.tp_parity\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -157,3 +159,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention_block(q.to("meta"), q.to("meta"), q.to("meta"), 0, sm_scale=1.0)
+
+
+def test_collective_matmul_wrappers_never_fall_back(monkeypatch):
+    """B3/B4's wrappers take the plain version only for CPU tensors: a
+    tensor anywhere else (here on the meta device) goes to the kernel
+    launch, which refuses it here, where there is no card; the plain
+    version is never reached."""
+    from horovod_tpu_torch.ops import collective_matmul as cm
+
+    def plain(*_):
+        raise AssertionError("a plain version was reached for a non-CPU tensor")
+
+    for name in ("_chunk_product_plain", "_partial_product_plain", "_epilogue_plain"):
+        monkeypatch.setattr(cm, name, plain)
+    a = torch.zeros(2, 4, 8, device="meta")
+    w = torch.zeros(8, 6, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cm._chunk_product(a, w, torch.zeros(2, 4, 6, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        cm._partial_product(a, w)
+    acc = torch.zeros(2, 4, 6, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cm._epilogue(acc, acc, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        cm._launch_chunk_product(torch.zeros(2, 4, 8), torch.zeros(8, 6), torch.zeros(2, 4, 6))

@@ -146,7 +146,10 @@ def test_module_and_twin_agree_on_one_tree(setup):
 
 
 def test_tensor_parallel_not_ported_yet(setup):
+    """Tensor parallelism is ported now (tests/test_torch_tp.py holds it
+    against the JAX package); what is left to refuse here is a model axis
+    named with no mesh in scope to look it up in."""
     _, flat, tokens, _ = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no mesh is in scope"):
         port.tp_apply(params_from_flax(flat, device="cpu"), torch.from_numpy(tokens),
                       n_heads=DIMS["n_heads"], model_axis="model")
