@@ -9,6 +9,11 @@ Beside each kernel is its plain PyTorch version, ``_flash_fwd_plain`` and
 ``_flash_bwd_plain``, which repeat the reference's arithmetic block by
 block. A wrapper takes the plain version only for tensors on the CPU (that
 is how the tests run); for CUDA tensors it launches the kernel or raises.
+In f32 the kernels run on the CUDA cores with the plain versions'
+arithmetic; in bf16 they run on the tensor cores, which take P (and, in
+the backward, dS) in bf16. ``p_dtype=torch.bfloat16`` makes a plain version
+round them where the kernels do, and ``kernel_tiles`` gives the forward's
+K tile, the block over which its online softmax rounds P.
 
 ``FWD_LAUNCHES`` counts launches of the forward kernel. ``BWD_LAUNCHES``
 counts backward launches, each of which launches the dQ kernel and then
@@ -82,15 +87,25 @@ def _dense_full(q, k, v, causal, sm_scale):
 # Plain versions: the reference's arithmetic, one K block at a time.
 # --------------------------------------------------------------------------
 
+def _rounded(x: torch.Tensor, p_dtype) -> torch.Tensor:
+    """``x`` rounded to ``p_dtype`` and widened back (``x`` itself for None):
+    where the bf16 kernels round an operand of their second product."""
+    return x if p_dtype is None else x.to(p_dtype).float()
+
+
 def _online_softmax_plain(q, k, v, causal: bool, sm_scale: float, delta: int,
-                          block_k: int = 128):
+                          block_k: int = 128, p_dtype=None):
     """The loop of ``_fwd_kernel``: the online softmax over K blocks in f32,
     with key ``j`` visible to query ``i`` under the causal mask when
     ``i >= j + delta``. Returns the unnormalised sum P V [BH, T_q, D] and the
-    row max m and row sum l, [BH, T_q, 1] each."""
+    row max m and row sum l, [BH, T_q, 1] each.
+
+    With ``p_dtype`` (``torch.bfloat16``) the loop is the bf16 kernel's: K
+    blocks of exactly ``block_k`` keys (the kernel's tile) with a ragged last
+    one, and P rounded to ``p_dtype`` before P V; l sums the unrounded P."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
-    bk = _pick_block(t_k, block_k)
+    bk = _pick_block(t_k, block_k) if p_dtype is None else block_k
     qf = q.float()
     acc = torch.zeros(bh, t_q, d, dtype=torch.float32, device=q.device)
     m = torch.full((bh, t_q, 1), _NEG_INF, dtype=torch.float32, device=q.device)
@@ -99,7 +114,8 @@ def _online_softmax_plain(q, k, v, causal: bool, sm_scale: float, delta: int,
     for k0 in range(0, t_k, bk):
         s = qf @ k[:, k0:k0 + bk].float().transpose(1, 2) * sm_scale
         if causal:
-            mask = q_pos >= torch.arange(k0, k0 + bk, device=q.device)[None, :] + delta
+            keys = torch.arange(k0, k0 + s.shape[-1], device=q.device)
+            mask = q_pos >= keys[None, :] + delta
             s = torch.where(mask, s, _NEG_INF)
         m_curr = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_curr)
@@ -108,16 +124,16 @@ def _online_softmax_plain(q, k, v, causal: bool, sm_scale: float, delta: int,
             # A fully masked row has m_curr == -1e30: re-mask p.
             p = torch.where(mask, p, 0.0)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p @ v[:, k0:k0 + bk].float()
+        acc = acc * alpha + _rounded(p, p_dtype) @ v[:, k0:k0 + bk].float()
         m = m_curr
     return acc, m, l
 
 
-def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
-                     block_k: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, block_k: int = 128,
+                     p_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_fwd_kernel`` with ``normalize=True``: returns O in the input dtype
-    and lse = m + log l (f32)."""
-    acc, m, l = _online_softmax_plain(q, k, v, causal, sm_scale, 0, block_k)
+    and lse = m + log l (f32). ``p_dtype``: see ``_online_softmax_plain``."""
+    acc, m, l = _online_softmax_plain(q, k, v, causal, sm_scale, 0, block_k, p_dtype)
     l = torch.where(l == 0.0, 1.0, l)   # fully masked rows -> 0 out
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
@@ -151,9 +167,12 @@ def _dense_block(q, k, v, delta: int, sm_scale: float, causal: bool):
 
 
 def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
-                     block_k: int = 128):
+                     block_k: int = 128, p_dtype=None):
     """``_flash_vjp_bwd``: recompute P per K block from lse, with
-    D = rowsum(dO * O) and dS = P (dP - D) * scale."""
+    D = rowsum(dO * O) and dS = P (dP - D) * scale. With ``p_dtype``
+    (``torch.bfloat16``) P and dS are rounded to it before the products
+    that take them (dV = P^T dO, dQ = dS K, dK = dS^T Q), as the bf16
+    kernels round them; dS is formed from the unrounded P."""
     t_q = q.shape[1]
     t_k = k.shape[1]
     bk = _pick_block(t_k, block_k)
@@ -175,9 +194,10 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
             p = torch.where(mask, p, 0.0)
         dp = dof @ vb.transpose(1, 2)
         ds = p * (dp - dsum[:, :, None]) * sm_scale
-        dq = dq + ds @ kb
-        dks.append(ds.transpose(1, 2) @ qf)
-        dvs.append(p.transpose(1, 2) @ dof)
+        ds_r = _rounded(ds, p_dtype)
+        dq = dq + ds_r @ kb
+        dks.append(ds_r.transpose(1, 2) @ qf)
+        dvs.append(_rounded(p, p_dtype).transpose(1, 2) @ dof)
     return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
             torch.cat(dvs, dim=1).to(v.dtype))
 
@@ -192,17 +212,35 @@ _F = ctypes.c_float
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+    return bind(_build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument types on a loaded flash library (the
+    package's own, or a variant built with other tile sizes)."""
     if not getattr(lib, "_hvt_bound", False):
         lib.hvt_flash_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_F, _I, _P]
         lib.hvt_flash_block_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]
         lib.hvt_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
         lib.hvt_flash_bwd_dkdv.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
-        for fn in (lib.hvt_flash_fwd, lib.hvt_flash_block_fwd,
-                   lib.hvt_flash_bwd_dq, lib.hvt_flash_bwd_dkdv):
+        lib.hvt_flash_tiles.argtypes = [_I, ctypes.POINTER(_I)]
+        for fn in (lib.hvt_flash_fwd, lib.hvt_flash_block_fwd, lib.hvt_flash_bwd_dq,
+                   lib.hvt_flash_bwd_dkdv, lib.hvt_flash_tiles):
             fn.restype = ctypes.c_int
         lib._hvt_bound = True
     return lib
+
+
+def kernel_tiles(d: int, lib: Optional[ctypes.CDLL] = None) -> dict:
+    """The bf16 kernels' tile rows at head dim ``d`` (builds the library):
+    ``fwd`` (Q, K), ``dq`` (Q, K) and ``dkdv`` (K, Q). A plain version
+    given ``block_k=tiles["fwd"][1]`` and ``p_dtype=torch.bfloat16`` rounds
+    P where the forward kernel does."""
+    out = (_I * 6)()
+    rc = (bind(lib) if lib is not None else _lib()).hvt_flash_tiles(d, out)
+    if rc != 0:
+        raise ValueError(f"head dim {d} is not one of {_HEAD_DIMS}")
+    return {"fwd": (out[0], out[1]), "dq": (out[2], out[3]), "dkdv": (out[4], out[5])}
 
 
 def _check_cuda(q, k, v, *like_q: torch.Tensor) -> Tuple[int, int, int, int]:

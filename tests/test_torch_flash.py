@@ -129,3 +129,181 @@ def test_flash_attention_refuses_what_the_reference_refuses():
     q = torch.zeros(1, 131, 8)
     with pytest.raises(ValueError, match="no block divisor"):
         port.flash_attention(q, q, q)
+
+
+# The plain versions with ``p_dtype``: the bf16 kernels run their second
+# products on the tensor cores, which take P (and dS) in bf16. The plain
+# versions round them at the same places when given p_dtype=torch.bfloat16,
+# and must still agree with the reference at its bf16 tolerance; with
+# p_dtype=None they keep their arithmetic bit for bit.
+
+def _plain_fwd_before_p_dtype(q, k, v, causal, sm_scale, block_k):
+    """The plain forward as it was before ``p_dtype`` existed."""
+    bh, t_q, d = q.shape
+    t_k = k.shape[1]
+    bk = port._pick_block(t_k, block_k)
+    qf = q.float()
+    acc = torch.zeros(bh, t_q, d)
+    m = torch.full((bh, t_q, 1), -1e30)
+    l = torch.zeros(bh, t_q, 1)
+    q_pos = torch.arange(t_q)[:, None]
+    for k0 in range(0, t_k, bk):
+        s = qf @ k[:, k0:k0 + bk].float().transpose(1, 2) * sm_scale
+        if causal:
+            mask = q_pos >= torch.arange(k0, k0 + bk)[None, :]
+            s = torch.where(mask, s, -1e30)
+        m_curr = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_curr)
+        p = torch.exp(s - m_curr)
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ v[:, k0:k0 + bk].float()
+        m = m_curr
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _plain_bwd_before_p_dtype(q, k, v, o, lse, do, causal, sm_scale, block_k):
+    """The plain backward as it was before ``p_dtype`` existed."""
+    t_q, t_k = q.shape[1], k.shape[1]
+    bk = port._pick_block(t_k, block_k)
+    qf, dof = q.float(), do.float()
+    dsum = (dof * o.float()).sum(dim=-1)
+    q_pos = torch.arange(t_q)[:, None]
+    dq = torch.zeros(q.shape)
+    dks, dvs = [], []
+    for k0 in range(0, t_k, bk):
+        kb, vb = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = qf @ kb.transpose(1, 2) * sm_scale
+        if causal:
+            mask = q_pos >= torch.arange(k0, k0 + bk)[None, :]
+            s = torch.where(mask, s, -1e30)
+        p = torch.exp(s - lse[:, :, None])
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        ds = p * ((dof @ vb.transpose(1, 2)) - dsum[:, :, None]) * sm_scale
+        dq = dq + ds @ kb
+        dks.append(ds.transpose(1, 2) @ qf)
+        dvs.append(p.transpose(1, 2) @ dof)
+    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_p_dtype_none_is_bitwise_unchanged(causal, dtype):
+    """T 40 in K blocks of 10 (the divisor under 16): forward and backward
+    with p_dtype=None give exactly what the code before it gave."""
+    q, k, v, do = _t(*_qkv(2, 40, 32, seed=6, n=4), dtype=dtype)
+    scale = 32 ** -0.5
+    o, lse = port._flash_fwd_plain(q, k, v, causal, scale, block_k=16, p_dtype=None)
+    o0, lse0 = _plain_fwd_before_p_dtype(q, k, v, causal, scale, 16)
+    assert torch.equal(o, o0) and torch.equal(lse, lse0)
+    grads = port._flash_bwd_plain(q, k, v, o, lse, do, causal, scale, block_k=16, p_dtype=None)
+    for got, want in zip(grads, _plain_bwd_before_p_dtype(q, k, v, o, lse, do, causal, scale, 16)):
+        assert torch.equal(got, want)
+
+
+_ROUNDED_SHAPES = [(2, 40, 32), (2, 64, 64)]   # T 40: K blocks of 16 with a ragged 8
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _ROUNDED_SHAPES)
+def test_bf16_rounded_plain_forward_matches_pallas(causal, shape):
+    q, k, v = _qkv(*shape, seed=7)
+    o, lse = port._flash_fwd_plain(*_t(q, k, v, dtype=torch.bfloat16), causal,
+                                   shape[2] ** -0.5, block_k=16, p_dtype=torch.bfloat16)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    expected = ref.flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                   causal=causal)
+    np.testing.assert_allclose(o.float().numpy(), np.asarray(expected, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _ROUNDED_SHAPES)
+def test_bf16_rounded_plain_grads_match_jax(causal, shape):
+    """The gradients of sum(O * w) from the rounding plain versions against
+    jax.grad through the reference, as test_bf16_grads_within_tolerance."""
+    q, k, v, w = _qkv(*shape, seed=8, n=4)
+    scale = shape[2] ** -0.5
+    tq, tk, tv = _t(q, k, v, dtype=torch.bfloat16)
+    o, lse = port._flash_fwd_plain(tq, tk, tv, causal, scale, block_k=16,
+                                   p_dtype=torch.bfloat16)
+    grads = port._flash_bwd_plain(tq, tk, tv, o, lse, torch.from_numpy(w).to(torch.bfloat16),
+                                  causal, scale, block_k=16, p_dtype=torch.bfloat16)
+    expected = jax.grad(
+        lambda a, b, c: jnp.sum(ref.flash_attention(a, b, c, causal=causal)
+                                .astype(jnp.float32) * w),
+        argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    for got, want in zip(grads, expected):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounded_p_is_softmax_in_bf16(causal):
+    """BH 1, T 4, D 8: with dO = [I | 0] and V = 0, dV's first 4 columns
+    are P^T, and the rounded P is softmax(s) rounded to bf16 by hand."""
+    rng = np.random.RandomState(9)
+    q, k = (torch.from_numpy(rng.randn(1, 4, 8).astype(np.float32)) for _ in range(2))
+    v = torch.zeros(1, 4, 8)
+    do = torch.zeros(1, 4, 8)
+    do[0, :, :4] = torch.eye(4)
+    scale = 8 ** -0.5
+    o, lse = port._flash_fwd_plain(q, k, v, causal, scale)
+    _, _, dv = port._flash_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                     p_dtype=torch.bfloat16)
+    s = q[0] @ k[0].T * scale
+    if causal:
+        s = torch.where(torch.tril(torch.ones(4, 4, dtype=torch.bool)), s, -1e30)
+    want = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    assert not torch.equal(want, torch.softmax(s, dim=-1))   # the rounding shows
+    assert torch.equal(dv[0, :, :4].T, want)
+
+
+_PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_ZN47_INTERNAL_f4d45_18_flash_attention_cu_c28a3c6f20flash_fwd_mma_kernelILi64ELi2ELi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_INTERNAL_f4d45_18_flash_attention_cu_c28a3c6f20flash_fwd_mma_kernelILi64ELi2ELi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi
+    0 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Function properties for _ZN47_INTERNAL_f4d45_18_flash_attention_cu_c28a3c6f21flash_bwd_dkdv_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_iifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 97 registers, used 1 barriers
+ptxas info    : Function properties for _Z19mrs_epilogue_kernelPKfS0_S0_Pvii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report_names_kernels_with_registers_and_spills():
+    """The spill gate of chip_smoke.py reads nvcc's report through this."""
+    from horovod_tpu_torch.ops import _build
+
+    got = [(k["name"], k["registers"], k["spill_stores"], k["spill_loads"])
+           for k in _build.ptxas_kernels(_PTXAS_REPORT)]
+    assert got == [("flash_fwd_mma_kernel<64,2,64>", 254, 8, 16),
+                   ("flash_bwd_dkdv_kernel<64>", 97, 0, 0),
+                   ("mrs_epilogue_kernel", 20, 0, 0)]
+
+
+def test_tensor_core_kernels_are_named_for_the_checks():
+    """chip_smoke.py's spill gate names B1's tensor-core kernels, and its
+    profile counts a kernel in the flash family by the substring flash_."""
+    import os
+    import chip_smoke
+
+    src = open(os.path.join(os.path.dirname(port.__file__), "..", "csrc",
+                            "flash_attention.cu")).read()
+    for name in chip_smoke.MMA_KERNELS:
+        assert "flash_" in name and f"\n{name}(" in src
+
+
+def test_tile_sweep_refuses_without_a_card(tmp_path):
+    from horovod_tpu_torch.tools import flash_tile_sweep
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the sweep would run")
+    assert flash_tile_sweep.main(["--out", str(tmp_path / "sweep.jsonl")]) == 2
