@@ -8,7 +8,7 @@ Phases, each printed as it ends:
 1. the card: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
 2. the build: nvcc compiles ``horovod_tpu_torch/csrc/*.cu`` (sm_90a);
    ptxas's registers and spills per kernel; a spill in B1's tensor-core
-   kernels fails the run;
+   kernels or in B3/B4's TMA + wgmma kernel fails the run;
 3. each flash-attention kernel (B1) against its plain PyTorch version: in
    f32 (the CUDA-core kernels) with TF32 off at small shapes and at the
    GPT-2-small shape (rtol 2e-4 / atol 2e-5 forward, 1e-3 / 1e-4
@@ -45,6 +45,10 @@ Phases, each printed as it ends:
    step under ``torch.profiler`` for the device time by kernel family and
    the device's busy share (host time there includes the profiler's own
    cost);
+   Then ``[head-dims]``: GPT-2-small's width with 48 heads (D 16) and with 8
+   heads (D 96), head dims the kernels are not built for, 2 layers, 3 AdamW
+   steps each: the adapter zero-pads D to the kernels' next head dim, so
+   the loss must be finite and fall and the flash counters must have moved;
 7. the sequence-parallel slice: ``init()`` over NCCL, ``build_mesh({"data":
    1, "seq": 1})``, GPT-2-small width at T 4096 with ``ring_attention`` over
    the seq group and ``remat=True``, 5 AdamW steps of ``make_sp_train_step``
@@ -54,12 +58,17 @@ Phases, each printed as it ends:
 8. ``[tp-kernels]``: the collective-matmul kernels B3 (chunk product) and B4
    (partial product and epilogue) against their plain versions: at small
    ragged shapes (batch > 1, sub-chunks 1 and 2, row offsets) in f32 with
-   TF32 off at 2e-4 / 2e-5 and in bf16, and in bf16 at the GPT-2-small tp-4
-   per-rank shapes (B3: q/k/v and MLP up; B4: attention out and MLP down),
-   B3's bf16 output at two bf16 ulps and B4's f32 accumulator at 2e-4 / 2e-5, with
-   the time of one rank's call (4 chunk products; 4 partial products and
-   the epilogue), the plain versions' time, the bound and ``torch.matmul``
-   over the same product (timed only as a yardstick);
+   TF32 off at 2e-4 / 2e-5 and in bf16 (the TMA + wgmma kernel where
+   ``_tma_ok`` takes the operands, the WMMA kernel where it does not, each
+   case naming its kernel), and in bf16 at the GPT-2-small tp-4 per-rank
+   shapes (B3: q/k/v and MLP up; B4: attention out and MLP down) on both
+   the TMA and the WMMA kernel, B3's bf16 output at two bf16 ulps and B4's
+   f32 accumulator at 2e-4 / 2e-5; one rank's call (4 chunk products; 4
+   partial products and the epilogue) timed on both kernels in turns
+   (WMMA, TMA, TMA, WMMA), by CUDA events over the call loop and by the
+   device time of its kernels (``torch.profiler``), beside the card's name
+   and power limit, the plain versions' time, the bound and
+   ``torch.matmul`` over the same product (timed only as a yardstick);
 9. ``[tp-ring]``: a 4-rank bidirectional ring played on one card by four
    threads, one per virtual rank, through the port's own schedule
    (``_ag_matmul``, ``_mrs`` and their dual-primitive backwards), the hops
@@ -75,7 +84,8 @@ Phases, each printed as it ends:
    are no-ops and the fused path is not taken, as in the reference; the
    fused path runs across cards in ``tools/tp_parity.py``.)
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (the
+B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before that line is printed. Without a CUDA device it exits 2.
 """
@@ -122,6 +132,8 @@ REF_RTOL, REF_ATOL = 5e-2, 5e-2
 TIE_REL = 2.0 ** -16
 # B1's bf16 kernels, which must spill nothing at any head dim.
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+# B3/B4's TMA + wgmma kernel, which must spill nothing at any built tile.
+CM_TMA_KERNEL = "gemm_tma_wgmma_kernel"
 
 
 class SmokeFailure(RuntimeError):
@@ -194,6 +206,7 @@ def phase_card():
     print(smi, flush=True)
     print(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
           f"CUDA {torch.version.cuda}; devices {torch.cuda.device_count()}", flush=True)
+    return smi
 
 
 def phase_build():
@@ -202,17 +215,22 @@ def phase_build():
     t0 = time.perf_counter()
     reports = _build.build(["flash_attention", "collective_matmul"])
     secs = time.perf_counter() - t0
-    spills = []
+    spills, missing = [], []
+    gated = {"flash_attention": set(MMA_KERNELS), "collective_matmul": {CM_TMA_KERNEL}}
     for name, report in reports.items():
+        names = set()
         for kern in _build.ptxas_kernels(report):
             print(f"[ptxas {name}] {kern['name']}: {kern['registers']} registers, spill "
                   f"stores {kern['spill_stores']} B, loads {kern['spill_loads']} B")
-            if kern["name"].split("<")[0] in MMA_KERNELS and (
-                    kern["spill_stores"] or kern["spill_loads"]):
+            base = kern["name"].split("<")[0]
+            names.add(base)
+            if base in gated[name] and (kern["spill_stores"] or kern["spill_loads"]):
                 spills.append(kern["name"])
-    print(f"[build] flash_attention and collective_matmul built in {secs:.1f} s "
+        missing += sorted(gated[name] - names)
+    print(f"[build] {', '.join(reports) or 'nothing'} built in {secs:.1f} s "
           f"(one nvcc each, in parallel)", flush=True)
     check(not spills, f"ptxas reports spills in the tensor-core kernels {spills}")
+    check(not missing, f"ptxas reported no {missing}: the spill check cannot see them")
 
 
 def _attention_inputs(bh, t, d, dtype, seed, tk=None):
@@ -637,6 +655,42 @@ def phase_train():
         hvd.shutdown()
 
 
+def phase_head_dims():
+    """Head dims the flash kernels are not built for: GPT-2-small's width
+    with 48 heads (D 16, padded to 32) and with 8 heads (D 96, padded to
+    128), 2 layers, batch 8 x 1024, 3 AdamW steps each on the card: the
+    loss must be finite and fall, and the flash forward and backward must
+    have launched (the adapter pads; it does not fall back)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(3)
+    tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                                   (BATCH, SEQ))).cuda() for _ in range(2))
+    for heads in (48, 8):
+        dims = dict(GPT2_SMALL, n_heads=heads, n_layers=2)
+        model = TransformerLM(**dims, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8)
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        losses = []
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            loss = lm_loss(model(tokens), labels)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss))
+        launches = {"fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
+        d = dims["d_model"] // heads
+        print(f"[head-dims] GPT-2-small width, {heads} heads (D {d}, the kernels' "
+              f"{fa._padded(d)}), 2 layers, batch {BATCH} x {SEQ}: losses {losses}, flash "
+              f"launches {launches}", flush=True)
+        check(all(np.isfinite(losses)), f"D {d}: non-finite loss: {losses}")
+        check(losses[-1] < losses[0], f"D {d}: loss did not fall: {losses}")
+        check(launches == {"fwd": 3 * 2, "bwd": 3 * 2}, f"D {d}: flash launches {launches}")
+
+
 def phase_sp_train():
     import numpy as np
     import torch
@@ -701,18 +755,22 @@ def phase_tp_kernels_f32():
     """B3 and B4 at small ragged shapes: batch > 1, sub-chunks 1 and 2 of a
     chunk at its row offset in the gathered output, the partial product
     with and without an arriving accumulator, and the epilogue. In f32 with
-    TF32 off (the FMA kernel) at 2e-4 / 2e-5, and in bf16 (the WMMA kernel's
-    masked edges and its scalar loads where rows are not 16-byte aligned)
-    with B3's output at two bf16 ulps and B4's f32 accumulator at 2e-4 /
-    2e-5."""
+    TF32 off (the FMA kernel) at 2e-4 / 2e-5, and in bf16 with B3's output
+    at two bf16 ulps and B4's f32 accumulator at 2e-4 / 2e-5: the shapes
+    TMA can take (``_tma_ok``; ragged rows, K and N under a tile) through
+    the TMA + wgmma kernel, the others (N 70, K 36: strides off 16 bytes)
+    through the WMMA kernel's masked edges and scalar loads. Each case says
+    which kernel took it, and bf16 must have sent cases to both."""
     import torch
     from horovod_tpu_torch.ops import collective_matmul as cm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = {torch.float32: [], torch.bfloat16: []}
+    paths = {torch.float32: set(), torch.bfloat16: set()}
     for dtype in (torch.float32, torch.bfloat16):
         out_tol = (F32_RTOL, F32_ATOL) if dtype == torch.float32 else (BF16_RTOL, BF16_ATOL)
-        for (b, tc, k, n) in ((3, 50, 40, 70), (2, 64, 128, 96), (1, 130, 72, 200)):
+        for (b, tc, k, n) in ((3, 50, 40, 70), (2, 64, 128, 96), (1, 130, 72, 200),
+                              (2, 48, 36, 64), (2, 128, 64, 320)):
             tag = f"{dtype} {(b, tc, k, n)}"
             x = _randn((b, tc, k), dtype, tc + k)
             w = _randn((k, n), dtype, n, k ** -0.5)
@@ -722,7 +780,9 @@ def phase_tp_kernels_f32():
                 ref = torch.zeros_like(out)
                 for s in range(c):
                     row = 2 * tc + s * sc
-                    cm._launch_chunk_product(x[:, s * sc:(s + 1) * sc], w, out[:, row:row + sc])
+                    a, o = x[:, s * sc:(s + 1) * sc], out[:, row:row + sc]
+                    paths[dtype].add(cm._tile(a, w, o, (), False) != cm.SIMT_TILE)
+                    cm._launch_chunk_product(a, w, o)
                     cm._chunk_product_plain(x[:, s * sc:(s + 1) * sc], w, ref[:, row:row + sc])
                 errs[dtype].append(max_err(out, ref, *out_tol, f"B3 {tag} chunks {c}"))
                 check(bool((out[:, :2 * tc] == 0).all() and (out[:, 2 * tc + c * sc:] == 0).all()),
@@ -730,26 +790,42 @@ def phase_tp_kernels_f32():
             y = _randn((b, 4 * tc, k), dtype, tc + k + 1)
             acc_in = _randn((b, tc // 2, n), torch.float32, 7)
             for acc in (None, acc_in):
-                got = cm._launch_partial_product(y[:, tc:tc + tc // 2], w, acc)
-                want = cm._partial_product_plain(y[:, tc:tc + tc // 2], w, acc)
+                a = y[:, tc:tc + tc // 2]
+                paths[dtype].add(cm._tile(a, w, acc_in, (acc,), False) != cm.SIMT_TILE)
+                got = cm._launch_partial_product(a, w, acc)
+                want = cm._partial_product_plain(a, w, acc)
                 errs[dtype].append(max_err(got, want, F32_RTOL, F32_ATOL, f"B4 {tag}"))
+            tma = cm._tile(x, w, x.new_empty(b, tc, n), (), False) != cm.SIMT_TILE
+            print(f"[tp-kernels] {tag}: {'tma' if tma else 'simt'} kernel", flush=True)
         parts = [_randn((2, 50, 70), torch.float32, 10 + i) for i in range(3)]
-        for f, bk in ((parts[1], parts[2]), (parts[1], None), (None, None)):
-            got = cm._launch_epilogue(parts[0], f, bk, dtype)
-            want = cm._epilogue_plain(parts[0], f, bk, dtype)
-            check(bool(torch.equal(got, want)), f"B4 epilogue {dtype} differs from its plain version")
+        odd = [_randn((2 * 50 * 70 + 1,), torch.float32, 13 + i)[1:].view(2, 50, 70)
+               for i in range(3)]
+        for ps in (parts, odd):    # 16-byte loads, and the scalar path off 16 bytes
+            for f, bk in ((ps[1], ps[2]), (ps[1], None), (None, None)):
+                got = cm._launch_epilogue(ps[0], f, bk, dtype)
+                want = cm._epilogue_plain(ps[0], f, bk, dtype)
+                check(bool(torch.equal(got, want)),
+                      f"B4 epilogue {dtype} differs from its plain version")
+    check(paths[torch.bfloat16] == {True, False} and paths[torch.float32] == {False},
+          f"bf16 cases must reach both kernels, f32 only the FMA kernel: {paths}")
     print(f"[tp-kernels] B3 (chunks 1/2, row offsets, batch 1-3) and B4 (with and without an "
-          f"arriving accumulator) at 3 ragged shapes: max abs err f32 "
-          f"{max(errs[torch.float32]):.2e}, bf16 {max(errs[torch.bfloat16]):.2e}; "
-          f"epilogue bitwise", flush=True)
+          f"arriving accumulator) at 5 ragged shapes, bf16 through the TMA and the WMMA "
+          f"kernels: max abs err f32 {max(errs[torch.float32]):.2e}, bf16 "
+          f"{max(errs[torch.bfloat16]):.2e}; epilogue bitwise (aligned and not)", flush=True)
 
 
-def phase_tp_kernels_bench():
-    """B3 and B4 in bf16 at the GPT-2-small tp-4 per-rank shapes: parity of
-    one rank's call against the plain versions, its time, the bound and
-    torch.matmul over the same product."""
+def phase_tp_kernels_bench(card):
+    """B3 and B4 in bf16 at the GPT-2-small tp-4 per-rank shapes: one rank's
+    call (B3: 4 chunk products; B4: 4 partial products and the epilogue)
+    on the TMA + wgmma kernel and on the earlier WMMA kernel, each against
+    the plain versions; both timed in turns in this run (WMMA, TMA, TMA,
+    WMMA): CUDA events over a loop of calls, and the device time of the
+    call's kernels from torch.profiler's kernel durations. Beside them the
+    plain versions' time, the bound and torch.matmul over the same product
+    (a yardstick, timed both ways)."""
     import torch
     from horovod_tpu_torch.ops import collective_matmul as cm
+    from horovod_tpu_torch.tools.cm_tile_sweep import device_ms
 
     d, tokens = GPT2_SMALL["d_model"], BATCH * SEQ
     tc = SEQ // TP
@@ -761,19 +837,27 @@ def phase_tp_kernels_bench():
             x = [_randn((BATCH, tc, fin), torch.bfloat16, 20 + r) for r in range(TP)]
             out = torch.empty(BATCH, SEQ, fout, dtype=torch.bfloat16, device="cuda")
             ref = torch.empty_like(out)
+            check(all(cm._tma_ok(x[r], w, out[:, r * tc:(r + 1) * tc]) for r in range(TP)),
+                  f"B3 {call}: the main path's operands must take the TMA kernel")
 
             def run(fn, out=out, x=x, w=w):
                 for r in range(TP):
                     fn(x[r], w, out[:, r * tc:(r + 1) * tc])
 
-            run(cm._launch_chunk_product)
+            def call_fn(legacy, run=run):
+                run(lambda a, w_, o: cm._launch_chunk_product(a, w_, o, legacy=legacy))
+
             run(cm._chunk_product_plain, out=ref)
-            err = max_err(out, ref, BF16_RTOL, BF16_ATOL, f"B3 bf16 {call}")
-            ms = time_ms(lambda: run(cm._launch_chunk_product), reps=20)
+            err = {}
+            for legacy in (True, False):
+                call_fn(legacy)
+                err[legacy] = max_err(out, ref, BF16_RTOL, BF16_ATOL,
+                                      f"B3 bf16 {call} ({'wmma' if legacy else 'tma'})")
             plain = time_ms(lambda: run(cm._chunk_product_plain, out=ref), reps=5)
             gathered = torch.cat(x, dim=1)
-            lib = time_ms(lambda: torch.matmul(gathered, w), reps=20)
+            lib_fn = lambda: torch.matmul(gathered, w)
             nbytes = 2 * (tokens * fin + fin * fout + tokens * fout)
+            floor = nbytes
         else:
             y = _randn((BATCH, SEQ, fin), torch.bfloat16, 30)
 
@@ -785,19 +869,56 @@ def phase_tp_kernels_bench():
                 f = partial(y[:, tc:2 * tc], w, f)
                 return f, epilogue(own, f, bk, torch.bfloat16)
 
-            f, out = run(cm._launch_partial_product, cm._launch_epilogue)
+            def call_fn(legacy, run=run):
+                return run(lambda a, w_, acc: cm._launch_partial_product(a, w_, acc, legacy),
+                           cm._launch_epilogue)
+
             f_ref, ref = run(cm._partial_product_plain, cm._epilogue_plain)
-            err = max(max_err(f, f_ref, F32_RTOL, F32_ATOL, f"B4 bf16 {call} f32 accumulator"),
-                      max_err(out, ref, BF16_RTOL, BF16_ATOL, f"B4 bf16 {call} output"))
-            ms = time_ms(lambda: run(cm._launch_partial_product, cm._launch_epilogue), reps=20)
+            err = {}
+            for legacy in (True, False):
+                f, out = call_fn(legacy)
+                what = f"B4 bf16 {call} ({'wmma' if legacy else 'tma'})"
+                err[legacy] = max(max_err(f, f_ref, F32_RTOL, F32_ATOL, f"{what} f32 accumulator"),
+                                  max_err(out, ref, BF16_RTOL, BF16_ATOL, f"{what} output"))
+            check(cm._tma_ok(y[:, tc:2 * tc], w, f, f),
+                  f"B4 {call}: the main path's operands must take the TMA kernel")
             plain = time_ms(lambda: run(cm._partial_product_plain, cm._epilogue_plain), reps=5)
-            lib = time_ms(lambda: torch.matmul(y, w), reps=20)
+            lib_fn = lambda: torch.matmul(y, w)
             nbytes = 2 * (tokens * fin + fin * fout + tc * BATCH * fout)
+            # What this design must move besides: 4 f32 accumulators written
+            # and 1 read by the partial products, 3 read by the epilogue.
+            floor = nbytes + 4 * 8 * tc * BATCH * fout
+        ev = {True: [], False: []}
+        dev = {True: [], False: []}
+        for legacy in (True, False, False, True):
+            ev[legacy].append(time_ms(lambda: call_fn(legacy), reps=50))
+            dev[legacy].append(device_ms(lambda: call_fn(legacy), 50, ("gemm_", "mrs_epilogue")))
+        lib = time_ms(lib_fn, reps=50)
+        lib_dev = device_ms(lib_fn, 50, None)
+        # The TMA call's device time by kernel: the products, and B4's epilogue.
+        split = {name: device_ms(lambda: call_fn(False), 50, (name,))
+                 for name in ((CM_TMA_KERNEL, "mrs_epilogue") if kernel == "B4" else ())}
+        ms, ms_dev = statistics.mean(ev[False]), statistics.mean(dev[False])
+        old, old_dev = statistics.mean(ev[True]), statistics.mean(dev[True])
         b = bound(nbytes, 2 * tokens * fin * fout)
-        rows[call] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=b, library_ms=lib)
-        print(f"[tp-kernels] {kernel} {call} bf16 (w {fin} x {fout}, {tokens} tokens over tp "
-              f"{TP}): max abs err {err:.2e}; one rank's call ms {ms:.4f} (plain {plain:.4f}, "
-              f"torch.matmul {lib:.4f}, bound {b[0]:.4f} by {b[1]}, {ms / b[0]:.1f}x)", flush=True)
+        rows[call] = dict(max_abs_err=err[False], ms=ms, device_ms=ms_dev, plain_ms=plain,
+                          bound=b, library_ms=lib, old_ms=old, old_device_ms=old_dev,
+                          library_device_ms=lib_dev, byte_floor_ms=floor / HBM_BYTES_PER_S * 1e3)
+        limit = 2.0 if kernel == "B3" else 3.0
+        print(f"[tp-kernels] {kernel} {call} bf16 (w {fin} x {fout}, {tokens} tokens over tp {TP}) "
+              f"on {card}: max abs err tma {err[False]:.2e}, wmma {err[True]:.2e}; one rank's "
+              f"call ms, events / device: tma {ms:.4f} / {ms_dev:.4f} (runs "
+              f"{[round(v, 4) for v in ev[False]]} / {[round(v, 4) for v in dev[False]]}), wmma "
+              f"{old:.4f} / {old_dev:.4f} (runs {[round(v, 4) for v in ev[True]]} / "
+              f"{[round(v, 4) for v in dev[True]]}); plain {plain:.4f}; torch.matmul "
+              f"{lib:.4f} / {lib_dev:.4f}; bound {b[0]:.4f} by {b[1]}"
+              + (f", f32 accumulator byte floor {floor / HBM_BYTES_PER_S * 1e3:.4f}; tma device "
+                 f"ms by kernel: partial products {split[CM_TMA_KERNEL]:.4f}, epilogue "
+                 f"{split['mrs_epilogue']:.4f}" if kernel == "B4" else "")
+              + f". Device time tma/wmma {ms_dev / old_dev:.3f} (target <= 1/3: "
+              f"{'met' if ms_dev <= old_dev / 3 else 'missed'}), tma/torch.matmul "
+              f"{ms_dev / lib_dev:.2f} (target <= {limit:g}: "
+              f"{'met' if ms_dev <= limit * lib_dev else 'missed'})", flush=True)
     return rows
 
 
@@ -1043,7 +1164,7 @@ def main() -> int:
         return 2
     import horovod_tpu_torch  # noqa: F401 - fails where the repo is missing
 
-    phase_card()
+    card = phase_card()
     phase_build()
     phase_kernels_f32()
     phase_kernels_bf16()
@@ -1057,9 +1178,10 @@ def main() -> int:
     phase_ring_merge()
     phase_small_model()
     launches = phase_train()
+    phase_head_dims()
     sp_launches = phase_sp_train()
     phase_tp_kernels_f32()
-    tp_rows = phase_tp_kernels_bench()
+    tp_rows = phase_tp_kernels_bench(card)
     tp_launches = phase_tp_ring()
     phase_tp_train()
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
@@ -1075,7 +1197,8 @@ def main() -> int:
          "replaces": r["replaces"], "launches": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **({"device_ms": r["device_ms"]} if "device_ms" in r else {})}
         for name, r in rows.items()
     ]
     print(json.dumps({"kernels": kernels}))

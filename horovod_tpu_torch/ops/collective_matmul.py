@@ -36,6 +36,13 @@ version only for tensors on the CPU, and for any other tensor launches the
 kernel or raises. ``AGMM_LAUNCHES`` counts B3's chunk-product launches and
 ``MRS_LAUNCHES`` B4's partial-product launches.
 
+bf16 products run on the TMA + wgmma kernel at the tile ``tile_for(K, N,
+dtype)`` picks; the choice depends on nothing else, so a chunk's rows are
+bitwise the rows of the same product over the gathered input. Operands TMA
+cannot take (``_tma_ok``: K or N not a multiple of 8, a base address off 16
+bytes) take the earlier WMMA kernel, and f32 the FMA kernel, chosen by shape
+before the launch.
+
 Both primitives are differentiable, with the DUAL primitive as backward
 (``_agmm_bwd``/``_mrs_bwd``): d(all_gather_matmul)/dx is a
 matmul_reduce_scatter of the cotangent and d(matmul_reduce_scatter)/dy an
@@ -142,18 +149,62 @@ def _epilogue_plain(own, fwd, bwd, dtype) -> torch.Tensor:
     return acc.to(dtype)
 
 
+# --- the tile -----------------------------------------------------------------
+
+# The TMA + wgmma kernel's tile (BM, BN, STAGES) by (K, N), for bf16: the
+# committed choice of tools/cm_tile_sweep.py at the shapes the fused GPT step
+# gives it (PERF.md); other shapes take DEFAULT_TILE. A tile must be one the
+# library was built with (HVT_CM_CONFIGS in csrc/collective_matmul.cu); the C
+# entries refuse any other.
+TILES = {(768, 576): (64, 192, 4), (768, 768): (64, 192, 4), (192, 768): (64, 192, 4),
+         (576, 768): (64, 192, 4), (768, 192): (64, 128, 4)}
+DEFAULT_TILE = (64, 128, 4)
+SIMT_TILE = (0, 0, 0)   # the earlier kernels: WMMA (bf16), FMA (f32)
+
+
+def tile_for(k: int, n: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """The tile of the product [rows, k] @ [k, n] in ``dtype``: a function
+    of (k, n, dtype) alone, never of the rows or the batch, so every output
+    element is summed in one order. f32 takes the FMA kernel
+    (``SIMT_TILE``)."""
+    if dtype != torch.bfloat16:
+        return SIMT_TILE
+    return TILES.get((int(k), int(n)), DEFAULT_TILE)
+
+
+def _tma_ok(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *more) -> bool:
+    """Whether the TMA kernel can take these operands: bf16, K and N
+    multiples of 8 and the batch strides multiples of 8 elements (TMA's
+    16-byte strides), and every base address 16-byte aligned (a chunk is a
+    view at a row offset). ``more``: further tensors the kernel reads or
+    writes (B4's accumulators), None allowed."""
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return False
+    k, n = w.shape
+    if k % 8 or n % 8 or a.stride(0) % 8 or out.stride(0) % 8:
+        return False
+    return all(t.data_ptr() % 16 == 0 for t in (a, w, out, *more) if t is not None)
+
+
 # --- the kernels --------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_ENTRIES: dict = {}
+_MAP_REFUSED = 10000    # kMapRefused in csrc/collective_matmul.cu, plus the CUresult
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("collective_matmul")
+    return bind(_build.load("collective_matmul"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument types on a loaded collective-matmul
+    library (the package's own, or a variant built with other tiles)."""
     if not getattr(lib, "_hvt_bound", False):
-        lib.hvt_chunk_product.argtypes = [_P] * 3 + [_I] * 4 + [_L] * 2 + [_I, _P]
-        lib.hvt_partial_product.argtypes = [_P] * 4 + [_I] * 4 + [_L, _I, _P]
+        lib.hvt_chunk_product.argtypes = [_P] * 3 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P]
+        lib.hvt_partial_product.argtypes = [_P] * 4 + [_I] * 4 + [_L] + [_I] * 4 + [_P]
         lib.hvt_mrs_epilogue.argtypes = [_P] * 4 + [_L, _I, _P]
         for fn in (lib.hvt_chunk_product, lib.hvt_partial_product, lib.hvt_mrs_epilogue):
             fn.restype = ctypes.c_int
@@ -161,9 +212,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _entry(name: str):
+    """The bound C entry, looked up once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(_lib(), name)
+    return fn
+
+
 def _run(entry: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = getattr(_lib(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Call a C entry on ``device``'s current stream (its raw handle, as
+    Triton's launcher takes it: the cheapest lookup); raise on its error."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = _entry(entry)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = _entry(entry)(*args, stream)
+    if rc >= _MAP_REFUSED:
+        raise RuntimeError(f"{entry}: the CUDA driver refused a TMA tensor map "
+                           f"(CUresult {rc - _MAP_REFUSED})")
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
 
@@ -171,12 +239,12 @@ def _run(entry: str, device: torch.device, *args) -> None:
 def _check_operands(a: torch.Tensor, w: torch.Tensor, *others: torch.Tensor) -> None:
     """a: [batch, rows, K] with contiguous rows; w: [K, N] contiguous; every
     tensor on one CUDA device; a and w of one dtype, f32 or bf16."""
-    for t in (a, w, *others):
-        if t.device.type != "cuda" or t.device != a.device:
-            raise ValueError(
-                f"collective matmul kernels need every tensor on one CUDA device; "
-                f"got {t.device} beside {a.device}"
-            )
+    dev = a.device
+    if dev.type != "cuda" or any(t.device != dev for t in (w, *others)):
+        raise ValueError(
+            f"collective matmul kernels need every tensor on one CUDA device; got "
+            f"{[str(t.device) for t in (a, w, *others)]}"
+        )
     if a.dtype not in _DTYPE_CODES or w.dtype != a.dtype:
         raise ValueError(
             f"collective matmul kernels take float32 or bfloat16 operands of one "
@@ -189,7 +257,17 @@ def _check_operands(a: torch.Tensor, w: torch.Tensor, *others: torch.Tensor) -> 
         raise ValueError("collective matmul kernels need contiguous rows of a and a contiguous w")
 
 
-def _launch_chunk_product(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
+def _tile(a, w, out, more, legacy: bool) -> Tuple[int, int, int]:
+    """The tile a launch runs: ``tile_for`` where ``_tma_ok``, else the
+    earlier kernels. ``legacy`` runs the earlier kernels on any operands, so
+    chip_smoke.py can time the two designs in turns; the rings never set it."""
+    if legacy or not _tma_ok(a, w, out, *more):
+        return SIMT_TILE
+    return tile_for(w.shape[0], w.shape[1], a.dtype)
+
+
+def _launch_chunk_product(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+                          legacy: bool = False) -> None:
     """B3 on the card: ``out`` is a [batch, rows, N] view of the gathered
     output (contiguous rows, any batch stride)."""
     global AGMM_LAUNCHES
@@ -201,12 +279,13 @@ def _launch_chunk_product(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -
         raise ValueError(f"output view {tuple(out.shape)} {out.dtype} does not fit "
                          f"{tuple(a.shape)} @ {tuple(w.shape)}")
     _run("hvt_chunk_product", a.device, a.data_ptr(), w.data_ptr(), out.data_ptr(),
-         batch, rows, k, n, a.stride(0), out.stride(0), _DTYPE_CODES[a.dtype])
+         batch, rows, k, n, a.stride(0), out.stride(0), _DTYPE_CODES[a.dtype],
+         *_tile(a, w, out, (), legacy))
     AGMM_LAUNCHES += 1
 
 
-def _launch_partial_product(a: torch.Tensor, w: torch.Tensor,
-                            acc_in: Optional[torch.Tensor]) -> torch.Tensor:
+def _launch_partial_product(a: torch.Tensor, w: torch.Tensor, acc_in: Optional[torch.Tensor],
+                            legacy: bool = False) -> torch.Tensor:
     """B4 on the card: returns the f32 ``acc_in + a @ w``."""
     global MRS_LAUNCHES
     _check_operands(a, w, *(() if acc_in is None else (acc_in,)))
@@ -218,7 +297,8 @@ def _launch_partial_product(a: torch.Tensor, w: torch.Tensor,
     acc_out = torch.empty(batch, rows, n, dtype=torch.float32, device=a.device)
     _run("hvt_partial_product", a.device, a.data_ptr(), w.data_ptr(),
          None if acc_in is None else acc_in.data_ptr(), acc_out.data_ptr(),
-         batch, rows, k, n, a.stride(0), _DTYPE_CODES[a.dtype])
+         batch, rows, k, n, a.stride(0), _DTYPE_CODES[a.dtype],
+         *_tile(a, w, acc_out, (acc_in,), legacy))
     MRS_LAUNCHES += 1
     return acc_out
 

@@ -17,7 +17,8 @@ K tile, the block over which its online softmax rounds P.
 
 ``FWD_LAUNCHES`` counts launches of the forward kernel. ``BWD_LAUNCHES``
 counts backward launches, each of which launches the dQ kernel and then
-the dK/dV kernel once.
+the dK/dV kernel once. A batch x heads axis longer than a grid holds
+(65535) launches in pieces, each counted.
 
 The ring-attention block (``flash_attention_block``, the reference's
 ``normalize=False`` mode of the same TPU kernel) has its own kernel,
@@ -70,6 +71,29 @@ def flashable(t_q: int, t_k: int, block_q: int = 128,
         return True
     except ValueError:
         return False
+
+
+def flash_shape_ok(t_q: int, t_k: int, d: int) -> bool:
+    """Whether attention of these lengths and head dim takes the flash
+    path: lengths ``flashable`` accepts and a head dim of at most 128 (one
+    that is not 32, 64 or 128 is zero-padded to the next of them, which is
+    exact). Other shapes take the dense path. The same choice on the CPU and
+    on the card."""
+    return d <= _HEAD_DIMS[-1] and flashable(t_q, t_k)
+
+
+def _padded(d: int) -> int:
+    """The kernels' head dim for ``d`` <= 128: the next of 32, 64, 128."""
+    return next(h for h in _HEAD_DIMS if h >= d)
+
+
+def _pad_head(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x`` zero-padded on its last axis to ``dp``. Zero columns add
+    nothing to Q K^T and give zero columns of O, dQ, dK and dV, so the
+    padded attention is the attention, and its gradient flows back through
+    the pad's slice."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
 
 
 def _dense_full(q, k, v, causal, sm_scale):
@@ -246,7 +270,8 @@ def kernel_tiles(d: int, lib: Optional[ctypes.CDLL] = None) -> dict:
 def _check_cuda(q, k, v, *like_q: torch.Tensor) -> Tuple[int, int, int, int]:
     """Validate the kernels' inputs: q (and ``like_q``: o, dO) [BH, T_q, D],
     k and v [BH, T_k, D], contiguous, one CUDA device, one dtype (f32 or
-    bf16), D in 32/64/128. Returns (bh, t_q, t_k, d)."""
+    bf16), D in 32/64/128 (``flash_attention_bthd`` pads other head dims up
+    to 128). Returns (bh, t_q, t_k, d)."""
     tensors = (q, k, v, *like_q)
     for t in tensors:
         if t.device != q.device or t.device.type != "cuda":
@@ -267,8 +292,6 @@ def _check_cuda(q, k, v, *like_q: torch.Tensor) -> Tuple[int, int, int, int]:
     t_k = k.shape[1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of {_HEAD_DIMS}")
-    if bh > 65535:
-        raise ValueError(f"batch x heads {bh} exceeds the grid limit 65535")
     if k.shape != (bh, t_k, d) or v.shape != k.shape or any(
             t.shape != q.shape for t in like_q):
         raise ValueError(
@@ -288,6 +311,10 @@ def _check_rows(q: torch.Tensor, *stats: torch.Tensor) -> None:
             )
 
 
+# The kernels' grids put batch x heads on y, which holds at most 65535 blocks.
+_GRID_Y = 65535
+
+
 def _run(entry: str, device: torch.device, *args) -> None:
     """Call a C entry on ``device``'s current stream; raise on its error."""
     with torch.cuda.device(device):
@@ -296,15 +323,22 @@ def _run(entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
 
 
+def _bh_pieces(bh: int):
+    """The launches of a batch x heads axis: (start, count) pieces of at
+    most ``_GRID_Y``, each one grid."""
+    return [(s, min(_GRID_Y, bh - s)) for s in range(0, bh, _GRID_Y)]
+
+
 def _launch_fwd(q, k, v, causal: bool, sm_scale: float):
     global FWD_LAUNCHES
     bh, t_q, t_k, d = _check_cuda(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
-    _run("hvt_flash_fwd", q.device,
-         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
-    FWD_LAUNCHES += 1
+    for s, n in _bh_pieces(bh):
+        _run("hvt_flash_fwd", q.device,
+             q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), o[s].data_ptr(),
+             lse[s].data_ptr(), n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
+        FWD_LAUNCHES += 1
     return o, lse
 
 
@@ -316,10 +350,12 @@ def _launch_block_fwd(q, k, v, delta: int, causal: bool, sm_scale: float):
     o = torch.empty(bh, t_q, d, dtype=torch.float32, device=q.device)
     m = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
     l = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
-    _run("hvt_flash_block_fwd", q.device,
-         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal), int(delta))
-    BLOCK_LAUNCHES += 1
+    for s, n in _bh_pieces(bh):
+        _run("hvt_flash_block_fwd", q.device,
+             q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), o[s].data_ptr(),
+             m[s].data_ptr(), l[s].data_ptr(),
+             n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal), int(delta))
+        BLOCK_LAUNCHES += 1
     return o, m, l
 
 
@@ -329,10 +365,11 @@ def _launch_bwd_dq(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     _check_rows(q, lse)
     dq = torch.empty_like(q)
     dsum = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
-    _run("hvt_flash_bwd_dq", q.device,
-         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-         lse.data_ptr(), dq.data_ptr(), dsum.data_ptr(),
-         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
+    for s, n in _bh_pieces(bh):
+        _run("hvt_flash_bwd_dq", q.device,
+             q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), o[s].data_ptr(),
+             do[s].data_ptr(), lse[s].data_ptr(), dq[s].data_ptr(), dsum[s].data_ptr(),
+             n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
     return dq, dsum
 
 
@@ -341,10 +378,11 @@ def _launch_bwd_dkdv(q, k, v, do, lse, dsum, causal: bool, sm_scale: float):
     _check_rows(q, lse, dsum)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _run("hvt_flash_bwd_dkdv", q.device,
-         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-         lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-         bh, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
+    for s, n in _bh_pieces(bh):
+        _run("hvt_flash_bwd_dkdv", q.device,
+             q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), do[s].data_ptr(),
+             lse[s].data_ptr(), dsum[s].data_ptr(), dk[s].data_ptr(), dv[s].data_ptr(),
+             n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal))
     return dk, dv
 
 
@@ -352,7 +390,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     global BWD_LAUNCHES
     dq, dsum = _launch_bwd_dq(q, k, v, o, lse, do, causal, sm_scale)
     dk, dv = _launch_bwd_dkdv(q, k, v, do, lse, dsum, causal, sm_scale)
-    BWD_LAUNCHES += 1
+    BWD_LAUNCHES += len(_bh_pieces(q.shape[0]))
     return dq, dk, dv
 
 
@@ -433,17 +471,21 @@ def flash_attention_bthd(
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Layout adapter for the transformer's ``[B, T, H, D]`` attention:
-    fold heads into the batch axis, run the flash path, unfold. Lengths
-    with no block divisor of 8 or more take the dense path, chosen by shape
-    as the reference chooses it."""
+    fold heads into the batch axis, run the flash path, unfold. Shapes
+    ``flash_shape_ok`` refuses (lengths with no block divisor of 8 or more,
+    as the reference chooses; head dims above 128) take the dense path; a
+    head dim under 128 that the kernels are not built for is zero-padded to
+    the next one they are, with the scale of the true head dim."""
     B, T, H, D = q.shape
-    fold = lambda x: x.transpose(1, 2).reshape(B * H, x.shape[1], D)
-    qf, kf, vf = fold(q), fold(k), fold(v)
     scale = sm_scale if sm_scale is not None else D ** -0.5
-    if flashable(T, k.shape[1]):
-        out = flash_attention(qf, kf, vf, causal=causal, sm_scale=scale)
+    if flash_shape_ok(T, k.shape[1], D):
+        dp = _padded(D)
+        fold = lambda x: _pad_head(x, dp).transpose(1, 2).reshape(B * H, x.shape[1], dp)
+        out = flash_attention(fold(q), fold(k), fold(v), causal=causal, sm_scale=scale)
+        out = out[..., :D]
     else:
-        out = _dense_full(qf, kf, vf, causal, scale)
+        fold = lambda x: x.transpose(1, 2).reshape(B * H, x.shape[1], D)
+        out = _dense_full(fold(q), fold(k), fold(v), causal, scale)
     return out.reshape(B, H, T, D).transpose(1, 2)
 
 
@@ -483,8 +525,16 @@ def flash_attention_block(
     minus Q's (key j sits at position j + delta). Returns the f32 triple
     ``(o_unnormalised, m, l)`` for the caller's online-softmax merge
     (``parallel/ring_attention.py``). Differentiable in q, k and v. Lengths
-    the reference kernel's grid refuses are refused here too."""
+    the reference kernel's grid refuses are refused here too. A head dim
+    under 128 that the kernel is not built for is zero-padded to the next
+    one it is (exact: O's padded columns are zero, m and l do not change);
+    above 128 the block is computed densely (``_dense_block``)."""
     _pick_block(q.shape[1], 128)
     _pick_block(k.shape[1], 128)
-    return _FlashBlock.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                             int(delta), causal, sm_scale)
+    d = q.shape[-1]
+    if d > _HEAD_DIMS[-1]:
+        return _dense_block(q, k, v, int(delta), sm_scale, causal)
+    dp = _padded(d)
+    o, m, l = _FlashBlock.apply(*(_pad_head(x, dp).contiguous() for x in (q, k, v)),
+                                int(delta), causal, sm_scale)
+    return (o if dp == d else o[..., :d]), m, l

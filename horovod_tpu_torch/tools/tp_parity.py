@@ -149,7 +149,8 @@ def _parity(device, model: int, fused: bool) -> None:
 
 def _family(name: str) -> str:
     name = name.lower()
-    if any(k in name for k in ("gemm_wmma_kernel", "gemm_fma_kernel", "mrs_epilogue")):
+    if any(k in name for k in ("gemm_tma_wgmma_kernel", "gemm_wmma_kernel", "gemm_fma_kernel",
+                               "mrs_epilogue")):
         return "b3b4"
     if "flash_" in name:
         return "flash"

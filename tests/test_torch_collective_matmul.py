@@ -359,3 +359,158 @@ def test_wrappers_take_the_plain_versions_on_cpu(monkeypatch):
     acc = port._partial_product(a, w, port._partial_product(a, w))
     np.testing.assert_allclose(acc.numpy(), 2 * (a @ w).numpy(), rtol=1e-6, atol=1e-6)
     assert port._epilogue(acc, acc, None, torch.bfloat16).dtype == torch.bfloat16
+
+
+# --- the TMA kernel's operands and tile ---------------------------------------------
+
+# GPT-2-small at tp 4 (d 768, 12 heads, batch 8 x 1024, Tc 256): the (K, N)
+# of every chunk product on the fused step's path. B3 forward (q/k/v, MLP
+# up), B4 forward (attention out, MLP down), and each as the other's
+# backward dual.
+GPT2_TP4_B3 = ((768, 576), (768, 768), (768, 192))
+GPT2_TP4_B4 = ((192, 768), (768, 768), (576, 768))
+
+
+def _bf16(*shape):
+    import torch
+
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("sub_chunks", [1, 2])
+def test_tma_ok_accepts_every_gpt2_small_tp4_operand(sub_chunks):
+    """Every operand the rings hand the kernels at GPT-2-small tp 4: B3's own
+    chunk (a view of x3) and arrivals written into their rows of the
+    gathered output, B4's partials of y3[:, row:row + sc] with and without
+    an arriving f32 accumulator."""
+    import torch
+
+    b, n_ranks, tc = 8, 4, 256
+    sc = tc // sub_chunks
+    for k, n in GPT2_TP4_B3:
+        x3 = _bf16(b, tc, k)
+        w = _bf16(k, n)
+        out = _bf16(b, n_ranks * tc, n)
+        for r in range(n_ranks):
+            assert port._tma_ok(x3, w, out[:, r * tc:(r + 1) * tc])
+            for s in range(sub_chunks):
+                arrived = x3[:, s * sc:(s + 1) * sc].contiguous()
+                row = r * tc + s * sc
+                assert port._tma_ok(arrived, w, out[:, row:row + sc])
+    for k, n in GPT2_TP4_B4:
+        y3 = _bf16(b, n_ranks * tc, k)
+        w = _bf16(k, n)
+        acc = torch.zeros(b, sc, n)
+        for dest in range(n_ranks):
+            for s in range(sub_chunks):
+                row = dest * tc + s * sc
+                assert port._tma_ok(y3[:, row:row + sc], w, acc, None)
+                assert port._tma_ok(y3[:, row:row + sc], w, acc, acc)
+
+
+def test_tma_ok_refuses_what_tma_cannot_take():
+    """N or K off a multiple of 8 (chip_smoke.py's small case N 70), a
+    base address off 16 bytes, a batch stride off 8 elements, f32, and an
+    arriving accumulator off 16 bytes: each goes to the earlier kernels."""
+    import torch
+
+    assert not port._tma_ok(_bf16(3, 50, 40), _bf16(40, 70), _bf16(3, 200, 70)[:, 100:150])
+    assert not port._tma_ok(_bf16(2, 64, 36), _bf16(36, 96), _bf16(2, 64, 96))
+    assert not port._tma_ok(_bf16(2, 64, 128), _bf16(128, 70), _bf16(2, 64, 70))
+    flat = _bf16(4096)
+    assert not port._tma_ok(flat[4:4 + 2 * 16 * 64].view(2, 16, 64), _bf16(64, 64),
+                            _bf16(2, 16, 64))
+    odd_batch = _bf16(2 * 16 * 64 + 4).as_strided((2, 16, 64), (16 * 64 + 4, 64, 1))
+    assert not port._tma_ok(odd_batch, _bf16(64, 64), _bf16(2, 16, 64))
+    f32 = torch.zeros(2, 16, 64)
+    assert not port._tma_ok(f32, torch.zeros(64, 64), torch.zeros(2, 16, 64))
+    acc = torch.zeros(2 * 16 * 64 + 1)[1:].view(2, 16, 64)
+    assert not port._tma_ok(_bf16(2, 16, 64), _bf16(64, 64), torch.zeros(2, 16, 64), acc)
+    # The same operands, aligned, are taken.
+    assert port._tma_ok(_bf16(2, 16, 64), _bf16(64, 64), torch.zeros(2, 16, 64),
+                        torch.zeros(2, 16, 64))
+
+
+@pytest.mark.parametrize("k,n", GPT2_TP4_B3 + GPT2_TP4_B4 + ((128, 96), (72, 200)))
+def test_tile_is_a_function_of_k_n_and_dtype_alone(k, n):
+    """The tile a launch runs depends on (K, N, dtype) only: the same for a
+    chunk of 256 rows and the gathered 1024, for batch 1 and 8, at any row
+    offset; so the ring's chunk products are bitwise the product over the
+    gathered input. f32, and the earlier kernels asked for by name, take no
+    TMA tile."""
+    import torch
+
+    tiles = set()
+    for batch in (1, 8):
+        for rows in (128, 256, 1024):
+            a, w = _bf16(batch, rows, k), _bf16(k, n)
+            out = _bf16(batch, 2048, n)
+            for off in (0, 256, 1024):
+                tiles.add(port._tile(a, w, out[:, off:off + rows], (), False))
+            assert port._tile(a, w, out[:, :rows], (), True) == port.SIMT_TILE
+    assert tiles == {port.tile_for(k, n, torch.bfloat16)}
+    assert port.tile_for(k, n, torch.bfloat16) != port.SIMT_TILE
+    assert port.tile_for(k, n, torch.float32) == port.SIMT_TILE
+
+
+def test_chosen_tiles_are_built():
+    """Every tile ``tile_for`` can return is one the library builds
+    (HVT_CM_CONFIGS in csrc/collective_matmul.cu), and is a shape the
+    kernel takes: 64 or 128 rows, whole 64-column boxes up to 256."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(port.__file__), "..", "csrc",
+                            "collective_matmul.cu")).read()
+    line = re.search(r"#define HVT_CM_CONFIGS (.*)", src).group(1)
+    built = {tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", line)}
+    for bm, bn, stages in {*port.TILES.values(), port.DEFAULT_TILE}:
+        assert (bm, bn, stages) in built
+        assert bm in (64, 128) and bn % 64 == 0 and bn <= 256 and stages >= 2
+    assert set(port.TILES) >= set(GPT2_TP4_B3 + GPT2_TP4_B4)
+
+
+def test_tile_sweep_refuses_without_a_card(tmp_path):
+    """tools/cm_tile_sweep.py measures on a card or not at all."""
+    import torch
+    from horovod_tpu_torch.tools import cm_tile_sweep
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the sweep would run")
+    assert cm_tile_sweep.main(["--out", str(tmp_path / "sweep.jsonl")]) == 2
+    assert not (tmp_path / "sweep.jsonl").exists()
+
+
+def test_tile_sweep_candidates_cover_the_committed_tiles():
+    """Every committed tile is one of the sweep's candidates, and the sweep
+    times every (K, N) the committed table names."""
+    from horovod_tpu_torch.tools import cm_tile_sweep
+
+    assert set(port.TILES.values()) <= set(cm_tile_sweep.CANDIDATES)
+    assert set(port.TILES) == set(cm_tile_sweep.SHAPES)
+
+
+def test_tma_kernel_is_named_for_the_spill_check():
+    """chip_smoke.py's spill gate and its device timer name the TMA kernel
+    as the source defines it."""
+    import os
+    import chip_smoke
+
+    src = open(os.path.join(os.path.dirname(port.__file__), "..", "csrc",
+                            "collective_matmul.cu")).read()
+    assert f"\n{chip_smoke.CM_TMA_KERNEL}(" in src
+    assert chip_smoke.CM_TMA_KERNEL.startswith("gemm_")
+
+
+def test_tp_bench_profile_counts_every_b3_b4_kernel():
+    """tools/tp_parity.py --bench sums a profiled step's device time by
+    family: each B3/B4 kernel (the TMA one too, whose name holds "gemm")
+    counts as B3/B4, not as a cuBLAS GEMM."""
+    from horovod_tpu_torch.tools import tp_parity
+
+    for name in ("void (anonymous namespace)::gemm_tma_wgmma_kernel<64, 192, 4, false>(...)",
+                 "void (anonymous namespace)::gemm_wmma_kernel<true>(...)",
+                 "void (anonymous namespace)::mrs_epilogue_kernel<__nv_bfloat16>(...)"):
+        assert tp_parity._family(name) == "b3b4", name
+    assert tp_parity._family("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64") == "gemm"
+    assert tp_parity._family("ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)") == "nccl"

@@ -104,6 +104,89 @@ def test_bthd_adapter_matches_reference(t):
     assert port.flashable(t, t) == ref.flashable(t, t)
 
 
+def test_flash_shape_ok_picks_the_padded_head_dim():
+    """The one shape predicate of the adapter: lengths as ``flashable``, a
+    head dim of at most 128, padded up to the next of 32, 64 and 128."""
+    for d in (1, 8, 16, 32, 48, 64, 80, 96, 128):
+        assert port.flash_shape_ok(16, 16, d)
+        assert port._padded(d) == min(h for h in (32, 64, 128) if h >= d)
+    assert not port.flash_shape_ok(16, 16, 129)
+    assert not port.flash_shape_ok(131, 131, 64)
+    assert port.flash_shape_ok(16, 1024, 64)
+
+
+def test_bh_pieces_split_the_grid_limit():
+    """Batch x heads beyond the grid's 65535 launches in pieces that cover
+    the axis once, in order."""
+    assert port._bh_pieces(96) == [(0, 96)]
+    for bh in (65535, 65536, 2 * 65535 + 3):
+        pieces = port._bh_pieces(bh)
+        assert all(n <= 65535 for _, n in pieces)
+        assert [s for s, _ in pieces] == list(range(0, bh, 65535))
+        assert sum(n for _, n in pieces) == bh
+
+
+def _record_head_dims(monkeypatch):
+    """The head dims the flash forward and backward receive."""
+    seen = []
+    fwd, bwd = port._flash_fwd, port._flash_bwd
+    monkeypatch.setattr(port, "_flash_fwd",
+                        lambda q, *a: seen.append(("fwd", q.shape[-1])) or fwd(q, *a))
+    monkeypatch.setattr(port, "_flash_bwd",
+                        lambda q, *a: seen.append(("bwd", q.shape[-1])) or bwd(q, *a))
+    return seen
+
+
+@pytest.mark.parametrize("d", [8, 16, 80, 96])
+def test_bthd_adapter_pads_head_dims_and_matches_jax(d, monkeypatch):
+    """Head dims the kernels are not built for take the flash path
+    zero-padded to the next built one (32, 32, 128, 128 here): O against
+    JAX's adapter at 2e-4 / 2e-5, the gradients of q, k and v against
+    jax.grad at 1e-3 / 1e-4."""
+    seen = _record_head_dims(monkeypatch)
+    rng = np.random.RandomState(d)
+    B, T, H = 2, 48, 3
+    q, k, v, w = (rng.randn(B, T, H, d).astype(np.float32) * 0.5 for _ in range(4))
+    expected = ref.flash_attention_bthd(*map(jnp.asarray, (q, k, v)), causal=True)
+
+    def loss(q, k, v):
+        return jnp.sum(ref.flash_attention_bthd(q, k, v, causal=True) * w)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = port.flash_attention_bthd(tq, tk, tv, causal=True)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(expected), rtol=2e-4, atol=2e-5)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-4)
+    assert seen == [("fwd", port._padded(d)), ("bwd", port._padded(d))]
+
+
+def test_bthd_adapter_head_dim_above_128_is_dense(monkeypatch):
+    """A head dim above 128 takes the dense path, as the shape predicate
+    says, and matches the reference."""
+    seen = _record_head_dims(monkeypatch)
+    rng = np.random.RandomState(5)
+    q, k, v = (rng.randn(1, 16, 2, 160).astype(np.float32) * 0.5 for _ in range(3))
+    out = port.flash_attention_bthd(*_t(q, k, v), causal=True)
+    expected = ref.flash_attention_bthd(*map(jnp.asarray, (q, k, v)), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expected), rtol=2e-4, atol=2e-5)
+    assert seen == []
+
+
+@pytest.mark.parametrize("d", [16, 80, 160])
+def test_flash_block_pads_head_dims_and_matches_jax(d):
+    """The ring block at head dims the kernel is not built for: padded (16,
+    80) or dense (160), its (O, m, l) against the reference's block."""
+    q, k, v = _qkv(2, 32, d, seed=d)
+    for delta in (0, -32, 16):
+        got = port.flash_attention_block(*_t(q, k, v), delta, sm_scale=d ** -0.5)
+        want = ref.flash_attention_block(*map(jnp.asarray, (q, k, v)), delta,
+                                         sm_scale=d ** -0.5, causal=True)
+        for g, x in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=2e-4, atol=2e-5)
+
+
 def test_dense_full_matches_reference():
     q, k, v = _qkv(2, 13, 8)
     for causal in (False, True):

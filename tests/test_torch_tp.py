@@ -15,7 +15,9 @@ and tokens, gloo ranks on the CPU:
   ``make_train_step`` at ``data 4`` with the dense loss
   (test_composed_matches_dp_reference: losses rtol 1e-4), parameters at
   rtol 2e-3 / atol 2e-5; and the port's fused step against its classic step
-  within the reference's 5e-7 (test_composed_fused_matches_classic);
+  within the reference's 5e-7 (test_composed_fused_matches_classic), its
+  first-step gradients leaf by leaf at f32 rounding, and the few elements
+  past 5e-7 after AdamW replayed from the recorded gradients;
 - the rule table and ``local_shard_tree`` leaf for leaf against
   ``horovod_tpu/parallel/rules.py``, and the preflight;
 - the data-group reduction (``fused_allreduce`` and ``DistributedOptimizer``
@@ -144,12 +146,18 @@ if n == 4:
             torch.optim.AdamW([t for _, t in named_tree_paths(params)], lr=1e-3,
                               weight_decay=1e-4, eps=1e-8),
             mesh=mesh22, rules="gpt", tp_overlap=form == "fused")
-        out[f"losses_{form}"] = torch.tensor([float(step(params, (tokens, labels)))
-                                              for _ in range(cfg["steps"])])
+        losses, grads = [], []
+        for _ in range(cfg["steps"]):
+            losses.append(float(step(params, (tokens, labels))))
+            # The gradients this step's AdamW update used (data-averaged).
+            grads.append(torch.cat([t.grad.reshape(-1) for _, t in named_tree_paths(params)]))
+        out[f"losses_{form}"] = torch.tensor(losses)
+        out[f"grads_{form}"] = torch.stack(grads)
         for k, v in named_tree_paths(gather_params(params, "gpt", mesh22)):
             out[f"step_{form}:{k}"] = v
         out[f"local_{form}"] = torch.cat([t.detach().reshape(-1)
                                           for _, t in named_tree_paths(params)])
+    out["leaf_sizes"] = torch.tensor([t.numel() for _, t in named_tree_paths(params)])
 
 np.savez(f"{d}/rank{r}.npz", **{k: (v.detach().numpy() if torch.is_tensor(v) else np.array(v))
                                 for k, v in out.items()})
@@ -265,11 +273,11 @@ def test_fused_step_matches_classic_step(port4):
     5e-7 (relative to max(1, |loss|)), and parameters within 5e-7 on all but
     1e-4 of the elements. Measured on the CPU: losses 4.8e-7 apart; one
     parameter of 67,520 per rank 2.0e-6 apart, the others within 5e-7. The
-    fused rings sum the row-parallel partials in another order than gloo's
-    all-reduce, so the gradients differ by f32 rounding; AdamW's first
-    steps move each weight by about lr * g / |g|, so where a gradient is
-    near 0 (against eps 1e-8) a rounding-sized change of g moves the update
-    by a visible fraction of lr = 1e-3. The bound on the rest stays 5e-6."""
+    gradients differ by f32 rounding alone
+    (test_fused_gradients_match_classic_at_f32_rounding), and the elements
+    past 5e-7 are AdamW's doing at gradients of eps's scale
+    (test_fused_step_gap_is_adamw_at_eps_scale_gradients). The bound on the
+    rest stays 5e-6."""
     tol = 5e-7
     for p in port4:
         for a, b in zip(p["losses_classic"], p["losses_fused"]):
@@ -277,6 +285,57 @@ def test_fused_step_matches_classic_step(port4):
         diff = np.abs(p["local_classic"] - p["local_fused"])
         assert (diff > tol).sum() <= 1e-4 * diff.size, int((diff > tol).sum())
         assert diff.max() <= 10 * tol, float(diff.max())
+
+
+def _leaves(p, flat):
+    """Split a rank's flat vector of its local leaves, leaf by leaf."""
+    bounds = np.concatenate([[0], np.cumsum(p["leaf_sizes"])])
+    return [flat[..., a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def test_fused_gradients_match_classic_at_f32_rounding(port4):
+    """The gradients of the first composed step at data 2 x model 2, from
+    the same parameters, before any optimizer update: fused against
+    classic, leaf by leaf, within f32 rounding, 5e-7 of the leaf's largest
+    |g| (measured on the CPU: at most 4.7e-7). The rings sum the
+    row-parallel partials in another order than gloo's all-reduce, and
+    nothing more: a ring that dropped, repeated or misplaced a partial
+    would move whole rows by the size of the gradient."""
+    for r, p in enumerate(port4):
+        for i, (gc, gf) in enumerate(zip(_leaves(p, p["grads_classic"][0]),
+                                         _leaves(p, p["grads_fused"][0]))):
+            scale = np.abs(gc).max()
+            assert np.abs(gf - gc).max() <= 5e-7 * scale, (r, i, np.abs(gf - gc).max(), scale)
+
+
+def _adamw_path(grads, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
+    """The sum of torch AdamW's updates (weight decay aside) over the
+    recorded per-step gradients, in float64."""
+    g = grads.astype(np.float64)
+    m = v = total = 0.0
+    for t in range(1, len(g) + 1):
+        m = b1 * m + (1 - b1) * g[t - 1]
+        v = b2 * v + (1 - b2) * g[t - 1] ** 2
+        total = total + lr * (m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + eps)
+    return total
+
+
+def test_fused_step_gap_is_adamw_at_eps_scale_gradients(port4):
+    """Where the fused and classic parameters end more than 5e-7 apart
+    after 3 AdamW steps (test_fused_step_matches_classic_step), AdamW made
+    the gap: replaying its updates in float64 from each form's recorded
+    gradients gives every element's fused-classic difference within 5e-7,
+    and each element past 5e-7 had a first-step |g| within 10x AdamW's
+    eps (1e-8), where lr * g / (|g| + eps) turns a rounding-sized change of
+    g into a visible share of lr (measured on the CPU: one element a rank on
+    two ranks, |g| 3.8e-8, 2.0e-6 apart)."""
+    for p in port4:
+        gap = p["local_fused"].astype(np.float64) - p["local_classic"]
+        replayed = _adamw_path(p["grads_classic"]) - _adamw_path(p["grads_fused"])
+        assert np.abs(gap - replayed).max() <= 5e-7, np.abs(gap - replayed).max()
+        past = np.abs(gap) > 5e-7
+        g1 = np.minimum(np.abs(p["grads_classic"][0]), np.abs(p["grads_fused"][0]))
+        assert (g1[past] <= 10 * 1e-8).all(), g1[past]
 
 
 def test_fused_logits_match_classic(port_run):
@@ -424,3 +483,4 @@ def test_tp_parity_tool_two_gloo_ranks():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["mesh"] == {"data": 1, "model": 2} and result["data_ranks_identical"]
     assert result["max_loss_rel_err"] <= 1e-6 and result["max_param_abs_err"] <= 1e-5
+

@@ -153,3 +153,56 @@ def test_tensor_parallel_not_ported_yet(setup):
     with pytest.raises(ValueError, match="no mesh is in scope"):
         port.tp_apply(params_from_flax(flat, device="cpu"), torch.from_numpy(tokens),
                       n_heads=DIMS["n_heads"], model_axis="model")
+
+
+def test_head_dim_16_trains_against_flax(monkeypatch):
+    """A GPT with d_model / n_heads = 16, a head dim the kernels are not
+    built for: the port pads it to 32 on the flash path (checked by the
+    head dims the flash forward receives) and takes 3 AdamW steps against
+    the flax module and optax.adamw on the same weights and batch. Losses
+    at rtol 1e-5; parameters as tests/test_torch_train.py holds them: all
+    within what 3 steps can move, the bulk within 1% of a step."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    import optax
+
+    dims = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, max_len=32)
+    lr, steps = 1e-3, 3
+    rng = np.random.RandomState(16)
+    tokens = rng.randint(0, dims["vocab_size"], (2, 32)).astype(np.int32)
+    labels = rng.randint(0, dims["vocab_size"], (2, 32)).astype(np.int32)
+    model = ref.TransformerLM(**dims, dtype=jnp.float32)
+    params = model.init(jax.random.PRNGKey(1), jnp.asarray(tokens[:1]))["params"]
+    flat = {n: np.asarray(l) for n, l in named_tree_paths(params)}
+
+    tx = optax.adamw(lr)
+    loss_fn = lambda p: ref.lm_loss(model.apply({"params": p}, jnp.asarray(tokens)),
+                                    jnp.asarray(labels))
+    state, want_losses = tx.init(params), []
+    for _ in range(steps):
+        loss, g = jax.value_and_grad(loss_fn)(params)
+        updates, state = tx.update(g, state, params)
+        params = optax.apply_updates(params, updates)
+        want_losses.append(float(loss))
+
+    seen = []
+    fwd = fa._flash_fwd
+    monkeypatch.setattr(fa, "_flash_fwd", lambda q, *a: seen.append(q.shape[-1]) or fwd(q, *a))
+    m = port.TransformerLM(**dims, dtype=torch.float32, device="cpu", seed=7)
+    load_flax_params(m, flat)
+    opt = torch.optim.AdamW(m.parameters(), lr=lr, weight_decay=1e-4, eps=1e-8)
+    tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
+    got_losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = port.lm_loss(m(tok), lab)
+        loss.backward()
+        opt.step()
+        got_losses.append(loss.item())
+    assert set(seen) == {32} and len(seen) == steps * dims["n_layers"]
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)
+    assert want_losses[-1] < want_losses[0]
+    got = params_to_numpy(m)
+    diffs = np.concatenate([np.abs(got[n] - np.asarray(l)).ravel()
+                            for n, l in named_tree_paths(params)])
+    assert diffs.max() <= 2 * lr * steps
+    assert np.mean(diffs > lr / 100) <= 1e-4
