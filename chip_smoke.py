@@ -7,8 +7,9 @@ Phases, each printed as it ends:
 
 1. the card: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
 2. the build: nvcc compiles ``horovod_tpu_torch/csrc/*.cu`` (sm_90a);
-   ptxas's registers and spills per kernel; a spill in B1's tensor-core
-   kernels or in B3/B4's TMA + wgmma kernel fails the run;
+   ptxas's registers and spills per kernel; a spill in the flash
+   tensor-core kernels, in any ring-block (mode 1) instantiation of the
+   backward kernels or in B3/B4's TMA + wgmma kernel fails the run;
 3. each flash-attention kernel (B1) against its plain PyTorch version: in
    f32 (the CUDA-core kernels) with TF32 off at small shapes and at the
    GPT-2-small shape (rtol 2e-4 / atol 2e-5 forward, 1e-3 / 1e-4
@@ -23,19 +24,30 @@ Phases, each printed as it ends:
    and, where one exists, the time of the library call that computes the
    same function (``scaled_dot_product_attention``, timed only as a
    yardstick);
-4. the ring block kernel (B2) against its plain version: in f32 with TF32
-   off at the small shapes, causal and not, at delta -T, 0, +T/2 and +T
-   (O, m, l at 2e-4 / 2e-5; at delta >= T exactly m = -1e30, l = 0, O = 0),
-   and in bf16 at the long-context shape (BH 2 x 12, T 4096, D 64) at delta
-   0 and -T, f32 outputs at the f32 forward tolerance (O relative to its
-   row sum l), with its time, the
-   plain version's and its bound; beside it the time of the block's dense
-   backward (PyTorch, not a kernel);
+4. the ring block (B2): its forward (the forward kernels in block mode)
+   and its backward (the dQ and dK/dV kernels in block mode: the VJP of
+   (O, m, l) through all three cotangents) against their plain versions. In
+   f32 with TF32 off at the small shapes, causal and not, at delta -T, 0,
+   +T/2 and +T: O, m, l at 2e-4 / 2e-5 and dQ, dK, dV at 1e-3 / 1e-4, past
+   which an element may go only by a row max the scores leave unclear; at
+   delta >= T exactly m = -1e30, l = 0, O = 0 and zero gradients. In bf16
+   at the long-context shape (BH 2 x 12, T 4096, D 64) at delta -T, 0 and
+   +T/2, through gates (a) and (b) as B1's: O / l at two bf16 ulps of the
+   plain version that rounds P as the tensor cores do (m and l at the f32
+   tolerance), the gradients at two ulps of the plain version that rounds
+   P, dS and dO, past which only a rounding tie may carry an element, and
+   both at the reference's 5e-2 against the f32-internal plain versions; at
+   delta +T exact; one case with duplicated keys and dm = 1, whose rows tie
+   at their max, so that a tie the dK/dV kernel misses shows. Then, in
+   turns in one run, the forward against the CUDA-core kernel it replaces
+   and the backward kernels against the dense recompute (PyTorch) they
+   replace, with the plain versions' times and the bounds;
 5. the ring's merge on one card: one bf16 GPT-2-small attention input at T
    4096 cut into 4 sequence pieces; each piece merges its 4 ring blocks in
-   the order a ring rank sees them, and the result must match the
-   f32-internal plain forward over the whole sequence within two bf16 ulps
-   and B1's forward within the reference's bf16 tolerance;
+   the order a ring rank sees them, held as B1's forward is: (a) two bf16
+   ulps of the same merge over the rounding plain blocks, (b) the
+   reference's bf16 tolerance against the f32-internal plain forward over
+   the whole sequence, and B1's forward at the same tolerance;
 6. the data-parallel slice: a small f32 model on the card (kernels) against
    the same model on the CPU (plain versions), then ``init()`` over NCCL,
    GPT-2-small width (d_model 768, 12 heads, 12 layers, vocab 32768, T
@@ -52,9 +64,10 @@ Phases, each printed as it ends:
 7. the sequence-parallel slice: ``init()`` over NCCL, ``build_mesh({"data":
    1, "seq": 1})``, GPT-2-small width at T 4096 with ``ring_attention`` over
    the seq group and ``remat=True``, 5 AdamW steps of ``make_sp_train_step``
-   at batch 2 x 4096: the loss must be finite and fall and the ring block
-   kernel must have run; then one profiled step, with the block's dense
-   backward as a family of its own;
+   at batch 2 x 4096: the loss must be finite and fall and the ring block's
+   forward and backward kernels must have run (24 forward launches and 12
+   backward pairs a step); then one profiled step, with the block's
+   backward (the span ``flash_block_backward``) as a family of its own;
 8. ``[tp-kernels]``: the collective-matmul kernels B3 (chunk product) and B4
    (partial product and epilogue) against their plain versions: at small
    ragged shapes (batch > 1, sub-chunks 1 and 2, row offsets) in f32 with
@@ -130,8 +143,11 @@ REF_RTOL, REF_ATOL = 5e-2, 5e-2
 # gate (a) lets an element past two ulps only by what such ties can explain
 # (``rounding_tie_bounds``), and counts those elements.
 TIE_REL = 2.0 ** -16
-# B1's bf16 kernels, which must spill nothing at any head dim.
+# B1's and B2's bf16 kernels, which must spill nothing at any head dim.
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+# The backward kernels whose last template argument is the mode (1: the ring
+# block); every block-mode instantiation must spill nothing either.
+BLOCK_MODE_KERNELS = MMA_KERNELS + ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # B3/B4's TMA + wgmma kernel, which must spill nothing at any built tile.
 CM_TMA_KERNEL = "gemm_tma_wgmma_kernel"
 
@@ -223,13 +239,17 @@ def phase_build():
             print(f"[ptxas {name}] {kern['name']}: {kern['registers']} registers, spill "
                   f"stores {kern['spill_stores']} B, loads {kern['spill_loads']} B")
             base = kern["name"].split("<")[0]
-            names.add(base)
-            if base in gated[name] and (kern["spill_stores"] or kern["spill_loads"]):
+            block_mode = base in BLOCK_MODE_KERNELS and kern["name"].endswith(",1>")
+            names.add(base + " (block mode)" if block_mode else base)
+            if ((base in gated[name] or block_mode)
+                    and (kern["spill_stores"] or kern["spill_loads"])):
                 spills.append(kern["name"])
-        missing += sorted(gated[name] - names)
+        want = gated[name] | ({k + " (block mode)" for k in BLOCK_MODE_KERNELS}
+                              if name == "flash_attention" else set())
+        missing += sorted(want - names)
     print(f"[build] {', '.join(reports) or 'nothing'} built in {secs:.1f} s "
           f"(one nvcc each, in parallel)", flush=True)
-    check(not spills, f"ptxas reports spills in the tensor-core kernels {spills}")
+    check(not spills, f"ptxas reports spills in the gated kernels {spills}")
     check(not missing, f"ptxas reported no {missing}: the spill check cannot see them")
 
 
@@ -255,6 +275,41 @@ def _tie_span(x, band):
     return ((x + band).to(torch.bfloat16).float() - (x - band).to(torch.bfloat16).float()).abs()
 
 
+def _probs(qf, kf, k0, block_k, shift, causal, scale, delta):
+    """Masked scores and P = exp(s - shift) of one K block (mask shifted by delta)."""
+    import torch
+
+    s = qf @ kf[:, k0:k0 + block_k].transpose(1, 2) * scale
+    if not causal:
+        return s, torch.exp(s - shift), None
+    q_pos = torch.arange(qf.shape[1], device=qf.device)[:, None]
+    mask = q_pos >= torch.arange(k0, k0 + s.shape[-1], device=qf.device)[None, :] + delta
+    s = torch.where(mask, s, -1e30)
+    return s, torch.where(mask, torch.exp(s - shift), 0.0), mask
+
+
+def fwd_tie_span(q, k, v, causal, scale, block_k, delta=0):
+    """Per element of the unnormalised O, the most that P rounding to the
+    other bf16 neighbour at a midpoint can move it, over the forward's K
+    tiles (against the running max); and the row sum l, [BH, T, 1]."""
+    import torch
+
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    bh, t_q, d = q.shape
+    m = torch.full((bh, t_q, 1), -1e30, device=q.device)
+    l = torch.zeros(bh, t_q, 1, device=q.device)
+    span_o = torch.zeros(bh, t_q, d, device=q.device)
+    for k0 in range(0, k.shape[1], block_k):
+        s, _, _ = _probs(qf, kf, k0, block_k, 0.0, causal, scale, delta)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        _, p, _ = _probs(qf, kf, k0, block_k, m_new, causal, scale, delta)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        span_o = span_o * alpha + _tie_span(p, TIE_REL * p) @ vf[:, k0:k0 + block_k].abs()
+        m = m_new
+    return span_o, l
+
+
 def rounding_tie_bounds(q, k, v, o, lse, do, causal, scale, block_k):
     """Per element of O, dQ, dK and dV, the most that P and dS rounding to
     the other neighbour at a bf16 midpoint can move it: the plain versions'
@@ -264,35 +319,14 @@ def rounding_tie_bounds(q, k, v, o, lse, do, causal, scale, block_k):
     import torch
 
     qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
-    bh, t_q, d = q.shape
-    q_pos = torch.arange(t_q, device=q.device)[:, None]
-
-    def probs(k0, shift):
-        s = qf @ kf[:, k0:k0 + block_k].transpose(1, 2) * scale
-        if not causal:
-            return s, torch.exp(s - shift)
-        mask = q_pos >= torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
-        s = torch.where(mask, s, -1e30)
-        return s, torch.where(mask, torch.exp(s - shift), 0.0)
-
-    m = torch.full((bh, t_q, 1), -1e30, device=q.device)
-    l = torch.zeros(bh, t_q, 1, device=q.device)
-    span_o = torch.zeros(bh, t_q, d, device=q.device)
-    for k0 in range(0, k.shape[1], block_k):
-        s, _ = probs(k0, 0.0)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        _, p = probs(k0, m_new)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(-1, keepdim=True)
-        span_o = span_o * alpha + _tie_span(p, TIE_REL * p) @ vf[:, k0:k0 + block_k].abs()
-        m = m_new
+    span_o, l = fwd_tie_span(q, k, v, causal, scale, block_k)
     bounds = {"O": span_o / torch.where(l == 0, 1.0, l)}
 
     dsum = (dof * of).sum(-1, keepdim=True)
     dsum_abs = (dof * of).abs().sum(-1, keepdim=True)
     span_dq, span_dk, span_dv = torch.zeros_like(qf), [], []
     for k0 in range(0, k.shape[1], block_k):
-        _, p = probs(k0, lse[..., None])
+        _, p, _ = _probs(qf, kf, k0, block_k, lse[..., None], causal, scale, 0)
         kb, vb = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
         ds = p * (dof @ vb.transpose(1, 2) - dsum) * scale
         # dP - Dsum cancels: its f32 error scales with the sums of |terms|.
@@ -306,22 +340,81 @@ def rounding_tie_bounds(q, k, v, o, lse, do, causal, scale, block_k):
     return bounds
 
 
-def gate_a(out, ref, tie, what):
+def block_bwd_tie_bounds(q, k, v, o, l, do, dm, dl, delta, causal, scale, rounded,
+                         block_k=64):
+    """Per element of the block backward's dQ, dK and dV, the most that a
+    rounding tie can move it, and the rows where the max is not clear. Two
+    kinds: (1) with ``rounded``, P and dS (which the tensor cores take
+    without the tie term) on a bf16 rounding midpoint, as
+    ``rounding_tie_bounds``; (2) a row whose max is
+    within the f32 error of s (TIE_REL of scale |q| . |k|) of another visible
+    score that the plain version does not count as tied: there the kernel,
+    whose scores differ from the plain version's in the last bits, may find
+    another set of ties and give the row's whole tie term (dm - D) to other
+    keys, which moves dQ_i by up to 2 scale |dm - D| |k_j| and dK_j by
+    scale |dm - D| |q_i| for each such key j."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    dof = do.float()
+    dor = dof.to(torch.bfloat16).float() if rounded else dof
+    m, c = fa._block_row_max(q, k, delta, causal, scale, block_k)
+    m3 = m[..., None]
+    d_row = (dof * o).sum(-1) + dl * l
+    t_all = dm - d_row
+
+    def near(k0):
+        s, _, mask = _probs(qf, kf, k0, block_k, 0.0, causal, scale, delta)
+        band = TIE_REL * scale * (qf.abs() @ kf[:, k0:k0 + block_k].abs().transpose(1, 2))
+        close = m3 - s <= band
+        return s, close if mask is None else close & mask
+
+    n_near = sum(near(k0)[1].sum(-1) for k0 in range(0, k.shape[1], block_k))
+    unclear = (n_near > c) & (c > 0)
+    w_row = torch.where(unclear, t_all.abs() * scale, 0.0)[..., None]
+    span_dq, span_dk, span_dv = torch.zeros_like(qf), [], []
+    for k0 in range(0, k.shape[1], block_k):
+        kb, vb = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s, close = near(k0)
+        _, p, mask = _probs(qf, kf, k0, block_k, m3, causal, scale, delta)
+        w = torch.where(close, w_row, 0.0)
+        span_dq += 2 * (w @ kb.abs())
+        dk = w.transpose(1, 2) @ qf.abs()
+        dv = torch.zeros_like(vb)
+        if rounded:
+            # dS as the tensor cores take it: without the tie term, which the
+            # kernels add in f32.
+            ds = p * (dor @ vb.transpose(1, 2) + dl[..., None]) * scale
+            ds_band = TIE_REL * (ds.abs() + scale * p * (
+                dor.abs() @ vb.abs().transpose(1, 2) + dl.abs()[..., None]))
+            tie_p, tie_ds = _tie_span(p, TIE_REL * p), _tie_span(ds, ds_band)
+            span_dq += tie_ds @ kb.abs()
+            dk = dk + tie_ds.transpose(1, 2) @ qf.abs()
+            dv = tie_p.transpose(1, 2) @ dor.abs()
+        span_dk.append(dk)
+        span_dv.append(dv)
+    return ({"dQ": span_dq, "dK": torch.cat(span_dk, 1), "dV": torch.cat(span_dv, 1)},
+            int(unclear.sum()))
+
+
+def gate_a(out, ref, tie, what, rtol=BF16_RTOL, atol=BF16_ATOL):
     """Gate (a): two bf16 ulps of the plain version that rounds as the kernel
     does. An element past them passes only where its excess is within the
-    tie bound; returns the max abs error and the count of such elements."""
+    tie bound; returns the max abs error and the count of such elements.
+    (With f32 ``rtol``/``atol``, the f32 check with the block backward's
+    tie bound for a row max that is not clear.)"""
     import torch
 
     out, ref = out.detach().float(), ref.detach().float()
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite values")
     diff = (out - ref).abs()
-    limit = BF16_ATOL + BF16_RTOL * ref.abs()
+    limit = atol + rtol * ref.abs()
     beyond = diff > limit
     unexplained = beyond & (diff > limit + tie)
     check(not bool(unexplained.any()),
-          f"{what}: {int(unexplained.sum())} elements beyond rtol {BF16_RTOL} / atol "
-          f"{BF16_ATOL} that no bf16 midpoint of P or dS explains, max abs err "
-          f"{float(diff.max()):.3e}")
+          f"{what}: {int(unexplained.sum())} elements beyond rtol {rtol} / atol "
+          f"{atol} that no rounding tie explains, max abs err {float(diff.max()):.3e}")
     return float(diff.max()), int(beyond.sum())
 
 
@@ -457,10 +550,41 @@ def phase_kernels_bench():
     }
 
 
+def _block_cotangents(o, m, l, seed, merge_scale=False):
+    """Random f32 cotangents (dO, dm, dl) of a block's (O, m, l). With
+    ``merge_scale``, dO and dl are divided by the row's l, as the ring's
+    merge hands them to a block (it divides the unnormalised O and l by the
+    merged row sum), so that the gradients have the size of an attention
+    output's, and the reference's absolute bf16 floor (5e-2) means what it
+    means for B1; without, they are of unit size, and the gradients of an
+    unnormalised block at T 4096 reach hundreds."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do, dm, dl = (torch.randn(x.shape, device="cuda", generator=g) for x in (o, m, l))
+    if merge_scale:
+        l_div = torch.where(l == 0, 1.0, l)
+        do, dl = do / l_div[..., None], dl / l_div
+    return do, dm, dl
+
+
+def _visible(t, delta, causal):
+    """The (query, key) pairs a block of T queries and T keys computes."""
+    if not causal:
+        return t * t
+    return sum(max(0, min(t, i - delta + 1)) for i in range(t))
+
+
 def phase_block_f32():
     """B2 in f32 with TF32 off at the small shapes (ragged lengths
     included), causal and not, at delta -T, 0, +T/2 (cutting through tiles)
-    and +T (no key visible)."""
+    and +T (no key visible): the forward (O, m, l) at 2e-4 / 2e-5, and the
+    block backward (the dQ and dK/dV kernels in block mode) at 1e-3 / 1e-4
+    against the plain version, both fed the kernel forward's O and l and
+    random cotangents; past the tolerance an element may go only by a row
+    max the f32 scores leave unclear (``block_bwd_tie_bounds``). At delta >=
+    T the forward is exactly m = -1e30, l = 0, O = 0 and the gradients
+    exactly 0."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -468,7 +592,7 @@ def phase_block_f32():
     for (bh, t, d) in ((3, 200, 32), (4, 256, 64), (2, 136, 128)):
         q, k, v, _ = _attention_inputs(bh, t, d, torch.float32, seed=t + d + 1)
         scale = d ** -0.5
-        errs = []
+        errs, grad_errs, unclear = [], [], 0
         for causal in (True, False):
             for delta in (-t, 0, t // 2, t):
                 o, m, l = fa._launch_block_fwd(q, k, v, delta, causal, scale)
@@ -476,18 +600,96 @@ def phase_block_f32():
                 tag = f"block f32 bh={bh} t={t} d={d} causal={causal} delta={delta}"
                 for name, a, b in zip(("O", "m", "l"), (o, m, l), refs):
                     errs.append(max_err(a, b, F32_RTOL, F32_ATOL, f"{tag} {name}"))
+                do, dm, dl = _block_cotangents(o, m, l, seed=t + d + 2)
+                grads = fa._launch_block_bwd(q, k, v, o, l, do, dm, dl, delta, causal, scale)
+                want = fa._flash_block_bwd_plain(q, k, v, o, l, do, dm, dl, delta, causal,
+                                                 scale)
+                ties, n_unclear = block_bwd_tie_bounds(q, k, v, o, l, do, dm, dl, delta, causal,
+                                                       scale, rounded=False)
+                unclear += n_unclear
+                for name, a, b in zip(("dQ", "dK", "dV"), grads, want):
+                    grad_errs.append(gate_a(a, b, ties[name], f"{tag} {name}", 1e-3, 1e-4)[0])
                 if causal and delta >= t:
                     check(bool((m == -1e30).all() and (l == 0).all() and (o == 0).all()),
                           f"{tag}: a block with no visible key must give m = -1e30, "
                           f"l = 0, O = 0 exactly")
+                    check(all(bool((g == 0).all()) for g in grads),
+                          f"{tag}: a block with no visible key must give zero gradients")
         print(f"[block] f32 bh={bh} t={t} d={d}, causal and not, delta -T/0/+T/2/+T: "
-              f"max abs err {max(errs):.2e}; delta >= T exact", flush=True)
+              f"forward max abs err {max(errs):.2e}, backward {max(grad_errs):.2e} (rows "
+              f"with an unclear max {unclear}); delta >= T exact", flush=True)
 
 
-def phase_block_bench():
-    """B2 in bf16 at the long-context slice's shape: parity at delta 0 (the
-    one-rank ring's only block) and -T (a block from an earlier rank: every
-    key visible), the times, and the block's dense backward."""
+def _block_fwd_gates(q, k, v, delta, scale, tag):
+    """bf16 B2 forward through gates (a) and (b): O / l (the attention output
+    it scales, with the rounding plain version's l for both) at two bf16
+    ulps of the plain version that rounds P as the kernel does, past which
+    only P on a midpoint may carry an element, and at the reference's bf16
+    tolerance of the f32-internal one; m and l at the f32 forward tolerance
+    of the rounding one (l sums the unrounded P). Returns the kernel's
+    (O, m, l) and the largest error of gate (a)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    block_k = fa.kernel_tiles(q.shape[-1])["fwd"][1]
+    o, m, l = fa._launch_block_fwd(q, k, v, delta, True, scale)
+    o_a, m_a, l_a = fa._flash_block_plain(q, k, v, delta, True, scale, block_k=block_k,
+                                          p_dtype=torch.bfloat16)
+    o_b, _, l_b = fa._flash_block_plain(q, k, v, delta, True, scale)
+    span, _ = fwd_tie_span(q, k, v, True, scale, block_k, delta)
+    div_a = torch.where(l_a == 0, 1.0, l_a)[..., None]
+    div_b = torch.where(l_b == 0, 1.0, l_b)[..., None]
+    err_a, n_ties = gate_a(o / div_a, o_a / div_a, span / div_a, f"{tag} O / l (a)")
+    err_b = max_err(o / div_b, o_b / div_b, REF_RTOL, REF_ATOL, f"{tag} O / l (b)")
+    err_m = max_err(m, m_a, F32_RTOL, F32_ATOL, f"{tag} m")
+    err_l = max_err(l, l_a, F32_RTOL, F32_ATOL, f"{tag} l")
+    print(f"[block] {tag} forward: O / l (a) {err_a:.2e} [{n_ties} past two ulps at bf16 "
+          f"midpoints] / (b) {err_b:.2e}; m {err_m:.2e}, l {err_l:.2e}", flush=True)
+    return (o, m, l), max(err_a, err_m, err_l)
+
+
+def _block_bwd_gates(q, k, v, o, l, do, dm, dl, delta, scale, tag, gate_b=True):
+    """The bf16 block backward kernels through gates (a) and (b): two bf16
+    ulps of the plain version that rounds P, dS and dO as the kernels do,
+    past which only a rounding tie may carry an element (P or dS on a bf16
+    midpoint, or a row max the scores leave unclear), and the reference's
+    bf16 tolerance against the f32-internal plain version. Both plain
+    versions take the kernel forward's O and l. Returns the kernels'
+    gradients and the largest error of gate (a) for dQ and for dK/dV."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    grads = fa._launch_block_bwd(q, k, v, o, l, do, dm, dl, delta, True, scale)
+    refs_a = fa._flash_block_bwd_plain(q, k, v, o, l, do, dm, dl, delta, True, scale,
+                                       block_k=64, p_dtype=torch.bfloat16)
+    refs_b = (fa._flash_block_bwd_plain(q, k, v, o, l, do, dm, dl, delta, True, scale,
+                                        block_k=64) if gate_b else (None,) * 3)
+    ties, unclear = block_bwd_tie_bounds(q, k, v, o, l, do, dm, dl, delta, True, scale,
+                                         rounded=True)
+    errs = {}
+    for name, out, a, b in zip(("dQ", "dK", "dV"), grads, refs_a, refs_b):
+        err_a, n_ties = gate_a(out, a, ties[name], f"{tag} {name} (a)")
+        err_b = (max_err(out, b, REF_RTOL, REF_ATOL, f"{tag} {name} (b)") if gate_b
+                 else float("nan"))
+        errs[name] = (err_a, err_b, n_ties)
+    print(f"[block] {tag} backward: max abs err (a) [past two ulps at ties] / (b): "
+          + ", ".join(f"{n} {a:.2e} [{c}] / {b:.2e}" for n, (a, b, c) in errs.items())
+          + f"; largest |dQ| {float(grads[0].float().abs().max()):.3g}; rows with an "
+          f"unclear max {unclear}", flush=True)
+    return grads, errs["dQ"][0], max(errs["dK"][0], errs["dV"][0])
+
+
+def phase_block_bench(card):
+    """B2 in bf16 at the long-context slice's shape (BH 2 x 12, T 4096, D
+    64): the forward on the tensor cores and the block backward (dQ and
+    dK/dV kernels) through gates (a) and (b) at delta -T (a block from an
+    earlier rank: every key visible), 0 (the one-rank ring's only block) and
+    +T/2; at delta +T exact (m = -1e30, l = 0, O = 0; zero gradients); one
+    case with duplicated keys (every even key repeated) and unit dm, whose
+    rows tie at their max, so that the dQ and dK/dV kernels must find the
+    same ties; then times, in turns and in this run: the forward against the
+    CUDA-core kernel it replaces, and the backward kernels against the dense
+    recompute (PyTorch) they replace, with the plain versions and bounds."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -495,51 +697,146 @@ def phase_block_bench():
     bh, t = SP_BATCH * H, SP_SEQ
     q, k, v, _ = _attention_inputs(bh, t, D, torch.bfloat16, seed=4)
     scale = D ** -0.5
-    rows = {}
-    for delta in (0, -t):
-        o, m, l = fa._launch_block_fwd(q, k, v, delta, True, scale)
-        o_ref, m_ref, l_ref = fa._flash_block_plain(q, k, v, delta, True, scale)
-        # O is unnormalised: a sum of l ~ 1e2 terms p v at T 4096, whose f32
-        # rounding grows with l. The f32 forward tolerance holds O / l (the
-        # attention output it scales), with the reference's l for both.
-        l_div = torch.where(l_ref == 0, 1.0, l_ref)[..., None]
-        err = max(max_err(o / l_div, o_ref / l_div, F32_RTOL, F32_ATOL,
-                          f"block bf16 delta={delta} O / l"),
-                  max_err(m, m_ref, F32_RTOL, F32_ATOL, f"block bf16 delta={delta} m"),
-                  max_err(l, l_ref, F32_RTOL, F32_ATOL, f"block bf16 delta={delta} l"))
-        ms = time_ms(lambda: fa._launch_block_fwd(q, k, v, delta, True, scale), reps=10)
-        plain = time_ms(lambda: fa._flash_block_plain(q, k, v, delta, True, scale),
-                        reps=2, warmup=1)
-        visible = bh * (t * (t + 1) / 2 if delta == 0 else t * t)
-        b = bound(2 * 3 * bh * t * D + 4 * bh * t * D + 4 * 2 * bh * t, 4 * D * visible)
-        rows[delta] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound=b)
-        print(f"[block] bf16 bh={bh} t={t} d={D} causal delta={delta}: max abs err "
-              f"{err:.2e}; ms {ms:.4f} (plain {plain:.4f}, bound {b[0]:.4f} by {b[1]}, "
-              f"{ms / b[0]:.1f}x)", flush=True)
+    tag = f"bf16 bh={bh} t={t} d={D} causal"
+    errs = {"fwd": [], "dq": [], "dkdv": []}
+    cases = {}
+    for delta in (-t, 0, t // 2):
+        (o, m, l), e = _block_fwd_gates(q, k, v, delta, scale, f"{tag} delta={delta}")
+        errs["fwd"].append(e)
+        do, dm, dl = _block_cotangents(o, m, l, seed=5, merge_scale=True)
+        _, e_dq, e_dkdv = _block_bwd_gates(q, k, v, o, l, do, dm, dl, delta, scale,
+                                           f"{tag} delta={delta}")
+        errs["dq"].append(e_dq)
+        errs["dkdv"].append(e_dkdv)
+        cases[delta] = (o, l, do, dm, dl)
+        if delta == 0:
+            # Unit cotangents: dm - D in the hundreds, which the kernels' tie
+            # term carries in f32. Gate (a) alone: at that size the
+            # reference's absolute floor is below bf16's resolution. Its
+            # errors, on gradients of hundreds, are printed, not put in the
+            # kernel table beside the others'.
+            _block_bwd_gates(q, k, v, o, l, *_block_cotangents(o, m, l, 7), delta, scale,
+                             f"{tag} delta={delta}, unit cotangents", gate_b=False)
+    o, m, l = fa._launch_block_fwd(q, k, v, t, True, scale)
+    do, dm, dl = _block_cotangents(o, m, l, seed=5)
+    grads = fa._launch_block_bwd(q, k, v, o, l, do, dm, dl, t, True, scale)
+    check(bool((m == -1e30).all() and (l == 0).all() and (o == 0).all())
+          and all(bool((g == 0).all()) for g in grads),
+          f"{tag} delta={t}: a block with no visible key must give m = -1e30, l = 0, O = 0 "
+          f"and zero gradients exactly")
+    print(f"[block] {tag} delta={t}: m = -1e30, l = 0, O = 0 and zero gradients, exactly",
+          flush=True)
 
-    # The block's backward is the reference's: a dense recompute of
-    # (O, m, l), differentiated by autograd (PyTorch ops, not a kernel).
-    o, m, l = fa._launch_block_fwd(q, k, v, 0, True, scale)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    cts = [torch.randn(x.shape, device="cuda", generator=g) for x in (o, m, l)]
+    k_dup = k.clone()
+    k_dup[:, 1::2] = k_dup[:, 0::2]
+    o, m, l = fa._launch_block_fwd(q, k_dup, v, 0, True, scale)
+    do, _, dl = _block_cotangents(o, m, l, seed=6, merge_scale=True)
+    dm = torch.ones_like(m)
+    _, c = fa._block_row_max(q, k_dup, 0, True, scale, 64)
+    n_tied = int((c >= 2).sum())
+    check(n_tied > 0, "duplicated keys: no row ties at its max")
+    _, e_dq, e_dkdv = _block_bwd_gates(q, k_dup, v, o, l, do, dm, dl, 0, scale,
+                                       f"{tag} delta=0, duplicated keys ({n_tied} rows tied "
+                                       f"at their max), dm = 1")
+    errs["dq"].append(e_dq)
+    errs["dkdv"].append(e_dkdv)
+
+    # Times at delta 0 and -T, in turns: the replaced version, the kernel,
+    # the kernel, the replaced version.
+    o, l, do, dm, dl = cases[0]
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
     def dense_bwd():
         out = fa._dense_block(qg, kg, vg, 0, scale, True)
-        return torch.autograd.grad(out, (qg, kg, vg), cts)
+        return torch.autograd.grad(out, (qg, kg, vg), (do, dm, dl))
 
+    times = {"fwd": [], "legacy": [], "bwd": [], "dense": []}
+    for delta in (0, -t):
+        for legacy in (True, False, False, True):
+            times["legacy" if legacy else "fwd"].append(time_ms(
+                lambda: fa._launch_block_fwd(q, k, v, delta, True, scale, legacy=legacy), reps=10))
+    fwd_ms = {0: statistics.mean(times["fwd"][:2]), -t: statistics.mean(times["fwd"][2:])}
+    legacy_ms = {0: statistics.mean(times["legacy"][:2]), -t: statistics.mean(times["legacy"][2:])}
     torch.cuda.reset_peak_memory_stats()
-    bwd_ms = time_ms(dense_bwd, reps=3, warmup=1)
-    print(f"[block] dense block backward (PyTorch) at bh={bh} t={t} d={D}: {bwd_ms:.4f} ms, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return rows[0]
+    for dense in (True, False, False, True):
+        if dense:
+            times["dense"].append(time_ms(dense_bwd, reps=3, warmup=1))
+        else:
+            times["bwd"].append(time_ms(
+                lambda: fa._launch_block_bwd(q, k, v, o, l, do, dm, dl, 0, True, scale), reps=10))
+    dense_peak = torch.cuda.max_memory_allocated() / 2**30
+    # The pair's parts, each timed alone on the same inputs.
+    _, do_k, rows = fa._launch_block_bwd_dq(q, k, v, o, l, do, dm, dl, 0, True, scale)
+    ms_dq = time_ms(lambda: fa._launch_block_bwd_dq(q, k, v, o, l, do, dm, dl, 0, True, scale),
+                    reps=10)
+    ms_dkdv = time_ms(lambda: fa._launch_block_bwd_dkdv(q, k, v, do_k, rows, 0, True, scale),
+                      reps=10)
+    o_m1, l_m1 = cases[-t][0], cases[-t][1]
+    do_m1, dm_m1, dl_m1 = cases[-t][2:]
+    bwd_m1 = time_ms(lambda: fa._launch_block_bwd(q, k, v, o_m1, l_m1, do_m1, dm_m1, dl_m1, -t,
+                                                  True, scale), reps=10)
+    bk = fa.kernel_tiles(D)["fwd"][1]
+    plain_fwd = time_ms(lambda: fa._flash_block_plain(q, k, v, 0, True, scale, block_k=bk,
+                                                      p_dtype=torch.bfloat16), reps=2, warmup=1)
+    plain_bwd = time_ms(lambda: fa._flash_block_bwd_plain(q, k, v, o, l, do, dm, dl, 0, True,
+                                                          scale, block_k=64,
+                                                          p_dtype=torch.bfloat16),
+                        reps=2, warmup=1)
+
+    # Bounds: each input read once, each output written once; operations on
+    # the visible (query, key) pairs at the bf16 peak.
+    el, rows_n = bh * t * D, bh * t
+    vis = {dl_: bh * _visible(t, dl_, True) for dl_ in (0, -t)}
+    b_fwd = {dl_: bound(2 * 3 * el + 4 * el + 4 * 2 * rows_n, 4 * D * vis[dl_]) for dl_ in vis}
+    # dQ: q, k, v (bf16), O and dO (f32), l, dm, dl in; dQ (bf16), m, Dsum and
+    # the tie coefficient out; S, dP and dQ. dK/dV: q, k, v, dO (bf16) and the
+    # three row terms in, dK and dV out; S, dP, dV and dK.
+    b_dq = bound(2 * 3 * el + 4 * 2 * el + 4 * 3 * rows_n + 2 * el + 4 * 3 * rows_n,
+                 6 * D * vis[0])
+    b_dkdv = bound(2 * 4 * el + 4 * 3 * rows_n + 2 * 2 * el, 8 * D * vis[0])
+    # The whole backward's work: five products, q, k, v, O, dO, l, dm, dl in,
+    # dq, dk, dv out.
+    b_bwd = {dl_: bound(2 * 3 * el + 4 * 2 * el + 4 * 3 * rows_n + 2 * 3 * el,
+                        10 * D * vis[dl_]) for dl_ in vis}
+    dense = statistics.mean(times["dense"])
+    bwd = statistics.mean(times["bwd"])
+    for dl_ in (0, -t):
+        print(f"[block] {tag} delta={dl_} on {card}: forward ms tensor cores "
+              f"{fwd_ms[dl_]:.4f} vs CUDA cores {legacy_ms[dl_]:.4f} (runs "
+              f"{[round(x, 4) for x in times['fwd'][(0 if dl_ == 0 else 2):][:2]]} / "
+              f"{[round(x, 4) for x in times['legacy'][(0 if dl_ == 0 else 2):][:2]]}), bound "
+              f"{b_fwd[dl_][0]:.4f} by {b_fwd[dl_][1]} ({fwd_ms[dl_] / b_fwd[dl_][0]:.1f}x)",
+              flush=True)
+    print(f"[block] {tag} backward on {card}: kernels dQ + dK/dV {bwd:.4f} ms at delta 0 (runs "
+          f"{[round(x, 4) for x in times['bwd']]}; alone dQ {ms_dq:.4f} + dK/dV "
+          f"{ms_dkdv:.4f}), {bwd_m1:.4f} at delta -T; dense recompute (PyTorch) {dense:.4f} "
+          f"(runs {[round(x, 4) for x in times['dense']]}, peak memory {dense_peak:.2f} GiB); "
+          f"bounds: the work {b_bwd[0][0]:.4f} by {b_bwd[0][1]} at delta 0 "
+          f"({bwd / b_bwd[0][0]:.1f}x), {b_bwd[-t][0]:.4f} at -T; dQ {b_dq[0]:.4f}, dK/dV "
+          f"{b_dkdv[0]:.4f}; plain forward {plain_fwd:.4f}, plain backward {plain_bwd:.4f}",
+          flush=True)
+    # No PyTorch call returns the unnormalised O with the row max and sum
+    # (scaled_dot_product_attention normalises), nor this VJP.
+    return {
+        "flash_block_fwd": dict(max_abs_err=max(errs["fwd"]), ms=fwd_ms[0], plain_ms=plain_fwd,
+                                bound=b_fwd[0], library_ms=None),
+        "flash_block_bwd_dq": dict(max_abs_err=max(errs["dq"]), ms=ms_dq, plain_ms=plain_bwd,
+                                   bound=b_dq, library_ms=None),
+        "flash_block_bwd_dkdv": dict(max_abs_err=max(errs["dkdv"]), ms=ms_dkdv,
+                                     plain_ms=plain_bwd, bound=b_dkdv, library_ms=None),
+    }
 
 
 def phase_ring_merge():
     """One card plays a 4-rank ring: each sequence piece of a bf16
     GPT-2-small attention input at T 4096 merges its 4 B2 blocks in the
-    order ring rank r sees them (source (r - s) mod 4 at step s), and the
-    whole must match B1's forward over the full sequence."""
+    order ring rank r sees them (source (r - s) mod 4 at step s). B2 takes P
+    in bf16 on the tensor cores, so the merge is held as B1's forward is:
+    gate (a), two bf16 ulps of the same merge over the plain blocks that
+    round P as the kernel does, past which only P on a bf16 midpoint may
+    carry an element; gate (b), the reference's bf16 tolerance against the
+    f32-internal plain forward over the whole sequence; and B1's forward
+    over the whole sequence at the same tolerance."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -548,33 +845,51 @@ def phase_ring_merge():
     tl = t // n
     q, k, v, _ = _attention_inputs(bh, t, D, torch.bfloat16, seed=6)
     scale = D ** -0.5
-    # B2 keeps f32 inside, so the merge is held at two bf16 ulps to the
-    # f32-internal plain forward over the whole sequence, and to B1, whose
-    # tensor cores take P in bf16, at the reference's bf16 tolerance.
+    block_k = fa.kernel_tiles(D)["fwd"][1]
     full, _ = fa._launch_fwd(q, k, v, True, scale)
     plain, _ = fa._flash_fwd_plain(q, k, v, True, scale)
     piece = lambda x, i: x[:, i * tl:(i + 1) * tl].contiguous()
-    outs = []
-    for r in range(n):
-        m = torch.full((bh, tl), -1e30, device="cuda")
-        l = torch.zeros(bh, tl, device="cuda")
-        o = torch.zeros(bh, tl, D, device="cuda")
-        for s in range(n):
-            src = (r - s) % n
-            o_s, m_s, l_s = fa._launch_block_fwd(piece(q, r), piece(k, src), piece(v, src),
-                                                 (src - r) * tl, True, scale)
-            m_new = torch.maximum(m, m_s)
-            c, c_s = torch.exp(m - m_new), torch.exp(m_s - m_new)
-            o = o * c[..., None] + o_s * c_s[..., None]
-            l = l * c + l_s * c_s
-            m = m_new
-        outs.append((o / torch.where(l == 0, 1.0, l)[..., None]).to(torch.bfloat16))
-    merged = torch.cat(outs, dim=1)
-    err = max_err(merged, plain, BF16_RTOL, BF16_ATOL, "ring merge vs the plain forward")
-    err_b1 = max_err(merged, full, REF_RTOL, REF_ATOL, "ring merge vs B1")
+
+    def merged(block):
+        """The ring's merge over ``block(q, k, v, delta)``'s (O, m, l, span)."""
+        outs, spans = [], []
+        for r in range(n):
+            m = torch.full((bh, tl), -1e30, device=q.device)
+            l = torch.zeros(bh, tl, device=q.device)
+            o = torch.zeros(bh, tl, D, device=q.device)
+            span = torch.zeros_like(o)
+            for s in range(n):
+                src = (r - s) % n
+                o_s, m_s, l_s, span_s = block(piece(q, r), piece(k, src), piece(v, src),
+                                              (src - r) * tl)
+                m_new = torch.maximum(m, m_s)
+                c, c_s = torch.exp(m - m_new), torch.exp(m_s - m_new)
+                o = o * c[..., None] + o_s * c_s[..., None]
+                span = span * c[..., None] + span_s * c_s[..., None]
+                l = l * c + l_s * c_s
+                m = m_new
+            div = torch.where(l == 0, 1.0, l)[..., None]
+            outs.append((o / div).to(torch.bfloat16))
+            spans.append(span / div)
+        return torch.cat(outs, dim=1), torch.cat(spans, dim=1)
+
+    def kernel_block(qp, kp, vp, delta):
+        return (*fa._launch_block_fwd(qp, kp, vp, delta, True, scale), 0.0)
+
+    def plain_block(qp, kp, vp, delta):
+        o, m, l = fa._flash_block_plain(qp, kp, vp, delta, True, scale, block_k=block_k,
+                                        p_dtype=torch.bfloat16)
+        return o, m, l, fwd_tie_span(qp, kp, vp, True, scale, block_k, delta)[0]
+
+    out, _ = merged(kernel_block)
+    want, span = merged(plain_block)
+    err_a, n_ties = gate_a(out, want, span, "ring merge (a) vs the merged rounding plain blocks")
+    err_b = max_err(out, plain, REF_RTOL, REF_ATOL, "ring merge (b) vs the f32 plain forward")
+    err_b1 = max_err(out, full, REF_RTOL, REF_ATOL, "ring merge vs B1")
     print(f"[ring] 4 pieces x 4 blocks merged on one card over T {t} (bh={bh}, d={D}, "
-          f"causal, bf16): max abs err {err:.2e} vs the f32-internal plain forward, "
-          f"{err_b1:.2e} vs B1", flush=True)
+          f"causal, bf16): max abs err (a) {err_a:.2e} vs the merged rounding plain blocks "
+          f"[{n_ties} past two ulps at bf16 midpoints], (b) {err_b:.2e} vs the f32-internal "
+          f"plain forward, {err_b1:.2e} vs B1", flush=True)
 
 
 def phase_small_model():
@@ -717,26 +1032,28 @@ def phase_sp_train():
             torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8),
             mesh)
         torch.cuda.reset_peak_memory_stats()
-        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fa.BLOCK_LAUNCHES = 0
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fa.BLOCK_LAUNCHES = fa.BLOCK_BWD_LAUNCHES = 0
         losses, times = [], []
         for _ in range(STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses.append(float(step(model, tokens, labels)))
             times.append(time.perf_counter() - t0)
-        launches = {"block": fa.BLOCK_LAUNCHES, "fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
+        launches = {"block": fa.BLOCK_LAUNCHES, "block_bwd": fa.BLOCK_BWD_LAUNCHES,
+                    "fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
         print(f"[sp] GPT-2-small, ring attention on a data 1 x seq 1 mesh, remat, batch "
               f"{SP_BATCH} x {SP_SEQ} tokens: losses {losses}", flush=True)
         check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
         check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-        check(launches["block"] > 0, f"ring block launches {launches}")
-        per_step = launches["block"] / STEPS
+        check(launches["block"] > 0 and launches["block_bwd"] > 0,
+              f"ring block launches {launches}")
         med = statistics.median(times[1:])
         print(f"[sp] step ms median {med * 1e3:.2f} (steps 2-{STEPS}; first "
               f"{times[0] * 1e3:.1f}), tokens/s {SP_BATCH * SP_SEQ / med:.0f}, launches "
-              f"{launches} ({per_step:g} block launches a step; expected 24: 12 forward "
-              f"+ 12 recomputed under remat), peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+              f"{launches} ({launches['block'] / STEPS:g} block forward launches a step, "
+              f"expected 24: 12 forward + 12 recomputed under remat; "
+              f"{launches['block_bwd'] / STEPS:g} block backward pairs, expected 12), peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         profile_step(lambda: float(step(model, tokens, labels)),
                      span="flash_block_backward")
         return launches
@@ -1132,8 +1449,8 @@ def profile_step(run_step, span=None) -> None:
     for e in kernels:
         name, us = e.name.lower(), e.time_range.elapsed_us()
         start = e.time_range.start
-        fam = ("flash" if "flash_" in name     # the port's kernels: no SDPA in the step
-               else span if any(a <= start < b for a, b in ranges)
+        fam = (span if any(a <= start < b for a, b in ranges)
+               else "flash" if "flash_" in name     # the port's kernels: no SDPA in the step
                else "gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet"))
                else "nccl" if "nccl" in name else "other")
         families[fam] += us / 1e3
@@ -1170,11 +1487,11 @@ def main() -> int:
     phase_kernels_bf16()
     rows = phase_kernels_bench()
     phase_block_f32()
-    rows["flash_block_fwd"] = dict(
-        phase_block_bench(), replaces=f"{REPLACED}:369",
-        # No PyTorch call returns the unnormalised O with the row max and
-        # sum; scaled_dot_product_attention normalises.
-        library_ms=None)
+    block_rows = phase_block_bench(card)
+    rows["flash_block_fwd"] = dict(block_rows["flash_block_fwd"], replaces=f"{REPLACED}:369")
+    # The block's VJP, the reference's _flash_block_vjp_bwd.
+    for name in ("flash_block_bwd_dq", "flash_block_bwd_dkdv"):
+        rows[name] = dict(block_rows[name], replaces=f"{REPLACED}:386")
     phase_ring_merge()
     phase_small_model()
     launches = phase_train()
@@ -1190,6 +1507,8 @@ def main() -> int:
     rows["matmul_reduce_scatter"] = dict(tp_rows["mlp_down"], replaces=f"{CM_REPLACED}:352")
     counts = {"flash_fwd": launches["fwd"], "flash_bwd_dq": launches["bwd"],
               "flash_bwd_dkdv": launches["bwd"], "flash_block_fwd": sp_launches["block"],
+              "flash_block_bwd_dq": sp_launches["block_bwd"],
+              "flash_block_bwd_dkdv": sp_launches["block_bwd"],
               "ag_matmul": tp_launches["b3"], "matmul_reduce_scatter": tp_launches["b4"]}
     kernels = [
         {"name": name, "route": "cuda",

@@ -16,10 +16,26 @@
 //             without normalising: O = sum P V in f32, the row max m and the
 //             row sum l = sum exp(s - m), f32 [BH, Tq] each, for the ring's
 //             online-softmax merge. A row that sees no key gives m = -1e30,
-//             l = 0, O = 0. The block's backward is a dense recompute in
-//             PyTorch, as the reference's (_flash_block_vjp_bwd) is in XLA.
+//             l = 0, O = 0.
 //   backward: P is recomputed from the saved lse; Dsum = rowsum(dO * O);
 //             dS = P * (dP - Dsum) * scale; dQ = dS K, dK = dS^T Q, dV = P^T dO.
+//   block backward (MODE 1 of the two backward kernels; the reference's is
+//             the VJP of its dense recompute, _flash_block_vjp_bwd): the VJP
+//             of (O, m, l) against all three cotangents (dO, dm, dl). Per row
+//             i over its visible keys j, with P = exp(s - m):
+//               dS_ij = P_ij (dO_i . v_j + dl_i) + [s_ij == m_i] (dm_i - D_i) / c_i,
+//               D_i = dO_i . O_i + dl_i l_i, c_i = the visible keys tied at m_i
+//             (amax shares its gradient evenly among ties, as jnp.max does).
+//             That is B1's dS = P (dP - Dsum) with lse -> m, Dsum -> -dl, the
+//             mask shifted by delta and one tie term. m and c come from a
+//             first sweep of S inside the dQ kernel, so the tie test runs on
+//             the backward's own scores; the dQ kernel writes m, -dl and the
+//             tie coefficient (dm - D) / c for the dK/dV kernel, whose
+//             transposed product S^T = K Q^T gives each score bit for bit as
+//             the dQ kernel's S = Q K^T does (the same products summed over D
+//             in the same order), and so finds the same ties. The mask is
+//             applied before the tie test: a row that sees no key gives zero
+//             dQ and nothing to dK and dV.
 //
 // What bounds it on an H100. q, k, v and O are 2 B * BH * T * D bytes each in
 // bf16; the causal forward does 2 * BH * T^2 * D FLOPs (half of 4 * BH * T^2 * D,
@@ -33,13 +49,20 @@
 // the tensor-core peak): bound by operations too. At delta = -T it sees every
 // key, twice the work; at delta >= T it sees none and only writes.
 //
-// Which kernels run where. B1 in bf16 -- the main path's forward, dQ and
-// dK/dV -- runs on the tensor cores (flash_*_mma_kernel, below the
-// "bf16 tensor cores" line); B1 in f32 and B2 in both dtypes stay on the
-// CUDA cores (fwd_q_tile and the f32 backward kernels). No bf16 call takes
-// the CUDA-core B1 kernels, and a shape or dtype no kernel takes is refused.
+// The block backward at the long-context shape (delta = 0) does five products
+// over the visible half, 128.8 GFLOP (0.130 ms at the tensor-core peak),
+// against ~127 MB of traffic (0.038 ms): bound by operations. The kernels do
+// eight (the stats sweep's S, and S and dP once in each kernel) to stay free
+// of atomics.
 //
-// The CUDA-core kernels (f32 B1, B2). Each block keeps its 64-row tiles in
+// Which kernels run where. In bf16, B1 and B2 -- forward, dQ and dK/dV --
+// run on the tensor cores (flash_*_mma_kernel, below the "bf16 tensor cores"
+// line; MODE 1 is the ring block); in f32 both stay on the CUDA cores
+// (fwd_q_tile and the f32 backward kernels). The bf16 CUDA-core block
+// forward is kept only as the yardstick that `legacy` selects; a shape or
+// dtype no kernel takes is refused.
+//
+// The CUDA-core kernels (f32 B1 and B2). Each block keeps its 64-row tiles in
 // shared memory as f32 and never writes the T x T score matrix to device
 // memory, so device traffic stays near the one-read-one-write minimum; the
 // causal loops skip the tiles above the diagonal, halving the work. The
@@ -47,11 +70,11 @@
 // by operations at 67 TFLOP/s, a fifteenth of the tensor cores' rate; one
 // scalar load a thread and a barrier with nothing in flight per tile add
 // latency. They stay for f32 (on tensor cores f32 would mean TF32, and the
-// f32 parity checks need full f32) and for B2 until it is redesigned. Both
-// forwards share one Q-tile loop (fwd_q_tile), whose causal bound moves with
-// delta, so the ring block skips the tiles its shifted mask hides.
+// f32 parity checks need full f32). Both forwards share one Q-tile loop
+// (fwd_q_tile), whose causal bound moves with delta, so the ring block skips
+// the tiles its shifted mask hides.
 //
-// The tensor-core kernels (bf16 B1) take the work to the tensor cores' side
+// The tensor-core kernels (bf16 B1 and B2) take the work to the tensor cores' side
 // of the ridge: every product is mma.sync m16n8k16 (bf16 operands, f32
 // accumulators) on operands loaded by ldmatrix, four warps a block, 16 rows
 // per warp and m16 step. Tiles stay bf16 in shared memory (half the bytes of
@@ -73,12 +96,23 @@
 // would not, and the two backward kernels recompute S and dP (7 products to
 // FlashAttention-2's 5) to stay deterministic without atomics; wgmma, TMA and
 // warp specialisation are the next step. Masks are applied per element in
-// C-fragment coordinates only on tiles that cross the diagonal or the ragged
-// end (a zero-filled key scores 0, not -inf).
+// C-fragment coordinates only on tiles that cross the diagonal (shifted by
+// delta in the ring block) or the ragged end (a zero-filled key scores 0, not
+// -inf). The ring block's forward writes the f32 (O, m, l) straight from the
+// accumulators; its backward adds one sweep of S = Q K^T to the dQ kernel
+// for m and the tie count, and rounds dS where the tensor cores take it but
+// keeps the tie term, which carries the row's whole dm - D (hundreds, on an
+// unnormalised block, against a dS of order P dP), out of bf16: the lanes of
+// a quad add (dm - D) / c scale times the tied key's K row (dQ) or the tied
+// query's Q row (dK) from the shared tile into the f32 accumulators
+// (add_ties). The f32 cotangent dO reaches the tensor cores as the bf16 copy
+// the wrapper makes; D is formed from the f32 dO and O.
 //
 // The two backward kernels use no atomics, so gradients are deterministic:
-// dQ loops over K tiles for one Q tile and also writes Dsum; dK/dV then loops
-// over Q tiles for one K tile and reads Dsum.
+// dQ loops over K tiles for one Q tile and also writes Dsum (and, for the
+// ring block, m and the tie coefficient); dK/dV then loops over Q tiles for
+// one K tile and reads them. A tile or block that the causal mask hides
+// entirely (delta >= T: no key is visible) runs no products and writes zeros.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, every
 // entry returns cudaGetLastError() after its launch. dtype: 0 = f32, 1 = bf16.
@@ -293,16 +327,41 @@ flash_block_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
+// The ring block's operands of the two backward kernels (MODE 1); B1 (MODE 0)
+// passes a zeroed one. o32 and do32 are the f32 O and dO [BH, Tq, D] for D
+// (read by the tensor-core dQ kernel; the f32 one reads its own o and dout);
+// l, dm and dl are f32 [BH, Tq]; m and tcoef [BH, Tq] are written by the dQ
+// kernel (the row max of its own scores and (dm - D) / c) and read by dK/dV.
+struct BlockBwd {
+  const float* o32;
+  const float* do32;
+  const float* l;
+  const float* dm;
+  const float* dl;
+  float* m;
+  float* tcoef;
+  int delta;
+};
+
+// One visible score x of a row into a running (max, count of ties) pair.
+__device__ __forceinline__ void max_count(float x, float& mx, float& cnt) {
+  cnt = x > mx ? 1.f : cnt + (x == mx ? 1.f : 0.f);
+  mx = fmaxf(mx, x);
+}
+
 // ------------------------------------------------------------ backward dQ --
 // One block per (Q tile, bh): loops over the K tiles up to the diagonal,
 // accumulating dQ in registers. It also writes Dsum = rowsum(dO * O) for the
-// dK/dV kernel, which runs after it on the same stream.
-template <typename T, int D>
+// dK/dV kernel, which runs after it on the same stream. MODE 1, the ring
+// block (T = float only): a first sweep over the visible K tiles finds each
+// row's max m and tie count c on the kernel's own scores; Dsum is -dl and
+// dS gains the tie term; m, -dl and (dm - D) / c are written for dK/dV.
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ dsum,
-                    int tq, int tk, float scale, int causal) {
+                    int tq, int tk, float scale, int causal, BlockBwd blk) {
   constexpr int LD = D + 1, LP = kBlockK + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* sq = smem;                  // [kBlockQ][LD]
@@ -315,24 +374,83 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t qoff = (int64_t)bh * tq * D, koff = (int64_t)bh * tk * D;
+  const int delta = MODE ? blk.delta : 0;
 
   load_tile<T, D, kBlockQ>(sq, q + qoff, q0, tq);
   load_tile<T, D, kBlockQ>(sdo, dout + qoff, q0, tq);
   __syncthreads();
 
-  float row_d[4], row_lse[4];
+  float row_d[4], row_lse[4], row_dd[4], row_t[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, qi = q0 + r;
+    const int64_t row = (int64_t)bh * tq + qi;
     float part = 0.f;
     if (qi < tq) {
       const T* orow = o + qoff + (int64_t)qi * D;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) part += sdo[r * LD + tx + 16 * j] * to_f32(orow[tx + 16 * j]);
     }
-    row_d[i] = row_sum16(part);
-    row_lse[i] = qi < tq ? lse[(int64_t)bh * tq + qi] : 0.f;
-    if (tx == 0 && qi < tq) dsum[(int64_t)bh * tq + qi] = row_d[i];
+    if constexpr (MODE == 0) {
+      row_d[i] = row_sum16(part);
+      row_lse[i] = qi < tq ? lse[row] : 0.f;
+      if (tx == 0 && qi < tq) dsum[row] = row_d[i];
+    } else {
+      const float dl = qi < tq ? blk.dl[row] : 0.f;
+      row_dd[i] = row_sum16(part) + dl * (qi < tq ? blk.l[row] : 0.f);  // D
+      row_d[i] = -dl;
+      if (tx == 0 && qi < tq) dsum[row] = -dl;
+    }
+  }
+
+  const int k_end = causal ? max(0, min(tk, q0 + kBlockQ - delta)) : tk;
+  if constexpr (MODE == 1) {
+    // The stats sweep: the row max and its ties over the visible keys.
+    float mx[4], cnt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i] = kNegInf, cnt[i] = 0.f;
+    for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+      __syncthreads();
+      load_tile<T, D, kBlockK>(sk, k + koff, k0, tk);
+      __syncthreads();
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 16 * i) * LD + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = sk[(tx + 16 * j) * LD + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kj = k0 + tx + 16 * j;
+          if (qi < tq && kj < tk && (!causal || qi >= kj + delta))
+            max_count(__fmul_rn(s[i][j], scale), mx[i], cnt[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      const int64_t row = (int64_t)bh * tq + qi;
+      const float m_row = row_max16(mx[i]);
+      const float c = row_sum16(mx[i] == m_row ? cnt[i] : 0.f);
+      row_lse[i] = m_row;
+      row_t[i] = c > 0.f && qi < tq ? (blk.dm[row] - row_dd[i]) / c : 0.f;
+      if (tx == 0 && qi < tq) blk.m[row] = m_row, blk.tcoef[row] = row_t[i];
+    }
   }
 
   float acc[4][DJ];
@@ -341,7 +459,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  const int k_end = causal ? min(tk, q0 + kBlockQ) : tk;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();
     load_tile<T, D, kBlockK>(sk, k + koff, k0, tk);
@@ -381,9 +498,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool ok = qi < tq && kj < tk && (!causal || qi >= kj);
-        const float p = ok ? __expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        sds[(ty + 16 * i) * LP + tx + 16 * j] = p * (dp[i][j] - row_d[i]) * scale;
+        const bool ok = qi < tq && kj < tk && (!causal || qi >= kj + delta);
+        float ds;
+        if constexpr (MODE == 0) {
+          const float p = ok ? __expf(s[i][j] * scale - row_lse[i]) : 0.f;
+          ds = p * (dp[i][j] - row_d[i]) * scale;
+        } else {
+          const float sc = __fmul_rn(s[i][j], scale);
+          const float p = ok ? __expf(sc - row_lse[i]) : 0.f;
+          ds = p * (dp[i][j] - row_d[i]);
+          if (ok && sc == row_lse[i]) ds += row_t[i];
+          ds *= scale;
+        }
+        sds[(ty + 16 * i) * LP + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -416,13 +543,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // One block per (K tile, bh): loops over the Q tiles from the diagonal down,
 // accumulating dK and dV in registers. Early K tiles see the most Q tiles
 // under the causal mask and launch first. Here a thread's 4 x 4 tile has
-// keys on its rows and queries on its columns.
-template <typename T, int D>
+// keys on its rows and queries on its columns. MODE 1, the ring block: lse is
+// the dQ kernel's m, Dsum its -dl, and dS^T gains the tie term where a
+// visible score equals m.
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
-                      int tq, int tk, float scale, int causal) {
+                      int tq, int tk, float scale, int causal, BlockBwd blk) {
   constexpr int LD = D + 1, LP = kBlockQ + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* sk = smem;                   // [kBlockK][LD]
@@ -433,11 +562,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   float* sdst = spt + kBlockK * LP;   // [kBlockK][LP]  dS^T
   float* slse = sdst + kBlockK * LP;  // [kBlockQ]
   float* sdsum = slse + kBlockQ;      // [kBlockQ]
+  float* stc = sdsum + kBlockQ;       // [kBlockQ], MODE 1: the tie coefficient
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kBlockK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t qoff = (int64_t)bh * tq * D, koff = (int64_t)bh * tk * D;
+  const int delta = MODE ? blk.delta : 0;
 
   load_tile<T, D, kBlockK>(sk, k + koff, k0, tk);
   load_tile<T, D, kBlockK>(sv, v + koff, k0, tk);
@@ -448,8 +579,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  // Under the causal mask no query row before this tile's first key sees it.
-  const int q_begin = causal ? (k0 / kBlockQ) * kBlockQ : 0;
+  // Under the causal mask no query row before this tile's first key (moved
+  // by delta) sees it.
+  const int q_begin = causal ? max(0, (k0 + delta) / kBlockQ * kBlockQ) : 0;
   for (int q0 = q_begin; q0 < tq; q0 += kBlockQ) {
     __syncthreads();
     load_tile<T, D, kBlockQ>(sq, q + qoff, q0, tq);
@@ -458,6 +590,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       const int qi = q0 + r;
       slse[r] = qi < tq ? lse[(int64_t)bh * tq + qi] : 0.f;
       sdsum[r] = qi < tq ? dsum[(int64_t)bh * tq + qi] : 0.f;
+      if constexpr (MODE == 1) stc[r] = qi < tq ? blk.tcoef[(int64_t)bh * tq + qi] : 0.f;
     }
     __syncthreads();
 
@@ -488,16 +621,35 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         }
     }
 
+    if constexpr (MODE == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + ty + 16 * i;
+      for (int i = 0; i < 4; ++i) {
+        const int kj = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = tx + 16 * j, qi = q0 + r;
+          const bool ok = qi < tq && kj < tk && (!causal || qi >= kj);
+          const float p = ok ? __expf(s[i][j] * scale - slse[r]) : 0.f;
+          spt[(ty + 16 * i) * LP + r] = p;
+          sdst[(ty + 16 * i) * LP + r] = p * (dp[i][j] - sdsum[r]) * scale;
+        }
+      }
+    } else {
+      // One query column's three row terms at a time.
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = tx + 16 * j, qi = q0 + r;
-        const bool ok = qi < tq && kj < tk && (!causal || qi >= kj);
-        const float p = ok ? __expf(s[i][j] * scale - slse[r]) : 0.f;
-        spt[(ty + 16 * i) * LP + r] = p;
-        sdst[(ty + 16 * i) * LP + r] = p * (dp[i][j] - sdsum[r]) * scale;
+        const float m_r = slse[r], dsum_r = sdsum[r], tc_r = stc[r];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = k0 + ty + 16 * i;
+          const bool ok = qi < tq && kj < tk && (!causal || qi >= kj + delta);
+          const float sc = __fmul_rn(s[i][j], scale);
+          const float p = ok ? __expf(sc - m_r) : 0.f;
+          const float tie = ok && sc == m_r ? tc_r : 0.f;
+          spt[(ty + 16 * i) * LP + r] = p;
+          sdst[(ty + 16 * i) * LP + r] = (p * (dp[i][j] - dsum_r) + tie) * scale;
+        }
       }
     }
     __syncthreads();
@@ -629,6 +781,38 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// The ring block's tie term, in f32 beside the bf16 products. Bit 2 j + e of
+// ties[h] marks the element of this lane's row h (g + 8 h of the 16-row
+// fragment) at tile column 8 j + 2 c + e as tied at the row max; for each
+// such element of the quad, every lane adds weight(h, column) times that
+// column's row of the shared tile `rows` (stride LD) to its columns
+// 8 dn + 2 c + {0, 1} of acc's row h. Ties are rare, so the warp skips the
+// loop when it has none.
+template <int ND, int LD, typename W>
+__device__ __forceinline__ void add_ties(float (&acc)[ND][4], const uint32_t (&ties)[2],
+                                         const bf16* rows, int lane, W weight) {
+  if (!__any_sync(0xffffffffu, ties[0] | ties[1])) return;
+  const int c = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int cs = 0; cs < 4; ++cs) {
+      uint32_t bits = __shfl_sync(0xffffffffu, ties[h], (lane & ~3) | cs);
+      while (bits) {
+        const int b = __ffs(bits) - 1, col = (b >> 1) * 8 + 2 * cs + (b & 1);
+        bits &= bits - 1;
+        const float w = weight(h, col);
+        const __nv_bfloat162* row = reinterpret_cast<const __nv_bfloat162*>(rows + col * LD);
+#pragma unroll
+        for (int dn = 0; dn < ND; ++dn) {
+          const float2 x = __bfloat1622float2(row[dn * 4 + c]);
+          acc[dn][2 * h] = fmaf(w, x.x, acc[dn][2 * h]);
+          acc[dn][2 * h + 1] = fmaf(w, x.y, acc[dn][2 * h + 1]);
+        }
+      }
+    }
+}
+
 // Rows [row0, row0 + ROWS) of a [t, D] bf16 matrix into shared memory at a
 // row stride of D + 8, asynchronously; rows past t are zero-filled.
 template <int D, int ROWS>
@@ -663,12 +847,16 @@ __device__ __forceinline__ const bf16* b_addr(const bf16* s, int ld, int k0, int
 // One block per (Q tile of 64 * MW rows, bh), late rows first; warp w owns
 // rows [16 (w MW + i), +16) for i < MW. Q's fragments are loaded once and
 // stay in registers; S = Q K^T and the online softmax stay in the C
-// fragments; P goes to bf16 A fragments for O += P V.
-template <int D, int MW, int BK>
+// fragments; P goes to bf16 A fragments for O += P V. MODE 0 (B1) writes bf16
+// O / l and lse = m + log l; MODE 1 (B2, the ring block) shifts the causal
+// mask by delta and writes the f32 triple: O unnormalised, m and l (lse and
+// l_out), a row that sees no key giving exactly m = -1e30, l = 0, O = 0.
+template <int D, int MW, int BK, int MODE>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                     int tq, int tk, float scale, int causal) {
+                     const bf16* __restrict__ v, void* __restrict__ o, float* __restrict__ lse,
+                     float* __restrict__ l_out, int tq, int tk, float scale, int causal,
+                     int delta) {
   constexpr int BQ = 16 * kWarps * MW, LD = D + 8, KD = D / 16, NK = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
@@ -678,7 +866,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + (int64_t)bh * tq * D;
   const bf16* kb = k + (int64_t)bh * tk * D;
   const bf16* vb = v + (int64_t)bh * tk * D;
-  const int k_end = causal ? min(tk, q0 + BQ) : tk;
+  if constexpr (MODE == 0) delta = 0;
+  // Under the causal mask no key at or past q0 + BQ - delta is seen by this
+  // tile; a delta of a whole tile or more leaves it no key at all.
+  const int k_end = causal ? max(0, min(tk, q0 + BQ - delta)) : tk;
   const int n_tiles = (k_end + BK - 1) / BK;
 
   load_tile_async<D, BQ>(sq, qb, q0, tq);
@@ -745,7 +936,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // Masks only where the tile crosses the ragged end or this warp's part
     // of the diagonal; a zero-filled key scores 0, so it must be masked.
-    const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 > warp_row0);
+    const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 + delta > warp_row0);
 #pragma unroll
     for (int i = 0; i < MW; ++i)
 #pragma unroll
@@ -759,7 +950,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float x = s[i][j][2 * h + e] * scale;
             if (edge) {
               const int kj = k0 + j * 8 + 2 * c + e;
-              x = (kj < tk && (!causal || qi >= kj)) ? x : kNegInf;
+              x = (kj < tk && (!causal || qi >= kj + delta)) ? x : kNegInf;
             }
             s[i][j][2 * h + e] = x;
             row_max = fmaxf(row_max, x);
@@ -816,13 +1007,21 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       li += __shfl_xor_sync(0xffffffffu, li, 2);
       const int qi = warp_row0 + i * 16 + g + 8 * h;
       if (qi >= tq) continue;
-      li = li == 0.f ? 1.f : li;  // fully masked rows give 0
-      const float inv = 1.f / li;
-      uint32_t* orow = reinterpret_cast<uint32_t*>(o + ((int64_t)bh * tq + qi) * D);
+      const int64_t row = (int64_t)bh * tq + qi;
+      if constexpr (MODE == 0) {
+        li = li == 0.f ? 1.f : li;  // fully masked rows give 0
+        const float inv = 1.f / li;
+        uint32_t* orow = reinterpret_cast<uint32_t*>(static_cast<bf16*>(o) + row * D);
 #pragma unroll
-      for (int j = 0; j < ND; ++j)
-        orow[j * 4 + c] = pack_bf16(acc[i][j][2 * h] * inv, acc[i][j][2 * h + 1] * inv);
-      if (c == 0) lse[(int64_t)bh * tq + qi] = m[i][h] + logf(li);
+        for (int j = 0; j < ND; ++j)
+          orow[j * 4 + c] = pack_bf16(acc[i][j][2 * h] * inv, acc[i][j][2 * h + 1] * inv);
+        if (c == 0) lse[row] = m[i][h] + logf(li);
+      } else {
+        float2* orow = reinterpret_cast<float2*>(static_cast<float*>(o) + row * D);
+#pragma unroll
+        for (int j = 0; j < ND; ++j) orow[j * 4 + c] = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        if (c == 0) lse[row] = m[i][h], l_out[row] = li;
+      }
     }
 }
 
@@ -832,13 +1031,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // D), written for the dK/dV kernel. Then per visible K tile: S = Q K^T and
 // dP = dO V^T in C fragments, P = exp(S - lse), dS = P (dP - Dsum) scale,
 // dS to bf16 A fragments, dQ += dS K (K read transposed by ldmatrix.trans).
-template <int D, int BK>
+// MODE 1, the ring block: D = dO . O + dl l from the f32 dO and O, Dsum =
+// -dl; a first sweep of S = Q K^T over the visible K tiles (K alone through
+// the same stages) finds each row's max m and tie count c on this kernel's
+// own scores; the main sweep takes P = exp(S - m) and adds (dm - D) / c to
+// dS where a visible score equals m. m, -dl and (dm - D) / c are written for
+// the dK/dV kernel.
+template <int D, int BK, int MODE>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
                         bf16* __restrict__ dq, float* __restrict__ dsum, int tq, int tk,
-                        float scale, int causal) {
+                        float scale, int causal, BlockBwd blk) {
   constexpr int BQ = 16 * kWarps, LD = D + 8, KD = D / 16, NK = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
@@ -847,45 +1052,134 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
   const int64_t qoff = (int64_t)bh * tq * D, koff = (int64_t)bh * tk * D;
-  const int k_end = causal ? min(tk, q0 + BQ) : tk;
+  const int delta = MODE ? blk.delta : 0;
+  const int k_end = causal ? max(0, min(tk, q0 + BQ - delta)) : tk;
   const int n_tiles = (k_end + BK - 1) / BK;
 
   load_tile_async<D, BQ>(sq, q + qoff, q0, tq);
   load_tile_async<D, BQ>(sdo, dout + qoff, q0, tq);
   if (n_tiles > 0) {
     load_tile_async<D, BK>(skv, k + koff, 0, tk);
-    load_tile_async<D, BK>(skv + BK * LD, v + koff, 0, tk);
+    if constexpr (MODE == 0) load_tile_async<D, BK>(skv + BK * LD, v + koff, 0, tk);
   }
   cp_async_commit();
 
   const int warp_row0 = q0 + warp * 16;
-  float row_d[2], row_lse[2];
+  float row_d[2], row_lse[2], row_dd[2], row_t[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = warp_row0 + g + 8 * h;
+    const int64_t row = (int64_t)bh * tq + qi;
     float part = 0.f;
-    if (qi < tq) {
-      const uint4* orow = reinterpret_cast<const uint4*>(o + qoff + (int64_t)qi * D + c * (D / 4));
-      const uint4* drow =
-          reinterpret_cast<const uint4*>(dout + qoff + (int64_t)qi * D + c * (D / 4));
+    if constexpr (MODE == 0) {
+      if (qi < tq) {
+        const uint4* orow = reinterpret_cast<const uint4*>(o + qoff + (int64_t)qi * D + c * (D / 4));
+        const uint4* drow =
+            reinterpret_cast<const uint4*>(dout + qoff + (int64_t)qi * D + c * (D / 4));
 #pragma unroll
-      for (int u = 0; u < D / 32; ++u) {
-        const uint4 ov = orow[u], dv4 = drow[u];
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
+        for (int u = 0; u < D / 32; ++u) {
+          const uint4 ov = orow[u], dv4 = drow[u];
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = __bfloat1622float2(o2[e]), b = __bfloat1622float2(d2[e]);
-          part = fmaf(a.x, b.x, part);
-          part = fmaf(a.y, b.y, part);
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(o2[e]), b = __bfloat1622float2(d2[e]);
+            part = fmaf(a.x, b.x, part);
+            part = fmaf(a.y, b.y, part);
+          }
         }
       }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      row_d[h] = part;
+      row_lse[h] = qi < tq ? lse[row] * kLog2e : 0.f;
+      if (c == 0 && qi < tq) dsum[row] = part;
+    } else {
+      if (qi < tq) {
+        const float4* orow = reinterpret_cast<const float4*>(blk.o32 + qoff + (int64_t)qi * D + c * (D / 4));
+        const float4* drow =
+            reinterpret_cast<const float4*>(blk.do32 + qoff + (int64_t)qi * D + c * (D / 4));
+#pragma unroll
+        for (int u = 0; u < D / 16; ++u) {
+          const float4 a = orow[u], b = drow[u];
+          part = fmaf(a.x, b.x, part);
+          part = fmaf(a.y, b.y, part);
+          part = fmaf(a.z, b.z, part);
+          part = fmaf(a.w, b.w, part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      const float dl = qi < tq ? blk.dl[row] : 0.f;
+      row_dd[h] = part + dl * (qi < tq ? blk.l[row] : 0.f);  // D
+      row_d[h] = -dl;
+      if (c == 0 && qi < tq) dsum[row] = -dl;
     }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
-    row_d[h] = part;
-    row_lse[h] = qi < tq ? lse[(int64_t)bh * tq + qi] * kLog2e : 0.f;
-    if (c == 0 && qi < tq) dsum[(int64_t)bh * tq + qi] = part;
+  }
+
+  if constexpr (MODE == 1) {
+    // The stats sweep: S = Q K^T per visible K tile, masked as the main
+    // sweep masks it, into this lane's running (max, ties) of each row.
+    float mx[2] = {kNegInf, kNegInf}, cnt[2] = {0.f, 0.f};
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * BK;
+      if (it + 1 < n_tiles) {
+        load_tile_async<D, BK>(skv + ((it + 1) & 1) * 2 * BK * LD, k + koff, k0 + BK, tk);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sk = skv + (it & 1) * 2 * BK * LD;
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(qa, a_addr(sq, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, bt_addr(sk, LD, np * 16, kk * 16, lane));
+          mma16816(s[2 * np], qa, b[0], b[1]);
+          mma16816(s[2 * np + 1], qa, b[2], b[3]);
+        }
+      }
+      const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 + delta > warp_row0);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = warp_row0 + g + 8 * h, kj = k0 + j * 8 + 2 * c + e;
+            if (!edge || (kj < tk && (!causal || qi >= kj + delta)))
+              max_count(__fmul_rn(s[j][2 * h + e], scale), mx[h], cnt[h]);
+          }
+      __syncthreads();  // this stage is refilled by the next iteration's copy
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = warp_row0 + g + 8 * h;
+      const int64_t row = (int64_t)bh * tq + qi;
+      float m_row = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 2));
+      float ties = mx[h] == m_row ? cnt[h] : 0.f;
+      ties += __shfl_xor_sync(0xffffffffu, ties, 1);
+      ties += __shfl_xor_sync(0xffffffffu, ties, 2);
+      row_lse[h] = m_row;
+      row_t[h] = ties > 0.f && qi < tq ? (blk.dm[row] - row_dd[h]) / ties : 0.f;
+      if (c == 0 && qi < tq) blk.m[row] = m_row, blk.tcoef[row] = row_t[h];
+    }
+    if (n_tiles > 0) {
+      load_tile_async<D, BK>(skv, k + koff, 0, tk);
+      load_tile_async<D, BK>(skv + BK * LD, v + koff, 0, tk);
+    }
+    cp_async_commit();
   }
 
   float acc[ND][4];
@@ -932,7 +1226,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 > warp_row0);
+    const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 + delta > warp_row0);
+    uint32_t ties[2] = {0u, 0u};  // MODE 1
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -940,9 +1235,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int qi = warp_row0 + g + 8 * h, kj = k0 + j * 8 + 2 * c + e;
-          const bool ok = !edge || (kj < tk && (!causal || qi >= kj));
-          const float p = ok ? exp2f(fmaf(s[j][2 * h + e], sl2, -row_lse[h])) : 0.f;
-          s[j][2 * h + e] = p * (dp[j][2 * h + e] - row_d[h]) * scale;  // dS
+          const bool ok = !edge || (kj < tk && (!causal || qi >= kj + delta));
+          if constexpr (MODE == 0) {
+            const float p = ok ? exp2f(fmaf(s[j][2 * h + e], sl2, -row_lse[h])) : 0.f;
+            s[j][2 * h + e] = p * (dp[j][2 * h + e] - row_d[h]) * scale;  // dS
+          } else {
+            // dS without its tie term, which carries the row's whole dm - D
+            // and goes to dQ in f32 below, not through bf16.
+            const float sc = __fmul_rn(s[j][2 * h + e], scale);
+            const float p = ok ? exp2f((sc - row_lse[h]) * kLog2e) : 0.f;
+            s[j][2 * h + e] = p * (dp[j][2 * h + e] - row_d[h]) * scale;
+            if (ok && sc == row_lse[h]) ties[h] |= 1u << (2 * j + e);
+          }
         }
 
 #pragma unroll
@@ -957,6 +1261,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(acc[2 * dn + 1], a, b[2], b[3]);
       }
     }
+    if constexpr (MODE == 1)
+      add_ties<ND, LD>(acc, ties, sk, lane, [&](int h, int) { return row_t[h] * scale; });
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -976,36 +1282,41 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // [16 w, +16). Per Q tile that sees them, the transposed products S^T = K Q^T
 // and dP^T = V dO^T (Q and dO read as B operands), P^T = exp(S^T - lse) and
 // dS^T = P^T (dP^T - Dsum) scale, then from the same registers dV += P^T dO
-// and dK += dS^T Q. lse and Dsum ride along with each Q tile's copy.
-template <int D, int BQ>
+// and dK += dS^T Q. lse and Dsum ride along with each Q tile's copy. MODE 1,
+// the ring block: lse is the dQ kernel's m, Dsum its -dl, and the tie
+// coefficient rides along too; dS^T gains it where a visible score equals m.
+template <int D, int BQ, int MODE>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dsum,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk,
-                          float scale, int causal) {
+                          float scale, int causal, BlockBwd blk) {
   constexpr int BKV = 16 * kWarps, LD = D + 8, KD = D / 16, NQ = BQ / 8, ND = D / 8;
+  constexpr int NS = MODE ? 3 : 2;  // row terms a Q row carries
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LD]
   bf16* sv = sk + BKV * LD;                      // [BKV][LD]
   bf16* sqd = sv + BKV * LD;                     // 2 stages of Q [BQ][LD], dO [BQ][LD]
-  float* sst = reinterpret_cast<float*>(sqd + 4 * BQ * LD);  // 2 stages of lse [BQ], Dsum [BQ]
+  float* sst = reinterpret_cast<float*>(sqd + 4 * BQ * LD);  // 2 stages of lse, Dsum (, tcoef) [BQ]
   const int bh = blockIdx.y, k0 = blockIdx.x * BKV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
   const int64_t qoff = (int64_t)bh * tq * D, koff = (int64_t)bh * tk * D;
-  // Under the causal mask no query row before this tile's first key sees it.
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int delta = MODE ? blk.delta : 0;
+  // Under the causal mask no query row before this tile's first key (moved
+  // by delta) sees it.
+  const int q_begin = causal ? max(0, (k0 + delta) / BQ * BQ) : 0;
   const int n_tiles = q_begin < tq ? (tq - q_begin + BQ - 1) / BQ : 0;
 
   auto load_q_tile = [&](int stage, int q0) {
     bf16* dst = sqd + stage * 2 * BQ * LD;
     load_tile_async<D, BQ>(dst, q + qoff, q0, tq);
     load_tile_async<D, BQ>(dst + BQ * LD, dout + qoff, q0, tq);
-    float* st = sst + stage * 2 * BQ;
-    for (int i = threadIdx.x; i < 2 * BQ; i += kMmaThreads) {
+    float* st = sst + stage * NS * BQ;
+    for (int i = threadIdx.x; i < NS * BQ; i += kMmaThreads) {
       const int r = i % BQ, qi = q0 + r;
       const bool ok = qi < tq;
-      const float* src = i < BQ ? lse : dsum;
+      const float* src = i < BQ ? lse : i < 2 * BQ ? dsum : blk.tcoef;
       cp_async4(st + i, src + (ok ? (int64_t)bh * tq + qi : 0), ok);
     }
   };
@@ -1035,8 +1346,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     __syncthreads();
     const bf16* sq = sqd + (it & 1) * 2 * BQ * LD;
     const bf16* sdo = sq + BQ * LD;
-    const float* slse = sst + (it & 1) * 2 * BQ;
+    const float* slse = sst + (it & 1) * NS * BQ;
     const float* sds = slse + BQ;
+    const float* stc = sds + BQ;  // MODE 1
 
     float s[NQ][4], dp[NQ][4];
 #pragma unroll
@@ -1062,7 +1374,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // Rows are keys, columns queries; rows past tk and columns past tq are
     // zero-filled and masked where the tile crosses them.
-    const bool edge = q0 + BQ > tq || warp_key0 + 16 > tk || (causal && q0 < warp_key0 + 15);
+    const bool edge =
+        q0 + BQ > tq || warp_key0 + 16 > tk || (causal && q0 < warp_key0 + 15 + delta);
+    uint32_t ties[2] = {0u, 0u};  // MODE 1
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -1070,11 +1384,20 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kj = warp_key0 + g + 8 * h, r = j * 8 + 2 * c + e, qi = q0 + r;
-          const bool ok = !edge || (qi < tq && kj < tk && (!causal || qi >= kj));
-          const float p =
-              ok ? exp2f(fmaf(s[j][2 * h + e], sl2, -slse[r] * kLog2e)) : 0.f;
-          s[j][2 * h + e] = p;                                         // P^T
-          dp[j][2 * h + e] = p * (dp[j][2 * h + e] - sds[r]) * scale;  // dS^T
+          const bool ok = !edge || (qi < tq && kj < tk && (!causal || qi >= kj + delta));
+          if constexpr (MODE == 0) {
+            const float p =
+                ok ? exp2f(fmaf(s[j][2 * h + e], sl2, -slse[r] * kLog2e)) : 0.f;
+            s[j][2 * h + e] = p;                                         // P^T
+            dp[j][2 * h + e] = p * (dp[j][2 * h + e] - sds[r]) * scale;  // dS^T
+          } else {
+            // The tie term goes to dK in f32 below, as in the dQ kernel.
+            const float sc = __fmul_rn(s[j][2 * h + e], scale);
+            const float p = ok ? exp2f((sc - slse[r]) * kLog2e) : 0.f;
+            s[j][2 * h + e] = p;                                         // P^T
+            dp[j][2 * h + e] = p * (dp[j][2 * h + e] - sds[r]) * scale;  // dS^T
+            if (ok && sc == slse[r]) ties[h] |= 1u << (2 * j + e);
+          }
         }
 
 #pragma unroll
@@ -1093,6 +1416,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         mma16816(acc_k[2 * dn + 1], da, b[2], b[3]);
       }
     }
+    if constexpr (MODE == 1)
+      add_ties<ND, LD>(acc_k, ties, sq, lane, [&](int, int col) { return stc[col] * scale; });
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -1111,18 +1436,49 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
-template <int D>
-cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
-                           int bh, int tq, int tk, float scale, int causal, cudaStream_t stream) {
+template <int D, int MODE>
+cudaError_t launch_fwd_mma_mode(const void* q, const void* k, const void* v, void* o, void* lse,
+                                void* l, int bh, int tq, int tk, float scale, int causal,
+                                int delta, cudaStream_t stream) {
   constexpr int MW = Tiles<D>::fwd_mw, BK = Tiles<D>::fwd_bk, BQ = 16 * kWarps * MW;
-  auto kernel = flash_fwd_mma_kernel<D, MW, BK>;
+  auto kernel = flash_fwd_mma_kernel<D, MW, BK, MODE>;
   const size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + 8);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(tiles(tq, BQ), bh), kMmaThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, tq, tk, scale,
-      causal);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, (float*)lse, (float*)l, tq, tk, scale,
+      causal, delta);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int bh, int tq, int tk, float scale, int causal, cudaStream_t stream) {
+  return launch_fwd_mma_mode<D, 0>(q, k, v, o, lse, nullptr, bh, tq, tk, scale, causal, 0, stream);
+}
+
+template <int D>
+cudaError_t launch_block_fwd_mma(const void* q, const void* k, const void* v, void* o, void* m,
+                                 void* l, int bh, int tq, int tk, float scale, int causal,
+                                 int delta, cudaStream_t stream) {
+  return launch_fwd_mma_mode<D, 1>(q, k, v, o, m, l, bh, tq, tk, scale, causal, delta, stream);
+}
+
+template <int D, int MODE>
+cudaError_t launch_bwd_dq_mma_mode(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* dq, void* dsum,
+                                   int bh, int tq, int tk, float scale, int causal,
+                                   const BlockBwd& blk, cudaStream_t stream) {
+  constexpr int BK = Tiles<D>::dq_bk, BQ = 16 * kWarps;
+  auto kernel = flash_bwd_dq_mma_kernel<D, BK, MODE>;
+  const size_t smem = sizeof(bf16) * (2 * BQ + 4 * BK) * (D + 8);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(tq, BQ), bh), kMmaThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (bf16*)dq, (float*)dsum, tq, tk, scale, causal, blk);
   return cudaGetLastError();
 }
 
@@ -1130,15 +1486,25 @@ template <int D>
 cudaError_t launch_bwd_dq_mma(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dq, void* dsum, int bh,
                               int tq, int tk, float scale, int causal, cudaStream_t stream) {
-  constexpr int BK = Tiles<D>::dq_bk, BQ = 16 * kWarps;
-  auto kernel = flash_bwd_dq_mma_kernel<D, BK>;
-  const size_t smem = sizeof(bf16) * (2 * BQ + 4 * BK) * (D + 8);
+  return launch_bwd_dq_mma_mode<D, 0>(q, k, v, o, dout, lse, dq, dsum, bh, tq, tk, scale, causal,
+                                      BlockBwd{}, stream);
+}
+
+template <int D, int MODE>
+cudaError_t launch_bwd_dkdv_mma_mode(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* dsum,
+                                     void* dk, void* dv, int bh, int tq, int tk, float scale,
+                                     int causal, const BlockBwd& blk, cudaStream_t stream) {
+  constexpr int BQ = Tiles<D>::dkdv_bq, BKV = 16 * kWarps;
+  auto kernel = flash_bwd_dkdv_mma_kernel<D, BQ, MODE>;
+  const size_t smem =
+      sizeof(bf16) * (2 * BKV + 4 * BQ) * (D + 8) + sizeof(float) * 2 * (MODE ? 3 : 2) * BQ;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(tq, BQ), bh), kMmaThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
-      (const float*)lse, (bf16*)dq, (float*)dsum, tq, tk, scale, causal);
+  kernel<<<dim3(tiles(tk, BKV), bh), kMmaThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)dsum, (bf16*)dk, (bf16*)dv, tq, tk, scale, causal, blk);
   return cudaGetLastError();
 }
 
@@ -1146,16 +1512,8 @@ template <int D>
 cudaError_t launch_bwd_dkdv_mma(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* dsum, void* dk, void* dv, int bh,
                                 int tq, int tk, float scale, int causal, cudaStream_t stream) {
-  constexpr int BQ = Tiles<D>::dkdv_bq, BKV = 16 * kWarps;
-  auto kernel = flash_bwd_dkdv_mma_kernel<D, BQ>;
-  const size_t smem = sizeof(bf16) * (2 * BKV + 4 * BQ) * (D + 8) + sizeof(float) * 4 * BQ;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(tk, BKV), bh), kMmaThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)dsum, (bf16*)dk, (bf16*)dv, tq, tk, scale, causal);
-  return cudaGetLastError();
+  return launch_bwd_dkdv_mma_mode<D, 0>(q, k, v, dout, lse, dsum, dk, dv, bh, tq, tk, scale,
+                                        causal, BlockBwd{}, stream);
 }
 
 constexpr size_t fwd_smem(int d) {
@@ -1164,9 +1522,9 @@ constexpr size_t fwd_smem(int d) {
 constexpr size_t dq_smem(int d) {
   return sizeof(float) * ((2 * kBlockQ + 2 * kBlockK) * (d + 1) + kBlockQ * (kBlockK + 1));
 }
-constexpr size_t dkdv_smem(int d) {
-  return sizeof(float) *
-         ((2 * kBlockQ + 2 * kBlockK) * (d + 1) + 2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ);
+constexpr size_t dkdv_smem(int d, int mode) {
+  return sizeof(float) * ((2 * kBlockQ + 2 * kBlockK) * (d + 1) + 2 * kBlockK * (kBlockQ + 1) +
+                          (mode ? 3 : 2) * kBlockQ);
 }
 
 template <typename T, int D>
@@ -1197,18 +1555,43 @@ cudaError_t launch_block_fwd(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                          const void* dout, const void* lse, void* dq, void* dsum, int bh, int tq,
-                          int tk, float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+template <typename T, int D, int MODE>
+cudaError_t launch_bwd_dq_mode(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const void* lse, void* dq, void* dsum, int bh,
+                               int tq, int tk, float scale, int causal, const BlockBwd& blk,
+                               cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<T, D, MODE>;
   const size_t smem = dq_smem(D);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(tiles(tq, kBlockQ), bh), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, (const float*)lse,
-      (T*)dq, (float*)dsum, tq, tk, scale, causal);
+      (T*)dq, (float*)dsum, tq, tk, scale, causal, blk);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const void* lse, void* dq, void* dsum, int bh, int tq,
+                          int tk, float scale, int causal, cudaStream_t stream) {
+  return launch_bwd_dq_mode<T, D, 0>(q, k, v, o, dout, lse, dq, dsum, bh, tq, tk, scale, causal,
+                                     BlockBwd{}, stream);
+}
+
+template <typename T, int D, int MODE>
+cudaError_t launch_bwd_dkdv_mode(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* dsum, void* dk, void* dv, int bh,
+                                 int tq, int tk, float scale, int causal, const BlockBwd& blk,
+                                 cudaStream_t stream) {
+  auto kernel = flash_bwd_dkdv_kernel<T, D, MODE>;
+  const size_t smem = dkdv_smem(D, MODE);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(tk, kBlockK), bh), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (const float*)dsum, (T*)dk, (T*)dv, tq, tk, scale, causal, blk);
   return cudaGetLastError();
 }
 
@@ -1216,15 +1599,45 @@ template <typename T, int D>
 cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* dsum, void* dk, void* dv, int bh, int tq,
                             int tk, float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkdv_kernel<T, D>;
-  const size_t smem = dkdv_smem(D);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(tk, kBlockK), bh), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)dsum, (T*)dk, (T*)dv, tq, tk, scale, causal);
-  return cudaGetLastError();
+  return launch_bwd_dkdv_mode<T, D, 0>(q, k, v, dout, lse, dsum, dk, dv, bh, tq, tk, scale,
+                                       causal, BlockBwd{}, stream);
+}
+
+// The ring block's backward: MODE 1 of the kernels above, f32 on the CUDA
+// cores and bf16 on the tensor cores. The dQ kernel reads dout (the copy in
+// the input dtype) for its products and blk's f32 O and dO for D; it writes
+// m into blk.m and -dl into dsum; the dK/dV kernel reads m as its lse.
+template <typename T, int D>
+cudaError_t launch_block_bwd_dq(const void* q, const void* k, const void* v, const void* o32,
+                                const void* dout, const BlockBwd& blk, void* dq, void* dsum,
+                                int bh, int tq, int tk, float scale, int causal,
+                                cudaStream_t stream) {
+  return launch_bwd_dq_mode<T, D, 1>(q, k, v, o32, dout, nullptr, dq, dsum, bh, tq, tk, scale,
+                                     causal, blk, stream);
+}
+template <int D>
+cudaError_t launch_block_bwd_dq_mma(const void* q, const void* k, const void* v, const void*,
+                                    const void* dout, const BlockBwd& blk, void* dq, void* dsum,
+                                    int bh, int tq, int tk, float scale, int causal,
+                                    cudaStream_t stream) {
+  return launch_bwd_dq_mma_mode<D, 1>(q, k, v, nullptr, dout, nullptr, dq, dsum, bh, tq, tk,
+                                      scale, causal, blk, stream);
+}
+template <typename T, int D>
+cudaError_t launch_block_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                                  const BlockBwd& blk, const void* dsum, void* dk, void* dv,
+                                  int bh, int tq, int tk, float scale, int causal,
+                                  cudaStream_t stream) {
+  return launch_bwd_dkdv_mode<T, D, 1>(q, k, v, dout, blk.m, dsum, dk, dv, bh, tq, tk, scale,
+                                       causal, blk, stream);
+}
+template <int D>
+cudaError_t launch_block_bwd_dkdv_mma(const void* q, const void* k, const void* v,
+                                      const void* dout, const BlockBwd& blk, const void* dsum,
+                                      void* dk, void* dv, int bh, int tq, int tk, float scale,
+                                      int causal, cudaStream_t stream) {
+  return launch_bwd_dkdv_mma_mode<D, 1>(q, k, v, dout, blk.m, dsum, dk, dv, bh, tq, tk, scale,
+                                        causal, blk, stream);
 }
 
 // Instantiate F<T, D> for the supported (dtype, head dim) pairs.
@@ -1242,8 +1655,8 @@ cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const v
     return (int)cudaErrorInvalidValue;                         \
   } while (0)
 
-// B1's entries: f32 to the CUDA-core kernel F32<float, D>, bf16 to the
-// tensor-core kernel BF16<D>; nothing else is taken.
+// B1's entries and the block backward's: f32 to the CUDA-core kernel
+// F32<float, D>, bf16 to the tensor-core kernel BF16<D>; nothing else is taken.
 #define HVT_B1_DISPATCH(dtype, d, F32, BF16, ...)                 \
   do {                                                            \
     if ((dtype) == 0) {                                           \
@@ -1278,11 +1691,48 @@ int hvt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
                   causal, (cudaStream_t)stream);
 }
 
+// The ring block's forward: f32 on the CUDA cores, bf16 on the tensor cores;
+// legacy != 0 sends bf16 to the CUDA-core kernel instead (kept to be timed
+// beside the tensor-core one, never on the path).
 int hvt_flash_block_fwd(const void* q, const void* k, const void* v, void* o, void* m, void* l,
                         int bh, int tq, int tk, int d, int dtype, float scale, int causal,
-                        int delta, void* stream) {
+                        int delta, int legacy, void* stream) {
+  if (dtype == 1 && !legacy) {
+    if (d == 32) return (int)launch_block_fwd_mma<32>(q, k, v, o, m, l, bh, tq, tk, scale, causal,
+                                                      delta, (cudaStream_t)stream);
+    if (d == 64) return (int)launch_block_fwd_mma<64>(q, k, v, o, m, l, bh, tq, tk, scale, causal,
+                                                      delta, (cudaStream_t)stream);
+    if (d == 128) return (int)launch_block_fwd_mma<128>(q, k, v, o, m, l, bh, tq, tk, scale,
+                                                        causal, delta, (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+  }
   HVT_DISPATCH(dtype, d, launch_block_fwd, q, k, v, o, m, l, bh, tq, tk, scale, causal, delta,
                (cudaStream_t)stream);
+}
+
+// The ring block's backward, dQ then dK/dV on one stream. q, k, v and dout
+// (the cotangent of O in the input dtype) [BH, T, D]; o32 and do32 the f32 O
+// and dO; l, dm, dl f32 [BH, Tq]. The dQ kernel writes dq, m, dsum (= -dl)
+// and tcoef, which the dK/dV kernel reads.
+int hvt_flash_block_bwd_dq(const void* q, const void* k, const void* v, const void* o32,
+                           const void* dout, const void* do32, const void* l, const void* dm,
+                           const void* dl, void* dq, void* m, void* dsum, void* tcoef, int bh,
+                           int tq, int tk, int d, int dtype, float scale, int causal, int delta,
+                           void* stream) {
+  const BlockBwd blk{(const float*)o32, (const float*)do32, (const float*)l, (const float*)dm,
+                     (const float*)dl,  (float*)m,          (float*)tcoef,   delta};
+  HVT_B1_DISPATCH(dtype, d, launch_block_bwd_dq, launch_block_bwd_dq_mma, q, k, v, o32, dout, blk,
+                  dq, dsum, bh, tq, tk, scale, causal, (cudaStream_t)stream);
+}
+
+int hvt_flash_block_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                             const void* m, const void* dsum, const void* tcoef, void* dk,
+                             void* dv, int bh, int tq, int tk, int d, int dtype, float scale,
+                             int causal, int delta, void* stream) {
+  const BlockBwd blk{nullptr, nullptr, nullptr, nullptr, nullptr,
+                     (float*)m, (float*)tcoef, delta};
+  HVT_B1_DISPATCH(dtype, d, launch_block_bwd_dkdv, launch_block_bwd_dkdv_mma, q, k, v, dout, blk,
+                  dsum, dk, dv, bh, tq, tk, scale, causal, (cudaStream_t)stream);
 }
 
 int hvt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,

@@ -21,11 +21,12 @@ the dK/dV kernel once. A batch x heads axis longer than a grid holds
 (65535) launches in pieces, each counted.
 
 The ring-attention block (``flash_attention_block``, the reference's
-``normalize=False`` mode of the same TPU kernel) has its own kernel,
-counted by ``BLOCK_LAUNCHES``, and its plain version
-``_flash_block_plain``. Its backward is a dense recompute
-(``_dense_block``) differentiated by autograd, as the reference's is a
-dense XLA recompute.
+``normalize=False`` mode of the same TPU kernel) runs the forward in its
+block mode, counted by ``BLOCK_LAUNCHES``, with the plain version
+``_flash_block_plain``. Its backward, the VJP of the reference's dense
+recompute (``_dense_block``) through all three cotangents, runs the two
+backward kernels in their block mode, counted by ``BLOCK_BWD_LAUNCHES``,
+with the plain version ``_flash_block_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BLOCK_LAUNCHES = 0
+BLOCK_BWD_LAUNCHES = 0
 
 
 def _pick_block(t: int, pref: int) -> int:
@@ -163,11 +165,12 @@ def _flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, block_k: int = 128,
 
 
 def _flash_block_plain(q, k, v, delta: int, causal: bool, sm_scale: float,
-                       block_k: int = 128):
+                       block_k: int = 128, p_dtype=None):
     """``_fwd_kernel`` with ``normalize=False``, the ring-attention block:
     the f32 triple (unnormalised O, m, l) with the causal mask shifted by
-    ``delta``. A row that sees no key keeps m = -1e30, l = 0, O = 0."""
-    acc, m, l = _online_softmax_plain(q, k, v, causal, sm_scale, delta, block_k)
+    ``delta``. A row that sees no key keeps m = -1e30, l = 0, O = 0.
+    ``p_dtype``: see ``_online_softmax_plain``."""
+    acc, m, l = _online_softmax_plain(q, k, v, causal, sm_scale, delta, block_k, p_dtype)
     return acc, m[..., 0], l[..., 0]
 
 
@@ -190,19 +193,20 @@ def _dense_block(q, k, v, delta: int, sm_scale: float, causal: bool):
     return p @ vf, m, p.sum(dim=-1)
 
 
-def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
-                     block_k: int = 128, p_dtype=None):
-    """``_flash_vjp_bwd``: recompute P per K block from lse, with
-    D = rowsum(dO * O) and dS = P (dP - D) * scale. With ``p_dtype``
-    (``torch.bfloat16``) P and dS are rounded to it before the products
-    that take them (dV = P^T dO, dQ = dS K, dK = dS^T Q), as the bf16
-    kernels round them; dS is formed from the unrounded P."""
-    t_q = q.shape[1]
-    t_k = k.shape[1]
-    bk = _pick_block(t_k, block_k)
+def _bwd_sweep_plain(q, k, v, do, shift, dsum, causal: bool, sm_scale: float, delta: int,
+                     bk: int, p_dtype=None, tie_coef=None):
+    """The K-block loop of the two backward kernels, one block of ``bk``
+    keys at a time (the last one ragged): P = exp(s - shift) under the
+    causal mask shifted by ``delta``, dS = P (dO V^T - Dsum) scale, dQ = dS K,
+    dK = dS^T Q, dV = P^T dO. With ``tie_coef`` (the ring block), dS gains
+    ``tie_coef`` scale where a visible score equals ``shift``. With
+    ``p_dtype`` P, dS and dO are rounded to it before the products that take
+    them, as the bf16 kernels round them; dS is formed from the unrounded P,
+    and its tie term, which carries a row's whole dm - D, is added after the
+    rounding, as the kernels add it in f32."""
+    t_q, t_k = q.shape[1], k.shape[1]
     qf = q.float()
-    dof = do.float()
-    dsum = (dof * o.float()).sum(dim=-1)
+    dor = _rounded(do.float(), p_dtype)
     q_pos = torch.arange(t_q, device=q.device)[:, None]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dks, dvs = [], []
@@ -211,19 +215,80 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
         vb = v[:, k0:k0 + bk].float()
         s = qf @ kb.transpose(1, 2) * sm_scale
         if causal:
-            mask = q_pos >= torch.arange(k0, k0 + bk, device=q.device)[None, :]
+            mask = q_pos >= torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :] + delta
             s = torch.where(mask, s, _NEG_INF)
-        p = torch.exp(s - lse[:, :, None])
+        p = torch.exp(s - shift[:, :, None])
         if causal:
             p = torch.where(mask, p, 0.0)
-        dp = dof @ vb.transpose(1, 2)
+        dp = dor @ vb.transpose(1, 2)
         ds = p * (dp - dsum[:, :, None]) * sm_scale
         ds_r = _rounded(ds, p_dtype)
+        if tie_coef is not None:
+            tie = s == shift[:, :, None]
+            if causal:
+                tie = tie & mask
+            ds_r = ds_r + torch.where(tie, (tie_coef * sm_scale)[:, :, None], 0.0)
         dq = dq + ds_r @ kb
         dks.append(ds_r.transpose(1, 2) @ qf)
-        dvs.append(_rounded(p, p_dtype).transpose(1, 2) @ dof)
+        dvs.append(_rounded(p, p_dtype).transpose(1, 2) @ dor)
     return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
             torch.cat(dvs, dim=1).to(v.dtype))
+
+
+def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
+                     block_k: int = 128, p_dtype=None):
+    """``_flash_vjp_bwd``: recompute P per K block from lse, with
+    D = rowsum(dO * O) and dS = P (dP - D) * scale. With ``p_dtype``
+    (``torch.bfloat16``) P and dS are rounded to it before the products
+    that take them (dV = P^T dO, dQ = dS K, dK = dS^T Q), as the bf16
+    kernels round them; dS is formed from the unrounded P."""
+    dsum = (do.float() * o.float()).sum(dim=-1)
+    return _bwd_sweep_plain(q, k, v, do, lse, dsum, causal, sm_scale, 0,
+                            _pick_block(k.shape[1], block_k), p_dtype)
+
+
+def _block_row_max(q, k, delta: int, causal: bool, sm_scale: float, bk: int):
+    """The first sweep of the block backward: each row's max m over its
+    visible scores (at least -1e30) and the count c of visible scores equal
+    to it, one K block at a time."""
+    bh, t_q = q.shape[:2]
+    qf = q.float()
+    q_pos = torch.arange(t_q, device=q.device)[:, None]
+    m = torch.full((bh, t_q), _NEG_INF, dtype=torch.float32, device=q.device)
+    c = torch.zeros(bh, t_q, dtype=torch.float32, device=q.device)
+    for k0 in range(0, k.shape[1], bk):
+        s = qf @ k[:, k0:k0 + bk].float().transpose(1, 2) * sm_scale
+        mask = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            mask = q_pos >= torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :] + delta
+            s = torch.where(mask, s, _NEG_INF)
+        bm = s.amax(dim=-1)
+        bc = ((s == bm[..., None]) & mask).sum(dim=-1).float()
+        c = torch.where(bm > m, bc, torch.where(bm == m, c + bc, c))
+        m = torch.maximum(m, bm)
+    return m, c
+
+
+def _flash_block_bwd_plain(q, k, v, o, l, do, dm, dl, delta: int, causal: bool,
+                           sm_scale: float, block_k: int = 128, p_dtype=None):
+    """The VJP of the ring block's (O, m, l) (``_dense_block``'s, which the
+    reference's ``_flash_block_vjp_bwd`` takes) against the cotangents
+    (dO, dm, dl), one K block of ``block_k`` keys at a time. Per row i over
+    its visible keys j, with m and the tie count c from a first sweep of
+    the scores (``_block_row_max``) and P = exp(s - m):
+
+        dS_ij = P_ij (dO_i . v_j + dl_i) + [s_ij == m_i] (dm_i - D_i) / c_i,
+        D_i = dO_i . O_i + dl_i l_i,
+
+    dQ = dS K scale, dK = dS^T Q scale, dV = P^T dO: B1's backward with lse
+    -> m, Dsum -> -dl, the mask shifted by ``delta`` and the tie term (amax
+    shares its gradient evenly among ties). D takes the forward's f32 O and
+    l. ``p_dtype`` rounds P, dS and dO as the bf16 kernels do."""
+    m, c = _block_row_max(q, k, delta, causal, sm_scale, block_k)
+    d_row = (do.float() * o.float()).sum(dim=-1) + dl * l
+    tie_coef = torch.where(c > 0, (dm - d_row) / torch.clamp(c, min=1.0), 0.0)
+    return _bwd_sweep_plain(q, k, v, do, m, -dl, causal, sm_scale, delta, block_k, p_dtype,
+                            tie_coef)
 
 
 # --------------------------------------------------------------------------
@@ -244,12 +309,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     package's own, or a variant built with other tile sizes)."""
     if not getattr(lib, "_hvt_bound", False):
         lib.hvt_flash_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_F, _I, _P]
-        lib.hvt_flash_block_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]
+        lib.hvt_flash_block_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _I, _I, _P]
         lib.hvt_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
         lib.hvt_flash_bwd_dkdv.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
+        lib.hvt_flash_block_bwd_dq.argtypes = [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P]
+        lib.hvt_flash_block_bwd_dkdv.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]
         lib.hvt_flash_tiles.argtypes = [_I, ctypes.POINTER(_I)]
         for fn in (lib.hvt_flash_fwd, lib.hvt_flash_block_fwd, lib.hvt_flash_bwd_dq,
-                   lib.hvt_flash_bwd_dkdv, lib.hvt_flash_tiles):
+                   lib.hvt_flash_bwd_dkdv, lib.hvt_flash_block_bwd_dq,
+                   lib.hvt_flash_block_bwd_dkdv, lib.hvt_flash_tiles):
             fn.restype = ctypes.c_int
         lib._hvt_bound = True
     return lib
@@ -300,14 +368,17 @@ def _check_cuda(q, k, v, *like_q: torch.Tensor) -> Tuple[int, int, int, int]:
     return bh, t_q, t_k, d
 
 
-def _check_rows(q: torch.Tensor, *stats: torch.Tensor) -> None:
-    """lse and Dsum: contiguous f32 [BH, T_q] beside q."""
+def _check_rows(q: torch.Tensor, *stats: torch.Tensor, shape=None) -> None:
+    """lse and Dsum (and the ring block's l, dm, dl): contiguous f32
+    [BH, T_q] beside q; with ``shape``, f32 tensors of that shape (the ring
+    block's O and dO)."""
+    shape = q.shape[:2] if shape is None else shape
     for t in stats:
         if (t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != q.device or t.shape != q.shape[:2]):
+                or t.device != q.device or t.shape != shape):
             raise ValueError(
-                f"row statistics must be contiguous float32 {tuple(q.shape[:2])} "
-                f"tensors on {q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"expected contiguous float32 {tuple(shape)} tensors on {q.device}; "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
 
 
@@ -342,9 +413,11 @@ def _launch_fwd(q, k, v, causal: bool, sm_scale: float):
     return o, lse
 
 
-def _launch_block_fwd(q, k, v, delta: int, causal: bool, sm_scale: float):
+def _launch_block_fwd(q, k, v, delta: int, causal: bool, sm_scale: float,
+                      legacy: bool = False):
     """The ring block kernel: (O f32, m, l) with the causal mask shifted by
-    ``delta``."""
+    ``delta``. bf16 runs on the tensor cores; ``legacy=True`` times the
+    CUDA-core kernel instead (chip_smoke's A/B; never on the path)."""
     global BLOCK_LAUNCHES
     bh, t_q, t_k, d = _check_cuda(q, k, v)
     o = torch.empty(bh, t_q, d, dtype=torch.float32, device=q.device)
@@ -353,10 +426,61 @@ def _launch_block_fwd(q, k, v, delta: int, causal: bool, sm_scale: float):
     for s, n in _bh_pieces(bh):
         _run("hvt_flash_block_fwd", q.device,
              q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), o[s].data_ptr(),
-             m[s].data_ptr(), l[s].data_ptr(),
-             n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale, int(causal), int(delta))
+             m[s].data_ptr(), l[s].data_ptr(), n, t_q, t_k, d, _DTYPE_CODES[q.dtype],
+             sm_scale, int(causal), int(delta), int(legacy))
         BLOCK_LAUNCHES += 1
     return o, m, l
+
+
+def _launch_block_bwd_dq(q, k, v, o, l, do, dm, dl, delta: int, causal: bool,
+                         sm_scale: float):
+    """The block backward's dQ kernel (with its stats sweep). o and do are
+    the f32 O and its cotangent, l, dm and dl f32 rows. Returns dq and the
+    row terms the dK/dV kernel reads: m, Dsum (= -dl) and the tie
+    coefficient (dm - D) / c. The tensor cores take dO as a bf16 copy."""
+    bh, t_q, t_k, d = _check_cuda(q, k, v)
+    _check_rows(q, o, do, shape=q.shape)
+    _check_rows(q, l, dm, dl)
+    do_k = do if q.dtype == torch.float32 else do.to(q.dtype)
+    dq = torch.empty_like(q)
+    m, dsum, tcoef = (torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
+                      for _ in range(3))
+    for s, n in _bh_pieces(bh):
+        _run("hvt_flash_block_bwd_dq", q.device,
+             q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), o[s].data_ptr(),
+             do_k[s].data_ptr(), do[s].data_ptr(), l[s].data_ptr(), dm[s].data_ptr(),
+             dl[s].data_ptr(), dq[s].data_ptr(), m[s].data_ptr(), dsum[s].data_ptr(),
+             tcoef[s].data_ptr(), n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale,
+             int(causal), int(delta))
+    return dq, do_k, (m, dsum, tcoef)
+
+
+def _launch_block_bwd_dkdv(q, k, v, do_k, rows, delta: int, causal: bool, sm_scale: float):
+    """The block backward's dK/dV kernel, after the dQ kernel: ``do_k`` is
+    dO in the input dtype, ``rows`` the dQ kernel's (m, Dsum, tie coef)."""
+    bh, t_q, t_k, d = _check_cuda(q, k, v, do_k)
+    _check_rows(q, *rows)
+    m, dsum, tcoef = rows
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for s, n in _bh_pieces(bh):
+        _run("hvt_flash_block_bwd_dkdv", q.device,
+             q[s].data_ptr(), k[s].data_ptr(), v[s].data_ptr(), do_k[s].data_ptr(),
+             m[s].data_ptr(), dsum[s].data_ptr(), tcoef[s].data_ptr(), dk[s].data_ptr(),
+             dv[s].data_ptr(), n, t_q, t_k, d, _DTYPE_CODES[q.dtype], sm_scale,
+             int(causal), int(delta))
+    return dk, dv
+
+
+def _launch_block_bwd(q, k, v, o, l, do, dm, dl, delta: int, causal: bool, sm_scale: float):
+    """The ring block's backward on the card: the dQ kernel, then the dK/dV
+    kernel, one pair a batch x heads piece, counted by
+    ``BLOCK_BWD_LAUNCHES``."""
+    global BLOCK_BWD_LAUNCHES
+    dq, do_k, rows = _launch_block_bwd_dq(q, k, v, o, l, do, dm, dl, delta, causal, sm_scale)
+    dk, dv = _launch_block_bwd_dkdv(q, k, v, do_k, rows, delta, causal, sm_scale)
+    BLOCK_BWD_LAUNCHES += len(_bh_pieces(q.shape[0]))
+    return dq, dk, dv
 
 
 def _launch_bwd_dq(q, k, v, o, lse, do, causal: bool, sm_scale: float):
@@ -489,25 +613,35 @@ def flash_attention_bthd(
     return out.reshape(B, H, T, D).transpose(1, 2)
 
 
+def _flash_block_bwd(q, k, v, o, l, do, dm, dl, delta, causal, sm_scale):
+    if _on_cpu(q):
+        return _flash_block_bwd_plain(q, k, v, o, l, do, dm, dl, delta, causal, sm_scale)
+    return _launch_block_bwd(q, k, v, o, l, do, dm, dl, delta, causal, sm_scale)
+
+
 class _FlashBlock(torch.autograd.Function):
     """The counterpart of the reference's ``_flash_block`` custom VJP: the
-    forward runs the block kernel; the backward recomputes (O, m, l) densely
-    from q, k, v and differentiates against all three cotangents."""
+    forward runs the block kernel and keeps its f32 O and l; the backward
+    runs the block backward kernels (on the CPU their plain version), the
+    VJP of the reference's dense recompute through all three cotangents."""
 
     @staticmethod
     def forward(ctx, q, k, v, delta: int, causal: bool, sm_scale: float):
-        ctx.save_for_backward(q, k, v)
-        ctx.delta, ctx.causal, ctx.sm_scale = delta, causal, sm_scale
         if _on_cpu(q):
-            return _flash_block_plain(q, k, v, delta, causal, sm_scale)
-        return _launch_block_fwd(q, k, v, delta, causal, sm_scale)
+            o, m, l = _flash_block_plain(q, k, v, delta, causal, sm_scale)
+        else:
+            o, m, l = _launch_block_fwd(q, k, v, delta, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, l)
+        ctx.delta, ctx.causal, ctx.sm_scale = delta, causal, sm_scale
+        return o, m, l
 
     @staticmethod
     def backward(ctx, do, dm, dl):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad(), torch.profiler.record_function("flash_block_backward"):
-            out = _dense_block(q, k, v, ctx.delta, ctx.sm_scale, ctx.causal)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), (do, dm, dl))
+        q, k, v, o, l = ctx.saved_tensors
+        with torch.profiler.record_function("flash_block_backward"):
+            dq, dk, dv = _flash_block_bwd(
+                q, k, v, o, l, do.contiguous(), dm.contiguous(), dl.contiguous(),
+                ctx.delta, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 

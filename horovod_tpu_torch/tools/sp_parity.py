@@ -61,9 +61,10 @@ def _worker(device, seq: int) -> None:
         step = make_sp_train_step(
             lambda m, tok, lab, pos: lm_loss(m(tok, positions=pos), lab),
             torch.optim.SGD(model.parameters(), lr=LR), mesh)
-        fa.BLOCK_LAUNCHES = 0
+        fa.BLOCK_LAUNCHES = fa.BLOCK_BWD_LAUNCHES = 0
         losses = [float(step(model, tokens, labels)) for _ in range(STEPS)]
         launches = fa.BLOCK_LAUNCHES
+        bwd_launches = fa.BLOCK_BWD_LAUNCHES
 
         flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
         gathered = hvd.allgather(flat[None])
@@ -95,6 +96,7 @@ def _worker(device, seq: int) -> None:
             "max_loss_rel_err": loss_rel, "max_param_abs_err": float(diff.max()),
             "params_beyond_tolerance": int((excess > 0).sum()),
             "ranks_identical": same, "block_launches_rank0": launches,
+            "block_bwd_launches_rank0": bwd_launches,
         }
         print(json.dumps(result), flush=True)
         if not (same and loss_rel <= LOSS_RTOL and result["params_beyond_tolerance"] == 0):

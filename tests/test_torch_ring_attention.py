@@ -70,7 +70,8 @@ def test_block_matches_pallas(causal, delta_of_t):
 @pytest.mark.parametrize("delta", [-16, 0, 8])
 def test_block_grads_match_jax(causal, delta):
     """Mirrors test_block_grad_flows, through all three cotangents: the
-    dense-recompute backward against ``jax.grad`` of the Pallas block."""
+    block backward's plain version (``_flash_block_bwd_plain``, one K block
+    at a time) against ``jax.grad`` of the Pallas block."""
     q, k, v, wo = _qkv_bhtd(t=16, d=8, seed=1, n=4)
     rng = np.random.RandomState(2)
     wm, wl = rng.randn(2, 16).astype(np.float32), rng.randn(2, 16).astype(np.float32)
