@@ -97,6 +97,24 @@ Phases, each printed as it ends:
    are no-ops and the fused path is not taken, as in the reference; the
    fused path runs across cards in ``tools/tp_parity.py``.)
 
+11. ``[cnn]``: the image-classification path, which reaches no TPU kernel
+   (cuDNN convolutions and BatchNorm, cuBLAS for the head): a narrow f32
+   ResNet (8 filters, 32 px) on the card against the CPU with TF32 off
+   (logits, loss, gradients and the new running statistics at 1e-3 /
+   1e-4); ResNet-50 at bench.py's default (batch 32 x 224², 1000 classes),
+   then at batch 256, each through ``init()`` over NCCL, ``broadcast_parameters``,
+   ``DistributedOptimizer(SGD 0.01, momentum 0.9)`` and 5 steps of
+   ``make_train_step`` on one seeded batch: the loss finite and falling,
+   every running statistic moved; img/s (median of steps 2-5), MFU (the
+   flop counter over one more step, against the dense bf16 peak) and one
+   profiled step's busy share by kernel family (conv, bn, elementwise,
+   optimizer, gemm, nccl); then VGG-16, Inception-v3 (299 px), ResNet-18 and
+   MnistCNN, 3 steps each at batch 8: finite, falling loss;
+12. ``[bench]``: ``python -m horovod_tpu_torch.bench`` for resnet50 and
+   transformer (at ``[slice]``'s batch of 8) at reduced iterations, each in
+   its own process: one JSON line with bench.py's metric name, a positive
+   value and 0 < mfu <= 1; the transformer's tokens/s beside ``[slice]``'s.
+
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -965,7 +983,7 @@ def phase_train():
               f"{launches}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         profile_step(lambda: float(step(model, (tokens, labels))))
-        return launches
+        return launches, BATCH * SEQ / med
     finally:
         hvd.shutdown()
 
@@ -1417,12 +1435,207 @@ def phase_tp_train():
         hvd.shutdown()
 
 
-def profile_step(run_step, span=None) -> None:
-    """One more step under torch.profiler: device time by kernel family and
+CNN_SIDE, CNN_CLASSES = 224, 1000    # bench.py's ResNet-50 default, at its batch 32
+CNN_BATCHES = (32, 256)
+ZOO = [("vgg16", 224), ("inception3", 299), ("resnet18", 224), ("mnist", 28)]
+ZOO_BATCH, ZOO_STEPS = 8, 3
+
+
+def _cnn_step(model, hvd):
+    """bench.py's CNN step: SGD 0.01 with momentum 0.9 through
+    DistributedOptimizer, mean softmax cross-entropy."""
+    import torch
+    import torch.nn.functional as F
+
+    hvd.broadcast_parameters(model.state_dict())
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                                   named_parameters=model.named_parameters())
+    return hvd.make_train_step(lambda m, b: F.cross_entropy(m(b[0]), b[1]), opt)
+
+
+def _cnn_batch(n, side, classes, channels=3, seed=0):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    images = torch.from_numpy(rng.randn(n, side, side, channels).astype(np.float32)).cuda()
+    return images, torch.from_numpy(rng.randint(0, classes, n)).cuda()
+
+
+def phase_cnn():
+    """The image-classification path: a narrow f32 ResNet on the card
+    against the CPU, ResNet-50 at bench.py's default width and batch for 5
+    steps with MFU and one profiled step, then VGG-16, Inception-v3,
+    ResNet-18 and MnistCNN for 3 steps each."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.bench import _mfu
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.models.mnist_cnn import MnistCNN
+    from horovod_tpu_torch.models.resnet import ResNet
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t_phase = time.perf_counter()
+    # (a) f32 with TF32 off: cuDNN against the CPU, train mode (batch
+    # statistics, the asymmetric SAME pads, the running update).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images, labels = _cnn_batch(4, 32, 10, seed=1)
+    cpu = ResNet([1, 1], 10, 8, torch.float32, device="cpu", seed=1)
+    card = ResNet([1, 1], 10, 8, torch.float32, device="cuda", seed=1)
+    card.load_state_dict(cpu.state_dict())
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        logits = model(images.to(dev))
+        loss = F.cross_entropy(logits, labels.to(dev))
+        loss.backward()
+        results.append((logits, loss, {n: p.grad for n, p in model.named_parameters()},
+                        dict(model.named_buffers())))
+    (lc, sc, gc, bc), (lg, sg, gg, bg) = results
+    err = max_err(lg.cpu(), lc, 1e-3, 1e-4, "narrow ResNet logits")
+    err = max(err, max_err(sg.cpu(), sc, 1e-3, 1e-4, "narrow ResNet loss"))
+    for n in gc:
+        err = max(err, max_err(gg[n].cpu(), gc[n], 1e-3, 1e-4, f"narrow ResNet grad {n}"))
+    for n in bc:
+        err = max(err, max_err(bg[n].cpu(), bc[n], 1e-3, 1e-4, f"narrow ResNet stats {n}"))
+    print(f"[cnn] narrow f32 ResNet (8 filters, 32 px), card vs CPU, TF32 off: max abs err "
+          f"{err:.2e} over logits, loss, {len(gc)} gradients and {len(bc)} running "
+          f"statistics", flush=True)
+
+    torch.backends.cudnn.benchmark = True
+    hvd.init()
+    try:
+        # (b) ResNet-50 at bench.py's default, batch 32 x 224² and 1000
+        # classes, and at batch 256, where the host is expected to keep up.
+        check(hvd.size() == 1, f"expected one rank, got {hvd.size()}")
+        for batch_size in CNN_BATCHES:
+            model = get_model("resnet50", num_classes=CNN_CLASSES, seed=0)
+            n_params = sum(p.numel() for p in model.parameters())
+            batch = _cnn_batch(batch_size, CNN_SIDE, CNN_CLASSES)
+            start = {k: v.clone() for k, v in model.named_buffers()}
+            step = _cnn_step(model, hvd)
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for _ in range(STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(model, batch)))
+                times.append(time.perf_counter() - t0)
+            moved = sum(bool((v != start[k]).any()) for k, v in model.named_buffers())
+            tag = f"[cnn] ResNet-50 batch {batch_size}"
+            print(f"{tag}: {n_params} params, {batch_size} x {CNN_SIDE}² x 3, {CNN_CLASSES} "
+                  f"classes, NCCL world size {hvd.size()}: losses {losses}; {moved} of "
+                  f"{len(start)} running statistics moved", flush=True)
+            check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+            check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+            check(moved == len(start), f"only {moved} of {len(start)} running statistics moved")
+            med = statistics.median(times[1:])
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            with FlopCounterMode(display=False) as counter:
+                step(model, batch)
+            flops = counter.get_total_flops()
+            mfu = _mfu(flops, 1, med, torch.cuda.get_device_name(0))
+            print(f"{tag}: step ms median {med * 1e3:.2f} (steps 2-{STEPS}; first "
+                  f"{times[0] * 1e3:.1f}), img/s {batch_size / med:.1f}, {flops / 1e9:.1f} "
+                  f"GFLOP a step (flop counter), MFU {mfu} against the dense bf16 peak, peak "
+                  f"memory {peak_gib:.2f} GiB", flush=True)
+            profile_step(lambda: float(step(model, batch)), classify=cnn_family,
+                         families=("conv", "bn", "elementwise", "optimizer", "gemm", "nccl",
+                                   "other"), tag=f"cnn profile b{batch_size}")
+            del model, step, batch
+            torch.cuda.empty_cache()
+
+        # (c) the rest of the zoo, 3 steps each at batch 8, with cuDNN's
+        # heuristics (autotuning each of Inception's shapes costs ~15 s).
+        torch.backends.cudnn.benchmark = False
+        for name, side in ZOO:
+            kw = {"image_size": side} if name.startswith("vgg") else {}
+            model = (MnistCNN(seed=0) if name == "mnist"
+                     else get_model(name, num_classes=CNN_CLASSES, seed=0, **kw))
+            channels, classes = (1, 10) if name == "mnist" else (3, CNN_CLASSES)
+            batch = _cnn_batch(ZOO_BATCH, side, classes, channels, seed=2)
+            step = _cnn_step(model, hvd)
+            t0 = time.perf_counter()
+            losses = [float(step(model, batch)) for _ in range(ZOO_STEPS)]
+            print(f"[cnn] {name}, batch {ZOO_BATCH} x {side}²: losses {losses} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            check(all(np.isfinite(losses)), f"{name}: non-finite loss: {losses}")
+            check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+            del model, step, batch
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+        hvd.shutdown()
+    print(f"[cnn] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_bench(slice_tokens_per_s: float):
+    """The port's bench for resnet50 and transformer at reduced iterations,
+    each in a process of its own: its one JSON line, the metric name, a
+    positive value and 0 < mfu <= 1."""
+    import os
+
+    t_phase = time.perf_counter()
+    runs = [("resnet50", "resnet50_synthetic_images_per_sec_per_chip"),
+            ("transformer", "transformer_synthetic_tokens_per_sec_per_chip")]
+    for model, metric in runs:
+        # The transformer at [slice]'s batch of 8 (bench.py's default is 32 a card).
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model", model,
+               "--num-warmup-batches", "3", "--num-batches-per-iter", "10", "--num-iters", "2",
+               *(["--batch-size", str(BATCH)] if model == "transformer" else [])]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": os.getcwd()})
+        check(proc.returncode == 0, f"bench {model} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+        check(len(lines) == 1, f"bench {model} printed {len(lines)} JSON lines")
+        out = json.loads(lines[0])
+        mfu = out["detail"]["mfu"]
+        print(f"[bench] {' '.join(cmd[2:])}: {lines[0]}", flush=True)
+        check(out["metric"] == metric, f"bench {model}: metric {out['metric']}")
+        check(out["value"] > 0, f"bench {model}: value {out['value']}")
+        check(mfu is not None and 0 < mfu <= 1, f"bench {model}: mfu {mfu}")
+        if model == "transformer":
+            print(f"[bench] transformer {out['value']:.1f} tokens/s against [slice]'s "
+                  f"{slice_tokens_per_s:.1f} in this run ({out['value'] / slice_tokens_per_s:.3f}x)",
+                  flush=True)
+    print(f"[bench] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def gpt_family(name: str) -> str:
+    """The GPT steps' kernel families: the port's flash kernels (no SDPA in
+    the step), cuBLAS GEMMs, NCCL, everything else."""
+    return ("flash" if "flash_" in name
+            else "gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet"))
+            else "nccl" if "nccl" in name else "other")
+
+
+def cnn_family(name: str) -> str:
+    """The CNN step's kernel families: cuDNN's convolutions (forward, data
+    and weight gradients, layout transposes), BatchNorm, the optimizer's
+    multi-tensor kernels, NCCL, cuBLAS (the head), elementwise work (relu,
+    residual adds, casts, pools, reductions, the fused allreduce's copies)."""
+    return ("nccl" if "nccl" in name
+            else "conv" if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                                                   "xmma", "nchwtonhwc", "nhwctonchw"))
+            else "bn" if "batch_norm" in name or "batchnorm" in name
+            else "optimizer" if "multi_tensor" in name
+            else "gemm" if any(s in name for s in ("gemm", "cutlass", "cublas", "nvjet"))
+            else "elementwise" if any(s in name for s in ("elementwise", "reduce", "pool",
+                                                          "copy", "cat", "fill", "index"))
+            else "other")
+
+
+def profile_step(run_step, span=None, classify=gpt_family,
+                 families=("flash", "gemm", "nccl", "other"), tag="profile") -> float:
+    """One more step under torch.profiler: device time by kernel family
+    (``classify`` of a kernel's lower-case name, one of ``families``) and
     the device's busy share of the step (taken after the timed steps, so the
     profiler's cost touches no reported step time). Kernels that start
     inside a ``record_function`` range named ``span`` form a family of
-    their own."""
+    their own. Returns the busy share (0 when the profiler saw nothing)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1435,24 +1648,20 @@ def profile_step(run_step, span=None) -> None:
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [e for e in device if not e.is_user_annotation]
     if not kernels:
-        print("[profile] the profiler saw no device activity: not measured", flush=True)
-        return
+        print(f"[{tag}] the profiler saw no device activity: not measured", flush=True)
+        return 0.0
     ranges = [(e.time_range.start, e.time_range.end) for e in device
               if e.is_user_annotation and e.name == span]
-    families = {"flash": 0.0, "gemm": 0.0, "nccl": 0.0, "other": 0.0}
+    families = dict.fromkeys(families, 0.0)
     if span is not None:
         families[span] = 0.0
         if not ranges:
-            print(f"[profile] no device range named {span}: its family is not measured",
+            print(f"[{tag}] no device range named {span}: its family is not measured",
                   flush=True)
     others = {}
     for e in kernels:
-        name, us = e.name.lower(), e.time_range.elapsed_us()
-        start = e.time_range.start
-        fam = (span if any(a <= start < b for a, b in ranges)
-               else "flash" if "flash_" in name     # the port's kernels: no SDPA in the step
-               else "gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet"))
-               else "nccl" if "nccl" in name else "other")
+        us, start = e.time_range.elapsed_us(), e.time_range.start
+        fam = span if any(a <= start < b for a, b in ranges) else classify(e.name.lower())
         families[fam] += us / 1e3
         if fam == "other":
             others[e.name[:70]] = others.get(e.name[:70], 0.0) + us / 1e3
@@ -1466,11 +1675,12 @@ def profile_step(run_step, span=None) -> None:
             cur_e = max(cur_e, e)
     busy = (busy + cur_e - cur_s) / 1e3
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[profile] one step: host {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+    print(f"[{tag}] one step: host {wall_ms:.2f} ms, device busy {busy:.2f} ms "
           f"({busy / wall_ms:.1%}), {len(kernels)} kernels; by family ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in families.items()), flush=True)
-    print("[profile] largest other kernels ms: "
+    print(f"[{tag}] largest other kernels ms: "
           + "; ".join(f"{n} {v:.2f}" for n, v in top), flush=True)
+    return busy / wall_ms
 
 
 def main() -> int:
@@ -1494,13 +1704,15 @@ def main() -> int:
         rows[name] = dict(block_rows[name], replaces=f"{REPLACED}:386")
     phase_ring_merge()
     phase_small_model()
-    launches = phase_train()
+    launches, slice_tokens_per_s = phase_train()
     phase_head_dims()
     sp_launches = phase_sp_train()
     phase_tp_kernels_f32()
     tp_rows = phase_tp_kernels_bench(card)
     tp_launches = phase_tp_ring()
     phase_tp_train()
+    phase_cnn()
+    phase_bench(slice_tokens_per_s)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

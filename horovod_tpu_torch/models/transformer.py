@@ -27,7 +27,6 @@ layer norm uses eps 1e-6 with f32 statistics; gelu is the tanh form, as
 
 from __future__ import annotations
 
-import math
 from functools import partial
 from typing import Any, Callable, Dict, Optional
 
@@ -39,10 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..common.basics import resolve_device
 from ..ops.flash_attention import flash_attention_bthd
 from ..utils.convert import param_tree
-
-# flax's truncated normal keeps std 1 over [-2, 2]: the stddev of a unit
-# normal truncated there is this factor, which lecun_normal divides out.
-_TRUNC_STD = 0.87962566103423978
+from .layers import Dense
 
 
 def _layer_norm(x, p, dtype):
@@ -54,29 +50,6 @@ def _layer_norm(x, p, dtype):
     y = (xf - mu) * torch.rsqrt(var + 1e-6)
     y = y * p["scale"].float() + p["bias"].float()
     return y.to(dtype)
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense``'s parameters: kernel ``[in, out]``, optional bias."""
-
-    def __init__(self, in_features: int, out_features: int, *,
-                 use_bias: bool = True, device=None):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(in_features, out_features, device=device))
-        if use_bias:
-            self.bias = nn.Parameter(torch.zeros(out_features, device=device))
-        else:
-            self.register_parameter("bias", None)
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        # flax's default kernel init, lecun_normal: truncated normal, std
-        # 1/sqrt(fan_in).
-        std = math.sqrt(1.0 / self.kernel.shape[0]) / _TRUNC_STD
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            if self.bias is not None:
-                self.bias.zero_()
 
 
 class Embed(nn.Module):

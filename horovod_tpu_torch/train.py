@@ -174,7 +174,11 @@ def make_train_step(
 
     ``loss_fn(params, batch)`` returns the loss on this rank's shard of the
     batch (or ``(loss, aux)``); ``params`` is passed through untouched (a
-    module, or the tree ``tp_apply`` takes). ``optimizer`` is a plain torch
+    module, or the tree ``tp_apply`` takes). When ``params`` is a module,
+    its floating-point buffers (BatchNorm's running statistics, which its
+    forward updated from this rank's shard) are averaged over ranks after
+    the update, as the JAX step ``pmean``s the new ``batch_stats`` it
+    returns as aux. ``optimizer`` is a plain torch
     optimizer over those parameters, wrapped here with ``op``,
     ``compression`` and ``fusion_threshold_bytes`` (defaults: Average, none,
     the HOROVOD_FUSION_THRESHOLD knob), or a :class:`DistributedOptimizer`
@@ -236,11 +240,23 @@ def make_train_step(
         loss, aux = out if has_aux else (out, None)
         loss.backward()
         dist_opt.step()
+        if isinstance(params, torch.nn.Module):
+            _average_buffers(params)
         if has_aux:
             return average(loss), _tree_map(average, aux)
         return average(loss)
 
     return step
+
+
+def _average_buffers(module: torch.nn.Module) -> None:
+    """Average a module's floating-point buffers over every rank, in place,
+    fused into buckets in the JAX package's leaf order."""
+    named = [(n, b) for n, b in module.named_buffers() if b.is_floating_point()]
+    if not named:
+        return
+    buffers = [named[i][1] for i in fusion.tree_order([n for n, _ in named])]
+    torch._foreach_copy_(buffers, fusion.fused_allreduce(buffers, op=ReduceOp.AVERAGE))
 
 
 def _build_composed_train_step(

@@ -5,6 +5,10 @@ path (``block_0/attention/query/kernel``, the naming of the JAX package's
 ``parallel/rules.py:named_tree_paths``). The port keeps the flax layout
 (Dense kernels ``[in, out]``), so conversion is a rename: ``/`` in the
 flat names, ``.`` in ``nn.Module`` names, nesting in the functional tree.
+Two leaves change on the way: a convolution kernel (the only 4-D leaf of
+the model zoo) goes from flax's HWIO to torch's OIHW, and a CNN's
+``batch_stats`` (BatchNorm's ``mean`` and ``var``) become the module's
+buffers of those names.
 
 For tensor parallelism, :func:`local_params_from_flax` cuts a whole flax
 tree to this rank's shards by a rule table (``parallel/rules.py``), and
@@ -14,7 +18,7 @@ shards.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -96,13 +100,27 @@ def gather_params(tree: Mapping[str, Any], rules: Any, mesh) -> Dict[str, Any]:
     return nest(out)
 
 
-def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
-    """Copy a flat ``/``-keyed flax tree into a module's parameters, in
-    place. Every parameter must be given, and nothing else."""
-    module.load_state_dict(
-        {path.replace("/", "."): torch.tensor(np.asarray(a)) for path, a in flat.items()},
-        strict=True,
-    )
+def _to_torch_layout(a) -> torch.Tensor:
+    t = torch.tensor(np.asarray(a))
+    return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+
+
+def _to_flax_layout(t: torch.Tensor) -> np.ndarray:
+    """A copy (never a view of the module's storage, which the next step
+    updates in place), conv kernels back to HWIO."""
+    t = t.detach().to("cpu", torch.float32, copy=True)
+    return (t.permute(2, 3, 1, 0) if t.ndim == 4 else t).contiguous().numpy()
+
+
+def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray],
+                     batch_stats: Optional[Mapping[str, np.ndarray]] = None) -> None:
+    """Copy a flat ``/``-keyed flax tree into a module's parameters, and a
+    flat ``batch_stats`` tree into its buffers, in place. Conv kernels go
+    from HWIO to OIHW. Every parameter and buffer must be given, and
+    nothing else."""
+    state = {path.replace("/", "."): _to_torch_layout(a)
+             for path, a in {**flat, **(batch_stats or {})}.items()}
+    module.load_state_dict(state, strict=True)
 
 
 def param_tree(module: nn.Module) -> Dict[str, Any]:
@@ -112,10 +130,16 @@ def param_tree(module: nn.Module) -> Dict[str, Any]:
 
 
 def params_to_numpy(params: Union[nn.Module, Mapping[str, Any]]) -> Dict[str, np.ndarray]:
-    """A flat ``/``-keyed dict of f32 numpy arrays from a module or a
-    nested parameter tree."""
+    """A flat ``/``-keyed dict of f32 numpy arrays in flax's layout (conv
+    kernels HWIO) from a module or a nested parameter tree."""
     if isinstance(params, nn.Module):
         flat = {n.replace(".", "/"): p for n, p in params.named_parameters()}
     else:
         flat = flatten(params)
-    return {n: t.detach().float().cpu().numpy() for n, t in flat.items()}
+    return {n: _to_flax_layout(t) for n, t in flat.items()}
+
+
+def batch_stats_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
+    """A module's buffers (a CNN's BatchNorm ``mean`` and ``var``) as the
+    flat ``/``-keyed numpy tree of flax's ``batch_stats``."""
+    return {n.replace(".", "/"): _to_flax_layout(b) for n, b in module.named_buffers()}

@@ -29,7 +29,10 @@ def test_import_loads_no_jax():
         "horovod_tpu_torch.tools.dp_parity, horovod_tpu_torch.tools.kernel_bounds, "
         "horovod_tpu_torch.examples.long_context_sp, horovod_tpu_torch.parallel.rules, "
         "horovod_tpu_torch.parallel.tp, horovod_tpu_torch.ops.collective_matmul, "
-        "horovod_tpu_torch.tools.tp_parity\n"
+        "horovod_tpu_torch.tools.tp_parity, horovod_tpu_torch.models, "
+        "horovod_tpu_torch.models.layers, horovod_tpu_torch.models.resnet, "
+        "horovod_tpu_torch.models.vgg, horovod_tpu_torch.models.inception, "
+        "horovod_tpu_torch.models.mnist_cnn, horovod_tpu_torch.bench\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -125,8 +128,20 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_gpu):
         TransformerLM(64, d_model=32, n_heads=1, n_layers=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_flax({"w": np.zeros(2, np.float32)})
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.models.mnist_cnn import MnistCNN
+
+    for name in ("resnet50", "vgg16", "inception3"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(name, num_classes=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MnistCNN()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--smoke"])
     # Asking for the CPU explicitly works.
     TransformerLM(64, d_model=32, n_heads=1, n_layers=1, device="cpu")
+    get_model("resnet18", num_classes=10, device="cpu")
 
 
 def test_long_context_example_defaults_to_the_card(no_gpu, monkeypatch, capsys):
