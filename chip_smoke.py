@@ -61,6 +61,17 @@ Phases, each printed as it ends:
    heads (D 96), head dims the kernels are not built for, 2 layers, 3 AdamW
    steps each: the adapter zero-pads D to the kernels' next head dim, so
    the loss must be finite and fall and the flash counters must have moved;
+   Then ``[dp-variants]``: the int8 ring allreduce and reduce-scatter
+   (``ops/quantized.py``) at 4 virtual ranks on the card over GPT-2-small's
+   f32 gradient buckets (64 MiB, from ``plan_buckets``), bitwise against the
+   same code on the CPU (the first and last bucket) and within 3% relative
+   L2 of the f32 sum (every bucket), with the ms and the kernel launches a
+   hop; then the GPT-2-small DP step at 8 x 1024 with ``overlap``,
+   ``zero1`` (post hoc and streamed), ``quantized`` and ``nonfinite="skip"``, in turns
+   with the plain step, 10 steps each: finite, falling loss, B1's launches
+   counted, the streamed hooks launching every group inside the backward
+   (no post-hoc fallback), and one non-finite batch under skip leaving the
+   parameters bitwise unchanged;
 7. the sequence-parallel slice: ``init()`` over NCCL, ``build_mesh({"data":
    1, "seq": 1})``, GPT-2-small width at T 4096 with ``ring_attention`` over
    the seq group and ``remat=True``, 5 AdamW steps of ``make_sp_train_step``
@@ -1024,6 +1035,180 @@ def phase_head_dims():
         check(launches == {"fwd": 3 * 2, "bwd": 3 * 2}, f"D {d}: flash launches {launches}")
 
 
+RING_RANKS = 4           # the virtual ranks of [dp-variants]' rings
+RING_CPU_BUCKETS = 2     # buckets also played on the CPU (bitwise check)
+DP_VARIANTS = {          # DistributedOptimizer options of [dp-variants]' steps
+    "plain": {},
+    "overlap": dict(overlap=True),
+    "zero1": dict(zero1=True),
+    "zero1-overlap": dict(zero1=True, overlap=True),
+    "quantized": dict(quantized=True),
+    "skip": dict(nonfinite="skip"),
+}
+SKIP_AT = 2              # the step the skip variant's batch is made non-finite
+DP_STEPS = 10            # steps of each variant, in turns
+
+
+def _ring_buckets():
+    """GPT-2-small's gradient buckets, f32, at the 64 MiB threshold: the
+    element count of each (``plan_buckets`` over the model's leaves in the
+    JAX package's order)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import fusion
+
+    meta = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.float32, device="meta")
+    leaves = fusion.tree_leaves(fusion.named_tree(list(meta.named_parameters())))
+    leaves = [torch.empty(l.shape, dtype=torch.float32, device="meta") for l in leaves]
+    return [sum(leaves[i].numel() for i in b) for b in fusion.plan_buckets(leaves, 64 << 20)]
+
+
+def phase_dp_variants(card):
+    """[dp-variants]: (1) the int8 ring allreduce and reduce-scatter of
+    ops/quantized.py at 4 virtual ranks on the card over GPT-2-small's f32
+    gradient buckets, against the same code on the CPU (bitwise, on the
+    first and the last bucket) and the f32 sum (< 3% relative L2, every
+    bucket), with the ms and the kernel launches a hop; (2) the GPT-2-small
+    DP step at 8 x 1024 with each variant of DP_VARIANTS, in turns with the
+    plain step: finite, falling loss, B1 launched, the streamed hooks fired
+    for every group, and for skip one non-finite batch leaving the
+    parameters bitwise unchanged."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantized as q
+
+    t_phase = time.perf_counter()
+    n = RING_RANKS
+    sizes = _ring_buckets()
+    total = sum(sizes)
+    print(f"[dp-variants] GPT-2-small gradients: {total} f32 elements "
+          f"({total * 4 / 2**30:.3f} GiB) in {len(sizes)} buckets of 64 MiB", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    inputs = [torch.randn(n, size, device="cuda", generator=gen) * 1e-2 for size in sizes]
+
+    def rs_len(size):
+        k = -(-size // n)
+        return n * (-(-k // q.BLOCK) * q.BLOCK)
+
+    def ring_all(dev):
+        ar, rs = [], []
+        for i, x in enumerate(inputs):
+            if dev == "cpu" and i not in (0, len(inputs) - 1):
+                ar.append(None)
+                rs.append(None)
+                continue
+            xs = x.to(dev)
+            xp = torch.nn.functional.pad(xs, (0, rs_len(x.shape[1]) - x.shape[1]))
+            ar.append(play_ring(n, lambda ring: q.quantized_ring_allreduce(xs[ring.rank],
+                                                                           ring=ring)))
+            rs.append(play_ring(n, lambda ring: q.quantized_ring_reduce_scatter(
+                xp[ring.rank], ring=ring)))
+        return ar, rs
+
+    ring_all("cuda")                        # warm up the kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ar, rs = ring_all("cuda")
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ring_all("cuda")
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation)
+    hops = len(sizes) * n * (2 * (n - 1) + (n - 1))       # every virtual rank's hops
+    ar_cpu, rs_cpu = ring_all("cpu")
+    worst = 0.0
+    for i, x in enumerate(inputs):
+        exact = x.sum(0)
+        k = rs_len(x.shape[1]) // n
+        exact_rs = torch.nn.functional.pad(exact, (0, n * k - exact.numel())).reshape(n, k)
+        for r in range(n):
+            check(torch.equal(ar[i][r], ar[i][0]), f"int8 allreduce bucket {i}: ranks differ")
+            for got, want in ((ar[i][r], exact), (rs[i][r], exact_rs[r])):
+                rel = float((got - want).norm() / want.norm())
+                worst = max(worst, rel)
+                check(rel < 3e-2, f"int8 ring bucket {i} rank {r}: rel L2 {rel:.3e} >= 3e-2")
+            if ar_cpu[i] is not None:
+                for what, card_out, cpu_out in (("allreduce", ar[i][r], ar_cpu[i][r]),
+                                                ("reduce-scatter", rs[i][r], rs_cpu[i][r])):
+                    off = card_out.cpu() != cpu_out
+                    check(not bool(off.any()),
+                          f"int8 {what} bucket {i} rank {r}: card != CPU at {int(off.sum())} "
+                          f"elements, max abs {float((card_out.cpu() - cpu_out).abs().max()):.3e}")
+    print(f"[dp-variants] int8 ring over {n} virtual ranks on {card}: allreduce and "
+          f"reduce-scatter of every bucket in {ring_s * 1e3:.1f} ms, {hops} hops of the "
+          f"virtual ranks, {ring_s * 1e3 / hops:.3f} ms and {launches / hops:.1f} kernel "
+          f"launches a hop (one card plays all {n} ranks: a hop's time is its quantize, "
+          f"pack, copy and dequantize, no link); worst rel L2 to the f32 sum {worst:.3e}; "
+          f"buckets 0 and {len(sizes) - 1} bitwise equal to the CPU", flush=True)
+    del inputs, ar, rs, ar_cpu, rs_cpu
+    torch.cuda.empty_cache()
+
+    hvd.init()
+    try:
+        rng = np.random.RandomState(4)
+        tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                                       (BATCH, SEQ))).cuda() for _ in range(2))
+        one, nan = torch.tensor(1.0, device="cuda"), torch.tensor(float("nan"), device="cuda")
+        runs = {}
+        for name, kw in DP_VARIANTS.items():
+            model = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8),
+                named_parameters=model.named_parameters(), **kw)
+            step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]) * b[2], opt)
+            runs[name] = dict(model=model, opt=opt, step=step, losses=[], times=[])
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        for s in range(DP_STEPS):
+            for name, run in runs.items():      # in turns
+                poisoned = name == "skip" and s == SKIP_AT
+                if poisoned:
+                    before = [p.detach().clone() for p in run["model"].parameters()]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(run["step"](run["model"], (tokens, labels, nan if poisoned else one)))
+                run["times"].append(time.perf_counter() - t0)
+                run["losses"].append(loss)
+                if poisoned:
+                    check(np.isnan(loss), f"skip: the poisoned step's loss is {loss}")
+                    check(all(torch.equal(a, p) for a, p in zip(before, run["model"].parameters())),
+                          "skip: a non-finite batch changed the parameters")
+                if "overlap" in DP_VARIANTS[name]:
+                    launched, early, groups = run["opt"].streamed_groups
+                    check(launched == groups > 1, f"{name}: the hooks launched {launched} of "
+                          f"{groups} groups inside the backward (a post-hoc fallback)")
+                    check(s == 0 or early > 0, f"{name}: no group launched before the "
+                          f"backward's last gradient in step {s + 1}")
+        launches = {"fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
+        layers = GPT2_SMALL["n_layers"]
+        want = DP_STEPS * layers * len(runs)
+        check(launches == {"fwd": want, "bwd": want}, f"[dp-variants] flash launches {launches}")
+        plain = statistics.median(runs["plain"]["times"][1:])
+        for name, run in runs.items():
+            finite = [l for i, l in enumerate(run["losses"])
+                      if not (name == "skip" and i == SKIP_AT)]
+            check(all(np.isfinite(finite)), f"{name}: non-finite loss {run['losses']}")
+            check(finite[-1] < finite[0], f"{name}: loss did not fall: {run['losses']}")
+            med = statistics.median(run["times"][1:])
+            print(f"[dp-variants] {name} {DP_VARIANTS[name]}: losses {run['losses']}; step ms "
+                  f"median {med * 1e3:.2f} (steps 2-{DP_STEPS}, in turns) against plain "
+                  f"{plain * 1e3:.2f} ({med / plain:.3f}x); streamed groups "
+                  f"{run['opt'].streamed_groups}", flush=True)
+        print(f"[dp-variants] B1 launches over the {len(runs)} variants' steps {launches}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with all "
+              f"{len(runs)} models resident; phase took {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    finally:
+        hvd.shutdown()
+    del runs
+    torch.cuda.empty_cache()
+
+
 def phase_sp_train():
     import numpy as np
     import torch
@@ -1706,6 +1891,7 @@ def main() -> int:
     phase_small_model()
     launches, slice_tokens_per_s = phase_train()
     phase_head_dims()
+    phase_dp_variants(card)
     sp_launches = phase_sp_train()
     phase_tp_kernels_f32()
     tp_rows = phase_tp_kernels_bench(card)

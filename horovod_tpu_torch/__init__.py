@@ -24,6 +24,7 @@ Quick start (one process per GPU)::
 """
 
 from .common.basics import (
+    HorovodInternalError,
     device,
     init,
     is_initialized,
@@ -36,11 +37,14 @@ from .common.basics import (
 from .common.compression import Compression
 from .common.types import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 from .ops.collectives import allgather, allreduce, broadcast
+from .ops.quantized import EFState
 from .train import (
     DistributedOptimizer,
     GradientAccumulator,
+    allreduce_gradients,
     broadcast_optimizer_state,
     broadcast_parameters,
+    error_feedback_state,
     make_train_step,
 )
 
@@ -50,4 +54,5 @@ __all__ = [
     "Product", "Adasum", "Compression", "allreduce", "allgather", "broadcast",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "make_train_step", "GradientAccumulator",
+    "allreduce_gradients", "error_feedback_state", "EFState", "HorovodInternalError",
 ]

@@ -24,11 +24,20 @@ training on its rows.
 
 ``mfu`` is the step's FLOPs (``torch.utils.flop_counter.FlopCounterMode``
 over one step: the matrix products and convolutions PyTorch dispatches,
-forward and backward, 2 FLOPs a multiply-add; the flash-attention kernels,
-which run outside the dispatcher on the card, are not in it) times the
-steps of the fastest iteration over its time and the dense bf16 peak of
-the detected card; null on the CPU and whenever the share reads over 1.
+forward and backward, 2 FLOPs a multiply-add, and flash attention by its
+ops' formula, ``ops/flash_attention.flash_fwd_flops``, the same on the card
+and on the CPU) times the steps of the fastest iteration over its time and
+the dense bf16 peak of the detected card; null on the CPU and whenever the
+share reads over 1.
 The card's power limit stands beside it.
+
+``--overlap``, ``--zero1`` and ``--quantized`` are ``bench.py``'s: the
+streamed reduction (``DistributedOptimizer(overlap=True)``), ZeRO-1 (the
+transformer only: the streamed per-bucket form with ``--overlap``, else the
+whole-vector ``parallel/zero.make_zero1_train_step``, as ``bench.py`` runs
+``zero1_update``) and the int8 wire (the transformer only), error feedback
+off as in ``bench.py``. ``detail`` reports them as ``optimizer_state``,
+``gradient_wire`` and ``reduction_mode`` with ``bench.py``'s values.
 
 Options of ``bench.py`` that the port has not ported exit non-zero and
 name the ROADMAP item that ports them.
@@ -84,9 +93,6 @@ GPT_SMOKE = dict(vocab_size=512, d_model=128, n_heads=4, n_layers=2)
 # bench.py's options the port does not have yet, and the ROADMAP item
 # that brings each.
 UNPORTED = {
-    "overlap": "A7 (the streamed half of ops/fusion.py)",
-    "zero1": "A7 (parallel/zero.py)",
-    "quantized": "A7 (ops/quantized.py)",
     "tp": "A6, the bench's composed DP x TP mode (the A9 step is timed by "
           "horovod_tpu_torch.tools.tp_parity --bench)",
     "serve": "A11 (serving)",
@@ -188,7 +194,15 @@ def parse_args(argv=None):
                     help="cpu for gloo on the CPU; default: the card (one per rank)")
     ap.add_argument("--ranks", type=int, default=1,
                     help="ranks to launch on this host, one per card (bench.py's --devices)")
-    for flag in ("overlap", "zero1", "quantized", "serve", "scan", "micro"):
+    ap.add_argument("--overlap", action="store_true",
+                    help="streamed reduction: each layer group's buckets reduce inside the "
+                         "backward")
+    ap.add_argument("--zero1", action="store_true",
+                    help="transformer: shard the optimizer state over the ranks (ZeRO-1)")
+    ap.add_argument("--quantized", action="store_true",
+                    help="transformer: int8 gradient wire (the ring allreduce; the ring "
+                         "reduce-scatter with --zero1)")
+    for flag in ("serve", "scan", "micro"):
         ap.add_argument(f"--{flag}", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tuned", default="", help=argparse.SUPPRESS)
@@ -196,6 +210,10 @@ def parse_args(argv=None):
     for flag, item in UNPORTED.items():
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
+    if args.zero1 and args.model != "transformer":
+        ap.error("--zero1 is implemented for --model transformer only")
+    if args.quantized and args.model != "transformer":
+        ap.error("--quantized applies to --model transformer only")
     if args.model in UNPORTED_MODELS:
         ap.error(f"--model {args.model} is not ported yet: ROADMAP "
                  f"{UNPORTED_MODELS[args.model]}")
@@ -210,6 +228,13 @@ def parse_args(argv=None):
                 args.image_size = 96   # the stem's VALID convolutions need >= 75 px
         args.num_batches_per_iter, args.num_iters = 2, 2
     return args
+
+
+def reduction_mode(args) -> str:
+    """``bench.py``'s ``reduction_mode`` for these flags."""
+    mode = (("overlap+" if args.overlap else "")
+            + ("quantized" if args.quantized else ("streamed" if args.overlap else "posthoc")))
+    return mode + ("+zero1" if args.zero1 else "")
 
 
 def _build_cnn(args, dev, rank, n):
@@ -275,9 +300,17 @@ def run(args) -> int:
             inner = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8)
         else:
             inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-        opt = hvd.DistributedOptimizer(inner, named_parameters=model.named_parameters())
-        hvd.broadcast_optimizer_state(opt, root_rank=0)
-        step = hvd.make_train_step(loss_fn, opt)
+        if args.zero1 and not args.overlap:
+            from .parallel.zero import make_zero1_train_step
+
+            step = make_zero1_train_step(loss_fn, inner, quantized=args.quantized)
+        else:
+            opt = hvd.DistributedOptimizer(
+                inner, named_parameters=model.named_parameters(), overlap=args.overlap,
+                zero1=args.zero1, quantized=args.quantized,
+                error_feedback=False if args.quantized else None)
+            hvd.broadcast_optimizer_state(opt, root_rank=0)
+            step = hvd.make_train_step(loss_fn, opt)
 
         def sync():
             if on_card:
@@ -341,9 +374,10 @@ def run(args) -> int:
                     "n_params": n_params,
                     "attention": ("flash (CUDA kernels B1)" if on_card
                                   else "flash (plain PyTorch versions on the CPU)"),
-                    "optimizer_state": "replicated",
-                    "gradient_wire": "full-precision",
-                    "reduction_mode": "posthoc",
+                    "optimizer_state": "zero1-sharded" if args.zero1 else "replicated",
+                    "gradient_wire": ("int8-quantized" if args.quantized
+                                      else "full-precision"),
+                    "reduction_mode": reduction_mode(args),
                     "step_time_s": round(float(np.mean(iter_times)) / steps, 6),
                     **common,
                 },

@@ -19,6 +19,12 @@ import torch.distributed as dist
 from .topology import Topology, detect
 
 
+class HorovodInternalError(RuntimeError):
+    """An error the job cannot recover from in place (the reference's
+    ``HorovodInternalError``): the non-finite guard's ``abort`` policy
+    raises it from the step, for an elastic layer to roll back from."""
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. Asking for the card where there is none
     raises: a run never carries on quietly on the CPU."""

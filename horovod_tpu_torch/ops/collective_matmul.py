@@ -62,10 +62,9 @@ import os
 from typing import Callable, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from . import _build
-from .collectives import Group, ring_exchange
+from .collectives import Group, Ring
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -339,29 +338,8 @@ def _epilogue(own, fwd, bwd, dtype) -> torch.Tensor:
 
 # --- the ring -----------------------------------------------------------------
 
-class _Ring:
-    """The bidirectional ring over a group (a mesh axis's subgroup, or the
-    world): every hop is ONE ``collectives.ring_exchange`` of both
-    directions' chunks (NCCL on the card, gloo on the CPU). On the card the
-    transfers run on the process group's own stream, which waits for the work
-    the compute stream has queued at ``post`` (a CUDA event), so a kernel
-    queued after ``post`` overlaps them; ``wait`` makes the compute stream,
-    not the host, wait for them."""
-
-    def __init__(self, group: Group):
-        self.group = group or dist.group.WORLD
-        self.n = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
-
-    def post(self, sends: List[Tuple[torch.Tensor, int]]):
-        return ring_exchange(sends, self.group)
-
-    @staticmethod
-    def wait(handle) -> List[torch.Tensor]:
-        recvs, works = handle
-        for work in works:
-            work.wait()
-        return recvs
+# The ring transport is ``collectives.Ring``: one ``batch_isend_irecv`` a hop.
+_Ring = Ring
 
 
 def _circulate(ring: _Ring, chunk: torch.Tensor,

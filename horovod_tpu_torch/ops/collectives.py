@@ -244,6 +244,33 @@ def ring_exchange(sends: Sequence[Tuple[torch.Tensor, int]], group: Group = None
     return recvs, dist.batch_isend_irecv(ops)
 
 
+class Ring:
+    """A ring over a group (a mesh axis's subgroup, or the world) as the
+    ring schedules use it: ``post`` starts one hop, ``wait`` returns what
+    arrived. Every hop is ONE :func:`ring_exchange` of all the hop's sends
+    (NCCL on the card, gloo on the CPU). On the card the transfers run on
+    the process group's own stream, which waits for the work the current
+    stream has queued at ``post``, so a kernel queued after ``post``
+    overlaps them; ``wait`` makes the current stream, not the host, wait for
+    them. Anything with ``rank``, ``n``, ``post`` and ``wait`` can stand in
+    for it (``chip_smoke.py`` plays 4 ranks on one card through one)."""
+
+    def __init__(self, group: Group = None):
+        self.group = group or dist.group.WORLD
+        self.n = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+
+    def post(self, sends: Sequence[Tuple[torch.Tensor, int]]):
+        return ring_exchange(sends, self.group)
+
+    @staticmethod
+    def wait(handle):
+        recvs, works = handle
+        for work in works:
+            work.wait()
+        return recvs
+
+
 def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
     """Send ``x`` to group rank r + step, receive from r - step (mod n)."""
     if dist.get_world_size(group) == 1:

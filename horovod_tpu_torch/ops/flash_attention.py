@@ -15,6 +15,11 @@ the backward, dS) in bf16. ``p_dtype=torch.bfloat16`` makes a plain version
 round them where the kernels do, and ``kernel_tiles`` gives the forward's
 K tile, the block over which its online softmax rounds P.
 
+B1's forward and backward go through the dispatcher as the ops
+``hvt::flash_fwd`` and ``hvt::flash_bwd``, each with a FLOP formula that
+``FlopCounterMode`` reads (``flash_fwd_flops``), so the port's bench counts
+attention on the card as it does on the CPU.
+
 ``FWD_LAUNCHES`` counts launches of the forward kernel. ``BWD_LAUNCHES``
 counts backward launches, each of which launches the dQ kernel and then
 the dK/dV kernel once. A batch x heads axis longer than a grid holds
@@ -35,6 +40,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -526,16 +532,59 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"flash attention runs on cpu or cuda tensors, not {t.device}")
 
 
-def _flash_fwd(q, k, v, causal, sm_scale):
-    if _on_cpu(q):
+# B1's forward and backward are dispatcher ops, so that
+# torch.utils.flop_counter.FlopCounterMode counts their FLOPs by the
+# formulas below on the card (where the kernels run outside the dispatcher)
+# and on the CPU alike (where the op hides its plain version's products).
+@torch.library.custom_op("hvt::flash_fwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal, float sm_scale)"
+                                " -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, causal, sm_scale):
+    if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, causal, sm_scale)
     return _launch_fwd(q, k, v, causal, sm_scale)
 
 
-def _flash_bwd(q, k, v, o, lse, do, causal, sm_scale):
-    if _on_cpu(q):
+@torch.library.custom_op("hvt::flash_bwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do,"
+                                " bool causal, float sm_scale) -> (Tensor, Tensor, Tensor)")
+def _flash_bwd_op(q, k, v, o, lse, do, causal, sm_scale):
+    if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale)
     return _launch_bwd(q, k, v, o, lse, do, causal, sm_scale)
+
+
+def flash_fwd_flops(q_shape, k_shape, causal: bool) -> int:
+    """The forward's FLOPs: two products of 2·BH·T_q·T_k·D (S = QKᵀ and
+    O = PV), halved when causal (the masked half is skipped). A count of
+    the work attention needs, not of the kernels' tile-level skipping."""
+    bh, t_q, d = q_shape
+    flops = 4 * bh * t_q * k_shape[1] * d
+    return flops // 2 if causal else flops
+
+
+@register_flop_formula(torch.ops.hvt.flash_fwd)
+def _fwd_flop_formula(q_shape, k_shape, v_shape, causal, sm_scale, out_shape=None,
+                      **kwargs) -> int:
+    return flash_fwd_flops(q_shape, k_shape, causal)
+
+
+@register_flop_formula(torch.ops.hvt.flash_bwd)
+def _bwd_flop_formula(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal,
+                      sm_scale, out_shape=None, **kwargs) -> int:
+    # Five products (S again, dV = PᵀdO, dP = dO Vᵀ, dQ = dS K, dK = dSᵀQ)
+    # against the forward's two.
+    return flash_fwd_flops(q_shape, k_shape, causal) * 5 // 2
+
+
+def _flash_fwd(q, k, v, causal, sm_scale):
+    _on_cpu(q)          # refuses a tensor on any other device
+    return torch.ops.hvt.flash_fwd(q, k, v, bool(causal), float(sm_scale))
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal, sm_scale):
+    _on_cpu(q)
+    return torch.ops.hvt.flash_bwd(q, k, v, o, lse, do, bool(causal), float(sm_scale))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -234,8 +234,28 @@ def test_bench_smoke_prints_bench_py_json_line(model, metric, unit, keys):
         assert out["vs_baseline"] == pytest.approx(out["value"] / (1656.82 / 16), abs=1e-3)
 
 
+@pytest.mark.parametrize("flag,mode,state,wire", [
+    ("--overlap", "overlap+streamed", "replicated", "full-precision"),
+    ("--zero1", "posthoc+zero1", "zero1-sharded", "full-precision"),
+    ("--quantized", "quantized", "replicated", "int8-quantized"),
+])
+def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
+    """``--overlap``, ``--zero1`` and ``--quantized`` run the transformer
+    step and report ``bench.py``'s ``reduction_mode``, ``optimizer_state``
+    and ``gradient_wire`` for the flag."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.bench", "--smoke", "--device", "cpu",
+         "--model", "transformer", "--num-warmup-batches", "1", flag],
+        env=_subprocess_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    detail = json.loads(proc.stdout.strip().splitlines()[-1])["detail"]
+    assert (detail["reduction_mode"], detail["optimizer_state"], detail["gradient_wire"]) == \
+        (mode, state, wire)
+    assert np.isfinite(detail["loss"])
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--overlap"], "A7"), (["--zero1"], "A7"), (["--quantized"], "A7"), (["--tp", "2"], "A6"),
+    (["--tp", "2"], "A6"),
     (["--serve"], "A11"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
     (["--micro"], "A8"), (["--model", "moe"], "A10"),
 ])

@@ -390,3 +390,23 @@ def test_tile_sweep_refuses_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the sweep would run")
     assert flash_tile_sweep.main(["--out", str(tmp_path / "sweep.jsonl")]) == 2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flop_counter_counts_the_flash_ops_analytically(causal):
+    """``FlopCounterMode`` counts one flash call by B1's formulas, on the
+    CPU as on the card (where the kernels run outside the dispatcher): the
+    analytic 4·BH·T_q·T_k·D forward, halved when causal, and 2.5 times that
+    backward (five products against two). Not what the plain version's
+    blockwise products would count: the op hides them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    bh, t, d = 6, 64, 32
+    q, k, v = (torch.randn(bh, t, d, requires_grad=True) for _ in range(3))
+    with FlopCounterMode(display=False) as fwd:
+        o = port.flash_attention(q, k, v, causal=causal)
+    with FlopCounterMode(display=False) as bwd:
+        o.backward(torch.ones_like(o))
+    want = 4 * bh * t * t * d // (2 if causal else 1)
+    assert fwd.get_total_flops() == want == port.flash_fwd_flops((bh, t, d), (bh, t, d), causal)
+    assert bwd.get_total_flops() == want * 5 // 2

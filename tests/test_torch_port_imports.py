@@ -32,7 +32,10 @@ def test_import_loads_no_jax():
         "horovod_tpu_torch.tools.tp_parity, horovod_tpu_torch.models, "
         "horovod_tpu_torch.models.layers, horovod_tpu_torch.models.resnet, "
         "horovod_tpu_torch.models.vgg, horovod_tpu_torch.models.inception, "
-        "horovod_tpu_torch.models.mnist_cnn, horovod_tpu_torch.bench\n"
+        "horovod_tpu_torch.models.mnist_cnn, horovod_tpu_torch.bench, "
+        "horovod_tpu_torch.common.quant, horovod_tpu_torch.ops.quantized, "
+        "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.parallel.zero, "
+        "horovod_tpu_torch.guard, horovod_tpu_torch.guard.nonfinite\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

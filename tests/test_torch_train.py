@@ -162,14 +162,42 @@ def test_backward_passes_per_step_averages_microbatches(one_rank):
     assert [port_acc.should_reduce(i) for i in range(4)] == [acc.should_reduce(i) for i in range(4)]
 
 
-@pytest.mark.parametrize("option", ["nonfinite", "quantized", "zero1", "overlap", "hierarchical"])
+@pytest.mark.parametrize("option", ["hierarchical", "tuned"])
 def test_unported_options_raise(one_rank, option):
     hvd = one_rank
     w = torch.nn.Parameter(torch.zeros(2))
-    value = "skip" if option == "nonfinite" else True
     with pytest.raises(NotImplementedError, match=option):
         hvd.make_train_step(lambda p, b: p.sum(), torch.optim.SGD([w], lr=0.1),
-                            **{option: value})
+                            **{option: True})
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(quantized=True, compression="fp16"), "already compresses the wire to int8"),
+    (dict(quantized=True, op="Max"), "quantized=True supports"),
+    (dict(overlap=True, op="Adasum"), "overlap=True supports elementwise"),
+    (dict(zero1=True, compression="fp16"), "cast compression has no"),
+    (dict(error_feedback=True), "error_feedback=True requires quantized=True"),
+])
+def test_bad_combinations_raise_like_jax(one_rank, kwargs, match):
+    """Each combination the JAX builders refuse with a ValueError, the
+    port's builder refuses too."""
+    import horovod_tpu as hvd_jax
+
+    hvd = one_rank
+    port = dict(kwargs)
+    ref = dict(kwargs)
+    if "compression" in kwargs:
+        port["compression"] = hvd.Compression.fp16
+        ref["compression"] = hvd_jax.Compression.fp16
+    if "op" in kwargs:
+        port["op"] = getattr(hvd, kwargs["op"])
+        ref["op"] = getattr(hvd_jax, kwargs["op"])
+    mesh = build_mesh({"data": 1}, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match=match):
+        hvdj.make_train_step(lambda p, b: jnp.sum(p), optax.sgd(0.1), mesh, **ref)
+    w = torch.nn.Parameter(torch.zeros(2))
+    with pytest.raises(ValueError, match=match):
+        hvd.make_train_step(lambda p, b: p.sum(), torch.optim.SGD([w], lr=0.1), **port)
 
 
 def test_make_train_step_wraps_plain_optimizer_and_returns_aux(one_rank):
