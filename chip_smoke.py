@@ -107,6 +107,21 @@ Phases, each printed as it ends:
    the loss must be finite and fall. (With one model rank the all-reduces
    are no-ops and the fused path is not taken, as in the reference; the
    fused path runs across cards in ``tools/tp_parity.py``.)
+   Then ``[hier]``: the two-level schedules of ``topo/compositor.py``
+   (allreduce SUM/AVERAGE/MIN/MAX, reduce-scatter, allgather, broadcast
+   two-level and two-level-sa, alltoall, the int8 two-level allreduce,
+   hierarchical Adasum) over a (cross 2, local 2) grid of 4 virtual ranks
+   played by threads on the card (``VirtualHop``), at GPT-2-small's f32
+   buckets in f32 and bf16: data movement bitwise the flat result,
+   MIN/MAX bitwise, sums within n roundings of the dtype times sum_r
+   |x_r|, int8 within 3e-2 relative L2 of the f32 sum, Adasum within 1e-5
+   of the float64 reference, with ms and kernel launches a virtual hop;
+   then the GPT-2-small DP step with ``hierarchical=True`` on a (cross 1,
+   local 1) mesh and the composed step at data 1 x model 1 with overlap,
+   zero1, quantized and nonfinite="skip", in turns with the plain steps, 6
+   steps each: finite, falling losses, B1 launched for every step, every
+   streamed group launched in the backward, the poisoned step's
+   parameters bitwise unchanged.
 
 11. ``[cnn]``: the image-classification path, which reaches no TPU kernel
    (cuDNN convolutions and BatchNorm, cuBLAS for the head): a narrow f32
@@ -139,6 +154,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 BATCH = 8           # per-card batch of the training phase
 SEQ = 1024
@@ -1448,10 +1464,13 @@ class VirtualRing:
     device copy of what the neighbour sent (the same stream for all ranks,
     so the copy follows the kernel that made the data)."""
 
-    def __init__(self, rank, n, mailbox, barrier):
+    def __init__(self, rank, n, mailbox, barrier, hops=None):
         self.rank, self.n, self.mailbox, self.barrier = rank, n, mailbox, barrier
+        self.hops = hops
 
     def post(self, sends):
+        if self.hops is not None:
+            self.hops[0] += 1
         self.mailbox[self.rank] = sends
         self.barrier.wait()
         recvs = []
@@ -1494,6 +1513,341 @@ def play_ring(n, fn):
 
     torch.cuda.synchronize()
     return results
+
+
+class VirtualHop:
+    """One level of a grid of ranks played on one card by threads, the
+    transport seam of topo/compositor.py (``rank``, ``n`` and the level's
+    primitives): each primitive puts this rank's tensor on the level's
+    board, waits for the level's other ranks, and computes its result from
+    theirs with device ops on the one stream all threads share, so a read
+    follows the kernel that made the data. ``hops[0]`` counts the
+    primitives (the int8 ring's posts too) its grid rank ran: the rank's
+    virtual hops."""
+
+    def __init__(self, rank, n, board, hops):
+        self.rank, self.n, self.board, self.hops = rank, n, board, hops
+
+    def _all(self, x):
+        self.hops[0] += 1
+        slots, barrier = self.board["slots"], self.board["barrier"]
+        slots[self.rank] = x
+        barrier.wait()
+        got = list(slots)
+        barrier.wait()
+        return got
+
+    def all_reduce(self, x, op=None):
+        import torch
+        from horovod_tpu_torch.common.types import ReduceOp
+
+        got = torch.stack(self._all(x))
+        op = ReduceOp.SUM if op is None else op
+        return got.sum(0) if op == ReduceOp.SUM else got.amin(0) if op == ReduceOp.MIN \
+            else got.amax(0)
+
+    def reduce_scatter(self, x):
+        import torch
+
+        return torch.stack(self._all(x)).sum(0).chunk(self.n)[self.rank].clone()
+
+    def all_gather(self, x):
+        import torch
+
+        return torch.cat(self._all(x))
+
+    def broadcast(self, x, root):
+        return self._all(x)[root].clone()
+
+    def all_to_all(self, x):
+        import torch
+
+        return torch.cat([g.chunk(self.n)[self.rank] for g in self._all(x)])
+
+    def exchange(self, x, peer):
+        return self._all(x)[peer].clone()
+
+    @property
+    def ring(self):
+        return VirtualRing(self.rank, self.n, self.board["ring"], self.board["ring_barrier"],
+                           self.hops)
+
+
+def play_grid(cross, local, fn):
+    """Run ``fn(levels)`` for the cross * local virtual ranks of a (cross,
+    local) grid in threads, rank = c * local + l; ``levels`` has ``rank``,
+    ``cross`` and ``local`` (the rank's hops) and ``flat`` (one hop over all
+    ranks). Returns (results by rank, virtual hops a rank ran)."""
+    import threading
+
+    import torch
+
+    n = cross * local
+    boards = []
+
+    def board(size):
+        b = {"slots": [None] * size, "barrier": threading.Barrier(size, timeout=120),
+             "ring": [None] * size, "ring_barrier": threading.Barrier(size, timeout=120)}
+        boards.append(b)
+        return b
+
+    cross_boards = [board(cross) for _ in range(local)]
+    local_boards = [board(local) for _ in range(cross)]
+    flat_board = board(n)
+    hops = [[0] for _ in range(n)]
+    results, errors = [None] * n, []
+
+    def body(r):
+        c, l = divmod(r, local)
+        levels = types.SimpleNamespace(
+            rank=r, cross=VirtualHop(c, cross, cross_boards[l], hops[r]),
+            local=VirtualHop(l, local, local_boards[c], hops[r]),
+            flat=VirtualHop(r, n, flat_board, hops[r]))
+        try:
+            results[r] = fn(levels)
+        except BaseException as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+            for b in boards:
+                b["barrier"].abort()
+                b["ring_barrier"].abort()
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    return results, hops[0][0]
+
+
+HIER_CROSS, HIER_LOCAL = 2, 2    # [hier]'s virtual grid
+HIER_STEPS = 6                   # steps of each [hier] model, in turns
+HIER_SKIP_AT = 2                 # the step the skip variant's batch is made non-finite
+HIER_MODELS = {                  # name: (composed, make_train_step options)
+    "dp-plain": (False, {}),
+    "dp-hierarchical": (False, dict(hierarchical=True)),
+    "tp-plain": (True, {}),
+    "tp-overlap": (True, dict(overlap=True)),
+    "tp-zero1": (True, dict(zero1=True)),
+    "tp-quantized": (True, dict(quantized=True)),
+    "tp-skip": (True, dict(nonfinite="skip")),
+}
+
+
+def phase_hier(card):
+    """[hier]: (1) the two-level schedules of topo/compositor.py over a
+    (cross 2, local 2) grid of virtual ranks on the card, at GPT-2-small's
+    f32 gradient buckets in f32 and bf16: allgather, broadcast (two-level
+    and two-level-sa) and alltoall bitwise equal to the flat result over the
+    four ranks, allreduce (SUM, AVERAGE, MIN, MAX) and reduce-scatter held
+    to the f32 sum (MIN/MAX bitwise; sums within n roundings of the dtype,
+    n 2^-24 (f32) or 2^-8 (bf16) times sum_r |x_r|), the two-level int8
+    allreduce within the int8 ring's 3e-2 relative L2 of the f32 sum, and
+    hierarchical Adasum within 1e-5 relative L2 of
+    hierarchical_adasum_reference (float64); the ms and kernel launches a
+    virtual hop of each. (2) The GPT-2-small DP step at 8 x 1024 with
+    hierarchical=True on a (cross 1, local 1) mesh and the composed step at
+    data 1 x model 1 with overlap, zero1, quantized and nonfinite="skip", in
+    turns with the plain DP and composed steps: finite, falling losses, B1
+    launched for every step, the streamed groups launched in the backward,
+    and the skip step's parameters bitwise unchanged."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.types import ReduceOp
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss, make_gpt_loss_fn
+    from horovod_tpu_torch.ops import adasum, quantized
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_hierarchical_mesh, build_mesh
+    from horovod_tpu_torch.parallel.rules import named_tree_paths
+    from horovod_tpu_torch.topo import compositor as C
+    from horovod_tpu_torch.utils.convert import local_params_from_flax, params_to_numpy
+
+    t_phase = time.perf_counter()
+    n = HIER_CROSS * HIER_LOCAL
+    sizes = _ring_buckets()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    inputs = [torch.randn(n, size, device="cuda", generator=gen) * 1e-2 for size in sizes]
+    ends = (0, len(sizes) - 1)          # the buckets every collective runs on
+    grid = lambda levels: (levels.cross, levels.local)       # noqa: E731
+    print(f"[hier] {n} virtual ranks as (cross {HIER_CROSS}, local {HIER_LOCAL}) on {card}: "
+          f"GPT-2-small's {len(sizes)} f32 gradient buckets of up to 64 MiB a rank", flush=True)
+
+    def timed(name, fn):
+        """Play fn over the grid: once to warm up, once timed, once under
+        the profiler for the kernel launches; (results, ms, hops a rank,
+        launches a hop)."""
+        play_grid(HIER_CROSS, HIER_LOCAL, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, hops = play_grid(HIER_CROSS, HIER_LOCAL, fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            play_grid(HIER_CROSS, HIER_LOCAL, fn)
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation)
+        per_hop = launches / max(hops * n, 1)
+        print(f"[hier] {name}: {ms:.2f} ms for the {n} ranks, {hops} virtual hops a rank, "
+              f"{per_hop:.1f} kernel launches a hop", flush=True)
+        return out
+
+    def sum_bound(xs, dtype):
+        unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+        return n * unit * xs.float().abs().sum(0)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for i in range(len(sizes)):
+            xs = inputs[i].to(dtype)
+            exact = xs.float().sum(0)
+            bound = sum_bound(xs, dtype)
+            ops = ((ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.MIN, ReduceOp.MAX) if i in ends
+                   else (ReduceOp.SUM,))
+            for op in ops:
+                out = timed(f"{tag} bucket {i} ({sizes[i]} elements) allreduce {op.name}",
+                            lambda lv: C.lower_allreduce(xs[lv.rank], grid(lv), op=op))
+                for r in range(n):
+                    check(out[r].dtype == dtype, f"allreduce {op.name}: dtype {out[r].dtype}")
+                    check(torch.equal(out[r], out[0]), f"allreduce {op.name}: ranks differ")
+                if op in (ReduceOp.MIN, ReduceOp.MAX):
+                    want = xs.amin(0) if op == ReduceOp.MIN else xs.amax(0)
+                    check(torch.equal(out[0], want), f"{tag} allreduce {op.name} not bitwise")
+                    continue
+                scale = n if op == ReduceOp.AVERAGE else 1
+                err = (out[0].float() * scale - exact).abs()
+                check(bool((err <= bound).all()), f"{tag} bucket {i} allreduce {op.name}: "
+                      f"{int((err > bound).sum())} elements past n roundings")
+                worst[f"{tag} allreduce"] = max(worst.get(f"{tag} allreduce", 0.0),
+                                                float((err / bound.clamp_min(1e-30)).max()))
+            if i not in ends:
+                continue
+            k = -(-sizes[i] // n)
+            xp = torch.nn.functional.pad(xs, (0, n * k - sizes[i]))
+            rs = timed(f"{tag} bucket {i} reduce-scatter",
+                       lambda lv: C.lower_reducescatter(xp[lv.rank], grid(lv)))
+            exact_rs = xp.float().sum(0).reshape(n, k)
+            bound_rs = sum_bound(xp, dtype).reshape(n, k)
+            for r in range(n):
+                check(bool(((rs[r].float() - exact_rs[r]).abs() <= bound_rs[r]).all()),
+                      f"{tag} reduce-scatter rank {r}: past n roundings")
+            for name, two, flat in (
+                    ("allgather", lambda lv: C.lower_allgather(xs[lv.rank], grid(lv)),
+                     lambda lv: C.lower_allgather(xs[lv.rank], (lv.flat,))),
+                    ("broadcast two-level", lambda lv: C.lower_broadcast(
+                        xs[lv.rank], grid(lv), root_rank=3),
+                     lambda lv: C.lower_broadcast(xs[lv.rank], (lv.flat,), root_rank=3)),
+                    ("broadcast two-level-sa", lambda lv: C.lower_broadcast(
+                        xs[lv.rank], grid(lv), root_rank=2, algorithm="two-level-sa"),
+                     lambda lv: C.lower_broadcast(xs[lv.rank], (lv.flat,), root_rank=2)),
+                    ("alltoall", lambda lv: C.lower_alltoall(xp[lv.rank], grid(lv)),
+                     lambda lv: C.lower_alltoall(xp[lv.rank], (lv.flat,)))):
+                got = timed(f"{tag} bucket {i} {name}", two)
+                want, _ = play_grid(HIER_CROSS, HIER_LOCAL, flat)
+                for r in range(n):
+                    check(torch.equal(got[r], want[r]),
+                          f"{tag} bucket {i} {name} rank {r}: not bitwise the flat result")
+                del got, want
+        torch.cuda.empty_cache()
+    for i, x in enumerate(inputs):
+        q = timed(f"int8 two-level allreduce bucket {i}",
+                  lambda lv: quantized.quantized_hierarchical_allreduce(x[lv.rank], grid(lv)))
+        exact = x.sum(0)
+        for r in range(n):
+            check(torch.equal(q[r], q[0]), f"int8 two-level bucket {i}: ranks differ")
+        rel = float((q[0] - exact).norm() / exact.norm())
+        worst["int8 rel L2"] = max(worst.get("int8 rel L2", 0.0), rel)
+        check(rel < 3e-2, f"int8 two-level bucket {i}: rel L2 {rel:.3e} >= 3e-2")
+    last = inputs[-1]
+    got = timed(f"hierarchical Adasum bucket {len(sizes) - 1}",
+                lambda lv: adasum.hierarchical_adasum_allreduce(
+                    last[lv.rank], local_group=lv.local, cross_group=lv.cross))
+    want = torch.from_numpy(adasum.hierarchical_adasum_reference(
+        list(last.double().cpu().numpy()), HIER_LOCAL)).to("cuda")
+    rel = float((got[0].double() - want).norm() / want.norm())
+    worst["adasum rel L2"] = rel
+    check(rel < 1e-5, f"hierarchical Adasum: rel L2 {rel:.3e} to the float64 reference")
+    print(f"[hier] every two-level schedule held on {card}: data movement bitwise the flat "
+          f"result, MIN/MAX bitwise; worst share of the n-rounding bound, rel L2: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    del inputs, got, want, q
+    torch.cuda.empty_cache()
+
+    hvd.init()
+    try:
+        hmesh = build_hierarchical_mesh(1)
+        tmesh = build_mesh({"data": 1, "model": 1})
+        rng = np.random.RandomState(5)
+        tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                                       (BATCH, SEQ))).cuda() for _ in range(2))
+        one = torch.ones(BATCH, device="cuda")
+        nan = torch.full((BATCH,), float("nan"), device="cuda")
+        flat = params_to_numpy(TransformerLM(**GPT2_SMALL, max_len=SEQ, seed=0))
+        tp_loss = make_gpt_loss_fn(GPT2_SMALL["n_heads"], model_axis="model")
+        runs = {}
+        for name, (composed, kw) in HIER_MODELS.items():
+            adamw = lambda leaves: torch.optim.AdamW(leaves, lr=3e-4, weight_decay=1e-4,  # noqa
+                                                     eps=1e-8)
+            if composed:
+                params = local_params_from_flax(flat, "gpt", tmesh)
+                step = hvd.make_train_step(
+                    lambda p, b: tp_loss(p, b[:2]) * b[2].mean(),
+                    adamw([t for _, t in named_tree_paths(params)]), mesh=tmesh, rules="gpt",
+                    **kw)
+                leaves = [t for _, t in named_tree_paths(params)]
+            else:
+                params = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+                step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]) * b[2].mean(),
+                                           adamw(params.parameters()), mesh=hmesh, **kw)
+                leaves = list(params.parameters())
+            runs[name] = dict(params=params, step=step, leaves=leaves, losses=[], times=[])
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        for s in range(HIER_STEPS):
+            for name, run in runs.items():      # in turns
+                poisoned = name == "tp-skip" and s == HIER_SKIP_AT
+                if poisoned:
+                    before = [t.detach().clone() for t in run["leaves"]]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(run["step"](run["params"], (tokens, labels, nan if poisoned else one)))
+                run["times"].append(time.perf_counter() - t0)
+                run["losses"].append(loss)
+                if poisoned:
+                    check(all(torch.equal(a, t) for a, t in zip(before, run["leaves"])),
+                          "tp-skip: a non-finite batch changed the parameters")
+                if "overlap" in HIER_MODELS[name][1]:
+                    launched, _, groups = run["step"].optimizer.streamed_groups
+                    check(launched == groups > 1, f"{name}: the hooks launched {launched} of "
+                          f"{groups} groups inside the backward (a post-hoc fallback)")
+        launches = {"fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
+        want = HIER_STEPS * GPT2_SMALL["n_layers"] * len(runs)
+        check(launches == {"fwd": want, "bwd": want}, f"[hier] flash launches {launches}")
+        check(runs["dp-hierarchical"]["step"].optimizer._hierarchical,
+              "dp-hierarchical: the step does not reduce two-level")
+        for base, names in (("dp-plain", ["dp-hierarchical"]),
+                            ("tp-plain", ["tp-overlap", "tp-zero1", "tp-quantized", "tp-skip"])):
+            plain = statistics.median(runs[base]["times"][1:])
+            for name in [base] + names:
+                run = runs[name]
+                finite = [l for i, l in enumerate(run["losses"])
+                          if not (name == "tp-skip" and i == HIER_SKIP_AT)]
+                check(all(np.isfinite(finite)), f"{name}: non-finite loss {run['losses']}")
+                check(finite[-1] < finite[0], f"{name}: loss did not fall: {run['losses']}")
+                med = statistics.median(run["times"][1:])
+                print(f"[hier] {name} {HIER_MODELS[name][1]}: losses {run['losses']}; step ms "
+                      f"median {med * 1e3:.2f} (steps 2-{HIER_STEPS}, in turns) against {base} "
+                      f"{plain * 1e3:.2f} ({med / plain:.3f}x)", flush=True)
+        print(f"[hier] B1 launches over the {len(runs)} models' steps {launches}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase took "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        hvd.shutdown()
+    del runs
+    torch.cuda.empty_cache()
 
 
 def phase_tp_ring():
@@ -1897,6 +2251,7 @@ def main() -> int:
     tp_rows = phase_tp_kernels_bench(card)
     tp_launches = phase_tp_ring()
     phase_tp_train()
+    phase_hier(card)
     phase_cnn()
     phase_bench(slice_tokens_per_s)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the

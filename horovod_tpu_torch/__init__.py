@@ -36,7 +36,16 @@ from .common.basics import (
 )
 from .common.compression import Compression
 from .common.types import Adasum, Average, Max, Min, Product, ReduceOp, Sum
-from .ops.collectives import allgather, allreduce, broadcast
+from .ops.collectives import (
+    allgather,
+    allreduce,
+    broadcast,
+    hierarchical_allgather,
+    hierarchical_allreduce,
+    hierarchical_alltoall,
+    hierarchical_broadcast,
+    hierarchical_reducescatter,
+)
 from .ops.quantized import EFState
 from .train import (
     DistributedOptimizer,
@@ -45,6 +54,7 @@ from .train import (
     broadcast_optimizer_state,
     broadcast_parameters,
     error_feedback_state,
+    init_composed_zero1_state,
     make_train_step,
 )
 
@@ -52,6 +62,8 @@ __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "device", "ReduceOp", "Average", "Sum", "Min", "Max",
     "Product", "Adasum", "Compression", "allreduce", "allgather", "broadcast",
+    "hierarchical_allreduce", "hierarchical_allgather", "hierarchical_reducescatter",
+    "hierarchical_broadcast", "hierarchical_alltoall", "init_composed_zero1_state",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "make_train_step", "GradientAccumulator",
     "allreduce_gradients", "error_feedback_state", "EFState", "HorovodInternalError",

@@ -61,11 +61,16 @@ def sanitize(tree: Any) -> Any:
     return _map(fix, tree)
 
 
-def agree_flag(flag: torch.Tensor, group: collectives.Group = None) -> torch.Tensor:
+def agree_flag(flag: torch.Tensor, group: Any = None) -> torch.Tensor:
     """Cross-rank agreement on the skip/abort flag: an allreduce MAX over
     the group, so it is 1 on EVERY rank when ANY rank flagged, and no rank
-    applies a step another rank skipped."""
-    return collectives.allreduce(flag.reshape(1), op=ReduceOp.MAX, group=group).reshape(())
+    applies a step another rank skipped. A tuple of groups (an axis tuple,
+    or the composed step's data and model groups) agrees over every rank of
+    their grid, one MAX a group."""
+    flag = flag.reshape(1)
+    for g in (group if isinstance(group, tuple) else (group,)):
+        flag = collectives.allreduce(flag, op=ReduceOp.MAX, group=g)
+    return flag.reshape(())
 
 
 def select_on_flag(flag: torch.Tensor, when_set: Any, when_clear: Any) -> Any:

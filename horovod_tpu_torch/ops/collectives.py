@@ -1,5 +1,6 @@
 """Collectives on ``torch.distributed``: allreduce, allgather,
-reducescatter, broadcast, alltoall and the ring shift.
+reducescatter, broadcast, alltoall, the ring shift and the two-level
+(``hierarchical_*``) family.
 
 The counterpart of ``horovod_tpu/ops/collectives.py``. The JAX package
 lowers each collective to an XLA collective over a named mesh axis; here
@@ -28,11 +29,17 @@ Reference semantics kept:
  - alltoall is ``lax.all_to_all(..., tiled=True)``: split along
    ``split_axis`` into one chunk per rank, chunk j to rank j, the chunks
    received concatenated along ``concat_axis`` in rank order.
+
+The ``hierarchical_*`` collectives take a local and a cross group (the JAX
+package's ``local_axis``/``cross_axis``) and run the topology compositor's
+two-level schedules (``topo/compositor.py``) through :class:`Hop`, one
+object a level. A tuple of groups, outermost first, plays the part of a
+JAX axis-name tuple (:class:`AxisGroups`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,6 +47,51 @@ import torch.distributed as dist
 from ..common.types import ReduceOp
 
 Group = Optional[dist.ProcessGroup]
+
+
+class AxisGroups(tuple):
+    """The groups of several mesh axes, outermost first: the port's form of
+    a JAX axis-name tuple such as ``("cross", "local")``. Every function
+    that takes ``group=`` takes a tuple of groups for such a tuple; ``flat``
+    is the one group over all of its ranks (what a ``psum`` over the tuple
+    reduces in), which ``parallel.mesh.axis_groups`` builds from the mesh.
+    A plain tuple has no ``flat``: it serves the per-level schedules only."""
+
+    def __new__(cls, groups, flat: Group = None):
+        self = super().__new__(cls, groups)
+        self.flat = flat
+        return self
+
+
+def flat_group(group) -> Group:
+    """The one group a flat collective over ``group`` runs in: the group
+    itself, or the flattened group of an :class:`AxisGroups`."""
+    if not isinstance(group, tuple):
+        return group
+    if len(group) == 1:
+        return flat_group(group[0])
+    flat = getattr(group, "flat", None)
+    if flat is None:
+        raise ValueError(
+            "a flat collective over a tuple of groups needs their flattened group: "
+            "build the tuple with parallel.mesh.axis_groups(mesh, axes)")
+    return flat
+
+
+def group_rank_size(group) -> Tuple[int, int]:
+    """(this rank's index, the size) over a group or a hop, or over a tuple
+    of them outer-major: index = sum of each level's rank times the sizes
+    inside it, the flat rank order of the JAX package's axis tuples."""
+    if isinstance(group, tuple):
+        idx, n = 0, 1
+        for g in group:
+            r, s = group_rank_size(g)
+            idx, n = idx * s + r, n * s
+        return idx, n
+    if hasattr(group, "exchange"):     # a hop
+        return group.rank, group.n
+    return dist.get_rank(group), dist.get_world_size(group)
+
 
 _TORCH_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -269,6 +321,107 @@ class Ring:
         for work in works:
             work.wait()
         return recvs
+
+
+class Hop:
+    """One level of a hierarchy of groups as the two-level schedules
+    (``topo/compositor.py``, the int8 wire's and Adasum's hierarchical
+    forms) use it: ``rank`` and ``n`` on the level and its primitives, each
+    on dim 0 and returning a new tensor, over the level's process group.
+    Anything with these members can stand in for it (``chip_smoke.py``
+    plays a ``(cross, local)`` grid of ranks on one card through one)."""
+
+    def __init__(self, group: Group = None):
+        self.group = group or dist.group.WORLD
+        self.n = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+
+    def all_reduce(self, x: torch.Tensor, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+        """SUM, MIN or MAX over the level."""
+        return allreduce(x, op=op, group=self.group)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The SUM over the level, chunk r of dim 0 to rank r."""
+        return reducescatter(x, group=self.group)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` concatenated on dim 0 in rank order."""
+        return _allgather(x, self.group, 0)
+
+    def broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
+        """The value of the level's rank ``root``."""
+        return broadcast(x, root_rank=root, group=self.group)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunk j of dim 0 to rank j; the received chunks in rank order."""
+        return _alltoall(x.contiguous(), self.group, 0, 0)
+
+    def exchange(self, x: torch.Tensor, peer: int) -> torch.Tensor:
+        """Send ``x`` to the level's rank ``peer`` and return its tensor."""
+        global_peer = dist.get_global_rank(self.group, peer)
+        buf = torch.empty_like(x)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x.contiguous(), global_peer, self.group),
+                dist.P2POp(dist.irecv, buf, global_peer, self.group)]):
+            work.wait()
+        return buf
+
+    @property
+    def ring(self) -> "Ring":
+        """The level as a ring (the int8 ring's transport)."""
+        return Ring(self.group)
+
+
+def as_hop(group: Any):
+    """``group`` as a :class:`Hop`: a hop-like object is taken as it is, a
+    process group (or None, every rank) is wrapped."""
+    return group if hasattr(group, "exchange") else Hop(group)
+
+
+def _two_level(lowering: str, x: torch.Tensor, cross_group, local_group, **kw) -> torch.Tensor:
+    from ..topo import compositor
+
+    return getattr(compositor, lowering)(x, (cross_group, local_group), algorithm="two-level",
+                                         **kw)
+
+
+def hierarchical_allreduce(x: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
+                           local_group, cross_group) -> torch.Tensor:
+    """Two-level allreduce (``NCCLHierarchicalAllreduce``): reduce-scatter
+    over the local group, allreduce of the shard over the cross group, then
+    all-gather over the local group. MIN/MAX run as a per-level chain;
+    PRODUCT and ADASUM raise (Adasum's hierarchical form is
+    ``ops/adasum.hierarchical_adasum_allreduce``)."""
+    return _two_level("lower_allreduce", x, cross_group, local_group, op=op)
+
+
+def hierarchical_allgather(x: torch.Tensor, *, local_group, cross_group) -> torch.Tensor:
+    """Two-level allgather: over the local group, then the blocks over the
+    cross group; rank order ``cross * local_size + local`` makes it the flat
+    allgather's result."""
+    return _two_level("lower_allgather", x, cross_group, local_group)
+
+
+def hierarchical_reducescatter(x: torch.Tensor, *, op: ReduceOp = ReduceOp.SUM,
+                               local_group, cross_group) -> torch.Tensor:
+    """Two-level reduce-scatter: a local block transpose lets the local
+    group reduce-scatter first, so only the 1/local_size shard crosses the
+    cross group, and the shard is the flat op's."""
+    return _two_level("lower_reducescatter", x, cross_group, local_group, op=op)
+
+
+def hierarchical_broadcast(x: torch.Tensor, *, root_rank: int = 0, local_group,
+                           cross_group) -> torch.Tensor:
+    """Two-level broadcast of the flat rank ``root_rank``'s value: inside
+    the root's local group, then across the cross groups."""
+    return _two_level("lower_broadcast", x, cross_group, local_group, root_rank=root_rank)
+
+
+def hierarchical_alltoall(x: torch.Tensor, *, local_group, cross_group) -> torch.Tensor:
+    """Two-level all-to-all: one exchange over the cross group grouped by
+    destination, a local block transpose, then the local exchange; the
+    result is the flat all-to-all's, in source-rank order."""
+    return _two_level("lower_alltoall", x, cross_group, local_group)
 
 
 def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:

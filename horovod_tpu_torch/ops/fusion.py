@@ -7,7 +7,10 @@ and each bucket is reduced by one collective. ``plan_buckets`` is copied
 rule for rule, so a leaf list in the JAX package's order gives the same
 bucket index lists. ``fused_reduce_scatter`` (ZeRO-1's per-bucket
 reduce-scatter) and ``quantized_ef_allreduce`` (the int8 wire with error
-feedback) reduce the same buckets.
+feedback) reduce the same buckets. A tuple of groups, the JAX package's axis
+tuple, reduces flat over its flattened group, or two-level through a
+``reduce_fn`` (:func:`_hier_reduce_fn`) and, for ZeRO-1's reduce-scatter,
+the compositor's two-level schedule.
 
 The streamed half (``reduce_in_backward``, ``stream_param_groups``): the
 JAX package wraps parameter subtrees in a ``custom_vjp`` identity whose
@@ -35,7 +38,6 @@ import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 from ..common import env as _env
 from ..common.types import ReduceOp
@@ -135,11 +137,15 @@ def fused_allreduce(
     the inputs are left unchanged. ``threshold_bytes=None`` resolves the
     HOROVOD_FUSION_THRESHOLD knob. ``group`` is the process group to reduce
     over (a mesh axis's, as the JAX package's ``axis_name``; None: every
-    rank); Average divides by its size. ``reduce_fn(x, *, op, group,
+    rank; a tuple of groups, an axis tuple, reduces flat over its flattened
+    group); Average divides by its size. ``reduce_fn(x, *, op, group,
     prescale_factor, postscale_factor)`` reduces one bucket (default
-    ``collectives.allreduce``; the int8 ring's and Adasum's take its
-    place)."""
+    ``collectives.allreduce``; the int8 ring's, Adasum's and the two-level
+    :func:`_hier_reduce_fn` take its place, with ``group`` as given)."""
     threshold_bytes = default_threshold_bytes(threshold_bytes)
+    if reduce_fn is None:
+        # A psum over an axis tuple: one flat collective over its group.
+        group = collectives.flat_group(group)
     # A packed bucket is a fresh buffer, so the default reduces it in place.
     bucket_fn = reduce_fn or collectives.allreduce_
     reduce_fn = reduce_fn or collectives.allreduce
@@ -161,6 +167,21 @@ def fused_allreduce(
         for i, r in zip(bucket, unpacked):
             results[i] = r
     return results
+
+
+def _hier_reduce_fn(x: torch.Tensor, *, op, group, prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0) -> torch.Tensor:
+    """The two-level ``reduce_fn`` (``hierarchical=True``): reduce-scatter
+    over the local group, the shard allreduced over the cross group, then
+    all-gathered back; ``group`` is the ``(cross, local)`` pair."""
+    cross_group, local_group = group
+    if prescale_factor != 1.0:
+        x = x * prescale_factor
+    out = collectives.hierarchical_allreduce(x, op=op, local_group=local_group,
+                                             cross_group=cross_group)
+    if postscale_factor != 1.0:
+        out = out * postscale_factor
+    return out
 
 
 # --- parameter trees ----------------------------------------------------------
@@ -317,7 +338,9 @@ def fused_reduce_scatter(
     into a zero image of the tree; the shard is the same numbers).
 
     SUM/AVERAGE run ``reducescatter`` (or the int8 ring reduce-scatter with
-    ``quantized=True``); MIN/MAX reduce then slice (exact, no wire saving);
+    ``quantized=True``), or over a tuple of groups the compositor's
+    two-level reduce-scatter, whose shard is the flat op's for this rank's
+    outer-major index; MIN/MAX reduce then slice (exact, no wire saving);
     integer buckets reduce exactly. ``ef`` (quantized only) is the SHARDED
     error-feedback residual ``{"b<i>": f32[k]}``: each rank adds its
     residual to its own chunk of the local payload before the ring and
@@ -327,12 +350,21 @@ def fused_reduce_scatter(
             f"fused_reduce_scatter supports elementwise ops {_STREAMABLE_OPS}; got {op}")
     if quantized and op not in _QUANTIZABLE_OPS:
         raise ValueError(f"quantized reduce-scatter supports {_QUANTIZABLE_OPS}; got {op}")
+    hierarchy = isinstance(group, tuple) and len(group) > 1
+    if quantized and hierarchy:
+        raise ValueError(
+            "quantized zero1 runs the flat int8 ring reduce-scatter; hierarchical (DCN-only) "
+            "compression is not defined for the RS+AG decomposition — drop hierarchical or "
+            "quantized")
     if ef is not None and not quantized:
         raise ValueError(
             "sharded error feedback (ef=...) only applies to the quantized zero1 wire")
+    from ..topo import compositor
     from .quantized import quantize_roundtrip, quantized_ring_reduce_scatter
 
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    idx, n = collectives.group_rank_size(group)
+    if isinstance(group, tuple) and len(group) == 1:
+        group = group[0]
     shards: Dict[str, torch.Tensor] = {}
     new_ef: Dict[str, torch.Tensor] = {}
     for bi, bucket in enumerate(plan_buckets(leaves, default_threshold_bytes(threshold_bytes))):
@@ -358,11 +390,14 @@ def fused_reduce_scatter(
             shard = quantized_ring_reduce_scatter(
                 work, group=group, average=op == ReduceOp.AVERAGE).to(dtype)
         elif op in (ReduceOp.SUM, ReduceOp.AVERAGE):
-            shard = collectives.reducescatter(buf, op=ReduceOp.SUM, group=group)
+            shard = (compositor.lower_reducescatter(buf, group) if hierarchy
+                     else collectives.reducescatter(buf, op=ReduceOp.SUM, group=group))
             if op == ReduceOp.AVERAGE:
                 shard = shard / n if is_float else shard // n
         else:
-            shard = collectives.allreduce(buf, op=op, group=group)[idx * k:(idx + 1) * k]
+            full = (compositor.lower_allreduce(buf, group, op=op) if hierarchy
+                    else collectives.allreduce(buf, op=op, group=group))
+            shard = full[idx * k:(idx + 1) * k]
         shards[key] = shard
     if ef is None:
         return shards, None
@@ -400,6 +435,7 @@ def quantized_ef_allreduce(
 
     if op not in _QUANTIZABLE_OPS:
         raise ValueError(f"quantized reduction supports {_QUANTIZABLE_OPS}; got {op}")
+    group = collectives.flat_group(group)
     if len(ef) != len(leaves):
         raise ValueError(
             f"error-feedback residual has {len(ef)} leaves but the gradient list has "
@@ -532,7 +568,13 @@ class StreamedReduction:
             seen = self._complete + [g for g in range(len(self.groups))
                                      if g not in self._complete]
             order = torch.tensor(seen, dtype=torch.int64, device=self.groups[0][0].device)
-            self._order = collectives.broadcast_(order, root_rank=0, group=self._group).tolist()
+            if isinstance(self._group, tuple):
+                from ..topo.compositor import lower_broadcast
+
+                order = lower_broadcast(order, self._group, root_rank=0)
+            else:
+                collectives.broadcast_(order, root_rank=0, group=self._group)
+            self._order = order.tolist()
             self._ordered = True
         self.last_launched_in_backward = self.launched_in_backward
         self.last_launched_early = self.launched_early

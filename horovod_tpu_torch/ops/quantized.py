@@ -17,12 +17,17 @@ scales' raw bytes (``_pack``).
 Hops go through a ring transport (``collectives.Ring``: ``rank``, ``n``,
 ``post`` and ``wait``, one ``batch_isend_irecv`` a hop); any object with
 those members can stand in for it, so ``chip_smoke.py`` plays 4 ranks on
-one card through the same code. The hierarchical (DCN-only) lowering is not
-ported (ROADMAP A7b).
+one card through the same code.
+
+The hierarchical lowering (:func:`quantized_hierarchical_allreduce`) moves
+int8 on the outermost level only: the inner levels reduce-scatter and
+all-gather in full precision, and the 1/L shard crosses the outer level
+(across nodes) through the int8 ring over that level's ``ring``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
@@ -37,6 +42,7 @@ __all__ = [
     "ef_like",
     "quantize_roundtrip",
     "quantized_reduce_fn",
+    "quantized_hierarchical_allreduce",
     "quantized_ring_allreduce",
     "quantized_ring_reduce_scatter",
 ]
@@ -174,6 +180,46 @@ def quantized_ring_allreduce(
     return result.to(orig_dtype)
 
 
+# --- hierarchical (int8 on the outermost level only) -------------------------
+
+
+def _q2l(flat: torch.Tensor, levels) -> torch.Tensor:
+    """k-level allreduce of a flat f32 vector with int8 ONLY on the
+    outermost level: RS(inner, full precision) -> recurse on the 1/L shard
+    -> AG(inner). The base case, the outermost level alone, is the int8
+    ring."""
+    if len(levels) == 1:
+        return quantized_ring_allreduce(flat, ring=levels[0].ring)
+    inner = levels[-1]
+    n = flat.shape[0]
+    pad = (-n) % inner.n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    full = inner.all_gather(_q2l(inner.reduce_scatter(flat), levels[:-1]))
+    return full[:n] if pad else full
+
+
+def quantized_hierarchical_allreduce(x: torch.Tensor, axes, *, average: bool = False
+                                     ) -> torch.Tensor:
+    """Sum (or average) ``x`` over the hierarchy ``axes`` (groups or hops,
+    outermost first) with int8 on the outermost level only: the inner
+    levels run full-precision reduce-scatter and all-gather, the remaining
+    1/L shard crosses the outer level through the int8 ring. The result
+    has ``x``'s shape and dtype."""
+    from ..topo.compositor import hops
+
+    levels = hops(axes)
+    if len(levels) == 1:
+        return quantized_ring_allreduce(x, average=average, ring=levels[0].ring)
+    flat = x.to(torch.float32).reshape(-1)
+    if flat.shape[0] == 0:
+        return x
+    out = _q2l(flat, levels)
+    if average:
+        out = _true_div(out, math.prod(h.n for h in levels))
+    return out.reshape(x.shape).to(x.dtype)
+
+
 # --- wire round-trip (error feedback) ----------------------------------------
 
 
@@ -219,27 +265,31 @@ def ef_like(params: Any) -> Any:
 
 def quantized_reduce_fn(mode: str = "flat"):
     """A ``reduce_fn`` for ``ops/fusion.fused_allreduce``: float buckets
-    ride the int8 ring, integer buckets reduce exactly (buckets are one
-    dtype, so dispatching per bucket loses nothing). ``mode="two-level"``,
-    the compressed-on-DCN-only lowering, is not ported (ROADMAP A7b)."""
-    if mode == "two-level":
-        raise NotImplementedError(
-            "the two-level quantized reduction is not ported yet (ROADMAP A7b)")
-    if mode != "flat":
+    ride the int8 wire, integer buckets reduce exactly (buckets are one
+    dtype, so dispatching per bucket loses nothing). ``mode``: ``"flat"``,
+    the int8 ring over the group (over the flattened group of a tuple);
+    ``"two-level"``, int8 on the outermost level only
+    (:func:`quantized_hierarchical_allreduce`; ``group`` is the hierarchy's
+    tuple of groups, outermost first)."""
+    if mode not in ("flat", "two-level"):
         raise ValueError(f"unknown quantized reduce mode {mode!r}")
 
     def fn(x, *, op, group=None, prescale_factor=1.0, postscale_factor=1.0, ring=None):
         if not x.is_floating_point():
             return collectives.allreduce(
-                x, op=op, group=group, prescale_factor=prescale_factor,
+                x, op=op, group=collectives.flat_group(group), prescale_factor=prescale_factor,
                 postscale_factor=postscale_factor,
             ).to(x.dtype)
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
             raise ValueError(f"quantized reduction supports SUM/AVERAGE; got {op}")
         if prescale_factor != 1.0:
             x = x * prescale_factor
-        out = quantized_ring_allreduce(
-            x, group=group, average=(op == ReduceOp.AVERAGE), ring=ring)
+        average = op == ReduceOp.AVERAGE
+        if mode == "two-level":
+            out = quantized_hierarchical_allreduce(x, group, average=average)
+        else:
+            out = quantized_ring_allreduce(x, group=collectives.flat_group(group),
+                                           average=average, ring=ring)
         if postscale_factor != 1.0:
             out = out * postscale_factor
         return out

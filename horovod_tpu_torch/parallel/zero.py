@@ -9,6 +9,11 @@ all-gathered back into every rank's parameters:
     inner.step() on (p_shard, g_shard)             (1/N of the state)
     packed params <--allgather-- p_shard'
 
+The data group may be a tuple of groups (an axis tuple such as ``(cross,
+local)``): the reduce-scatter and the all-gather then run two-level
+(``topo/compositor.py``) and a rank's shard is the one of its outer-major
+index.
+
 In torch each rank holds one flat shard tensor per (group, bucket) of the
 streamed layout (``ops/fusion.zero1_group_layout``), in the bucket's dtype,
 and the inner optimizer is rebuilt over those shards as
@@ -27,7 +32,6 @@ import inspect
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 
 from ..common.types import ReduceOp
 from ..ops import collectives
@@ -71,9 +75,11 @@ def _hyperparameters(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
 
 
 def _shards_of(group, n_shards: Optional[int]):
-    """(n, rank) of the data group; a stated shard count must be its size,
-    or every shard offset would silently misalign."""
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    """(n, rank) of the data group, or of a tuple of groups (outer-major,
+    the shard index the two-level reduce-scatter emits); a stated shard
+    count must be its size, or every shard offset would silently
+    misalign."""
+    rank, n = collectives.group_rank_size(group)
     if n_shards is not None and int(n_shards) != n:
         raise ValueError(
             f"zero1: the state is sharded {n_shards} ways but the group has {n} ranks; "
@@ -201,10 +207,20 @@ def zero1_stream_update(
                                  f"live partition of group {label!r} does not")
         state.opt.step()
         for shard, leaves, total in live:
-            full = collectives.allgather(shard.detach(), group=group)[:total]
+            full = _allgather(shard.detach(), group)[:total]
             for leaf, new in zip(leaves, F.unpack_bucket(full, [l.shape for l in leaves])):
                 leaf.copy_(new)
             shard.grad = None
+
+
+def _allgather(shard: torch.Tensor, group) -> torch.Tensor:
+    """The new shards gathered over the group; over a tuple of groups, the
+    two-level all-gather (only the 1/L shard crosses the outer levels)."""
+    if isinstance(group, tuple):
+        from ..topo.compositor import lower_allgather
+
+        return lower_allgather(shard, group)
+    return collectives.allgather(shard, group=group)
 
 
 # --- the whole-vector form ------------------------------------------------------

@@ -5,6 +5,7 @@
     python -m horovod_tpu_torch.tools.dp_parity --ranks 4 --model resnet18
     python -m horovod_tpu_torch.tools.dp_parity --ranks 4 --variant overlap,zero1
     python -m horovod_tpu_torch.tools.dp_parity --ranks 4 --bench --variant posthoc,overlap
+    python -m horovod_tpu_torch.tools.dp_parity --ranks 4 --variant hierarchical,hierarchical-zero1
 
 Every rank starts from its own random weights, and ``broadcast_parameters``
 gives them rank 0's. The ranks then train a small GPT in f32 for a few
@@ -34,7 +35,15 @@ the DP step: ``posthoc`` (the default above), ``overlap`` (the streamed
 reduction, 256 KiB first group), ``quantized`` (the int8 wire, error
 feedback on), ``zero1``, ``zero1-quantized-overlap`` and ``skip`` (the
 non-finite guard, with the last rank's gradients made NaN at the second
-step, which every rank must skip and the whole-batch process leaves out).
+step, which every rank must skip and the whole-batch process leaves out),
+and on a ``(cross 2, local n/2)`` mesh (``build_hierarchical_mesh``) through
+``make_train_step(mesh=..., hierarchical=True)``: ``hierarchical`` (every
+bucket two-level), ``hierarchical-quantized`` (int8 on the cross level
+only), ``hierarchical-overlap``, ``hierarchical-zero1`` (the reduce-scatter
+and all-gather two-level) and ``hierarchical-adasum``. Adasum combines the
+node SUMS adaptively, which no whole-batch step computes: its reference
+replays the n shards' gradients and combines each bucket by
+``hierarchical_adasum_reference`` (float64) before the AdamW step.
 Each prints its JSON line with the step time and
 ``torch.cuda.max_memory_allocated`` of every rank. posthoc, overlap, zero1
 and skip hold the loss to 1e-6 relative and the parameters to the test's
@@ -73,8 +82,14 @@ VARIANTS = {
     "zero1-quantized-overlap": dict(zero1=True, quantized=True, overlap=True,
                                     first_bucket_bytes=1 << 18),
     "skip": dict(nonfinite="skip"),
+    "hierarchical": dict(hierarchical=True),
+    "hierarchical-quantized": dict(hierarchical=True, quantized=True),
+    "hierarchical-overlap": dict(hierarchical=True, overlap=True, first_bucket_bytes=1 << 18),
+    "hierarchical-zero1": dict(hierarchical=True, zero1=True),
+    "hierarchical-adasum": dict(hierarchical=True, op="Adasum"),
 }
-INT8 = ("quantized", "zero1-quantized-overlap")
+INT8 = ("quantized", "zero1-quantized-overlap", "hierarchical-quantized")
+THRESHOLD = 1 << 20
 SKIPPED = 1         # the step the skip variant poisons
 GPT2_SMALL = dict(vocab_size=32768, d_model=768, n_heads=12, n_layers=12, max_len=1024)
 BENCH_BATCH, BENCH_SEQ, BENCH_WARMUP, BENCH_STEPS = 8, 1024, 3, 20
@@ -213,17 +228,14 @@ def _worker(variant: str) -> None:
     model = TransformerLM(**DIMS, dtype=torch.float32, device=dev, seed=r)
     initial = {k: v.clone() for k, v in model.state_dict().items()}
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=1e-4, eps=1e-8),
-        named_parameters=model.named_parameters(), fusion_threshold_bytes=1 << 20,
-        **VARIANTS[variant])
+    step = _make_step(hvd, model, variant, THRESHOLD)
+    opt = step.optimizer
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     rng = np.random.RandomState(0)
     tokens, labels = (torch.from_numpy(rng.randint(0, DIMS["vocab_size"],
                                                    (n * PER_RANK_BATCH, SEQ))).to(dev)
                       for _ in range(2))
     shard = slice(r * PER_RANK_BATCH, (r + 1) * PER_RANK_BATCH)
-    step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]) * b[2], opt)
     losses, times, skipped = [], [], []
     for s in range(STEPS):
         poison = float("nan") if variant == "skip" and s == SKIPPED and r == n - 1 else 1.0
@@ -255,6 +267,10 @@ def _worker(variant: str) -> None:
     ref_losses = []
     for s in range(STEPS):
         ref_opt.zero_grad()
+        if variant == "hierarchical-adasum":
+            ref_losses.append(_adasum_replay(ref, tokens, labels, n))
+            ref_opt.step()
+            continue
         loss = lm_loss(ref(tokens), labels)
         if variant == "skip" and s == SKIPPED:
             ref_losses.append(float("nan"))     # every rank skips this step
@@ -287,6 +303,64 @@ def _worker(variant: str) -> None:
     _judge(result, same, loss_rel, result["max_param_abs_err"],
            result["share_beyond_1pct_step"], LR, extra_ok=skip_ok,
            loss_limit=1e-3 if int8 else 1e-6, share_limit=1.0 if int8 else 1e-4)
+
+
+def _make_step(hvd, model, variant: str, threshold=None):
+    """The DP step of ``variant``: a ``DistributedOptimizer`` over AdamW
+    with its options, or for a hierarchical variant ``make_train_step`` on a
+    ``(cross 2, local n/2)`` mesh with a plain AdamW. The step's
+    ``optimizer`` is the ``DistributedOptimizer``."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.parallel.mesh import build_hierarchical_mesh
+
+    kw = dict(VARIANTS[variant])
+    if "op" in kw:
+        kw["op"] = getattr(hvd, kw["op"])
+    adamw = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=1e-4, eps=1e-8)
+    loss_fn = lambda m, b: lm_loss(m(b[0]), b[1]) * b[2]   # noqa: E731 - b[2]: 1 or NaN
+    if kw.get("hierarchical"):
+        n = hvd.size()
+        if n % 2:
+            raise SystemExit(f"--variant {variant} needs an even number of ranks")
+        step = hvd.make_train_step(loss_fn, adamw, mesh=build_hierarchical_mesh(n // 2),
+                                   fusion_threshold_bytes=threshold, **kw)
+        step.optimizer.bind_module(model)
+        return step
+    opt = hvd.DistributedOptimizer(adamw, named_parameters=model.named_parameters(),
+                                   fusion_threshold_bytes=threshold, **kw)
+    return hvd.make_train_step(loss_fn, opt)
+
+
+def _adasum_replay(ref, tokens, labels, n: int) -> float:
+    """One hierarchical-Adasum step's gradients in one process: each of the
+    n shards' gradients, combined bucket by bucket (the fusion plan of the
+    step, in the JAX package's leaf order) as node sums of n/2 ranks by
+    ``hierarchical_adasum_reference`` in float64, written into ``.grad``.
+    Returns the mean of the shards' losses."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.adasum import hierarchical_adasum_reference
+
+    tree = fusion.named_tree(list(ref.named_parameters()))
+    leaves = fusion.tree_leaves(tree)
+    grads, losses = [], []
+    for r in range(n):
+        rows = slice(r * PER_RANK_BATCH, (r + 1) * PER_RANK_BATCH)
+        loss = lm_loss(ref(tokens[rows]), labels[rows])
+        grads.append(torch.autograd.grad(loss, leaves))
+        losses.append(loss.item())
+    for bucket in fusion.plan_buckets(leaves, THRESHOLD):
+        packed = [fusion.pack_bucket([g[i] for i in bucket]).double().cpu().numpy()
+                  for g in grads]
+        combined = torch.from_numpy(hierarchical_adasum_reference(packed, n // 2))
+        for i, g in zip(bucket, fusion.unpack_bucket(combined.float().to(leaves[0].device),
+                                                     [leaves[i].shape for i in bucket])):
+            leaves[i].grad = g.clone()
+    return sum(losses) / n
 
 
 def _exposed_ms(prof) -> tuple:
@@ -354,13 +428,11 @@ def _bench_worker(variant: str) -> None:
     dims = GPT2_SMALL if dev.type == "cuda" else dict(DIMS)
     batch, seq = (BENCH_BATCH, BENCH_SEQ) if dev.type == "cuda" else (PER_RANK_BATCH, SEQ)
     model = TransformerLM(**dims, dtype=torch.bfloat16, device=dev, seed=0)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=1e-4, eps=1e-8),
-        named_parameters=model.named_parameters(), **VARIANTS[variant])
+    step = _make_step(hvd, model, variant)
+    opt = step.optimizer
     rng = np.random.RandomState(r)
     tokens, labels = (torch.from_numpy(rng.randint(0, dims["vocab_size"], (batch, seq)))
                       .to(dev) for _ in range(2))
-    step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]) * b[2], opt)
     one = torch.tensor(1.0, device=dev)
 
     def sync():

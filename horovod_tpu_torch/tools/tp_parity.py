@@ -5,6 +5,7 @@
     python -m horovod_tpu_torch.tools.tp_parity --ranks 4 --model 2 --device cpu   # gloo on the CPU
     python -m horovod_tpu_torch.tools.tp_parity --ranks 4 --model 4 --bench    # GPT-2-small step times
     python -m horovod_tpu_torch.tools.tp_parity --ranks 4 --model 4 --primitives
+    python -m horovod_tpu_torch.tools.tp_parity --ranks 4 --model 2 --variant overlap,zero1,skip
 
 The ranks form a ``{"data": ranks / model, "model": model}`` mesh. Each cuts
 the same initial weights of a small f32 GPT to its shards by the ``"gpt"``
@@ -17,6 +18,19 @@ the whole weights on the whole batch in one process with the dense
 parameters within 1e-5, and the ranks of one model coordinate (the data
 ranks) must hold bitwise the same shards. Prints one JSON line from rank 0,
 with the B3/B4 launches rank 0 made; exits non-zero on any disagreement.
+
+``--variant`` (a comma list, one init for all) runs the check once for each
+data-axis variant of the composed step: ``posthoc`` (the default above),
+``overlap`` (the data-group reduction streamed from the backward, small
+groups), ``quantized`` (the flat int8 ring over the data group, error
+feedback off: the loss within 1e-3 and the parameters within 1e-3, the int8
+wire's noise at SGD 0.1), ``zero1`` (the optimizer state sharded over the
+data group), ``skip`` (the non-finite guard: rank 1's gradient of a
+model-sharded leaf made NaN at the second step, which every rank of the
+mesh must skip and the whole-batch run leaves out) and ``two-level-dp``
+(the data scope an axis tuple, ``{"cross": 2, "local": data / 2, "model":
+model}`` with ``data_axis=("cross", "local")``, under zero1, whose
+reduce-scatter and all-gather then run two-level).
 
 ``--bench`` instead times the GPT-2-small step (d_model 768, 12 heads, 12
 layers, vocab 32768, bf16, AdamW 3e-4 with weight decay 1e-4) at ``data
@@ -57,6 +71,17 @@ BATCH, SEQ, STEPS, LR = 4, 256, 3, 0.1
 LOSS_RTOL, PARAM_ATOL = 1e-6, 1e-5
 GPT2_SMALL = dict(vocab_size=32768, d_model=768, n_heads=12, n_layers=12, max_len=1024)
 BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = 8, 1024, 5
+SMALL_BUCKETS = dict(fusion_threshold_bytes=1 << 18)
+VARIANTS = {
+    "posthoc": {},
+    "overlap": dict(overlap=True, first_bucket_bytes=1 << 16, **SMALL_BUCKETS),
+    "quantized": dict(quantized=True),
+    "zero1": dict(zero1=True, **SMALL_BUCKETS),
+    "skip": dict(nonfinite="skip"),
+    "two-level-dp": dict(zero1=True, **SMALL_BUCKETS),
+}
+INT8_RTOL = 1e-3        # the quantized variant's loss and parameter bound
+SKIPPED, POISONED_RANK, POISONED_LEAF = 1, 1, "block_1/mlp/up/kernel"
 
 
 def _setup(device, model: int):
@@ -71,6 +96,16 @@ def _setup(device, model: int):
     return hvd, build_mesh({"data": n // model, "model": model})
 
 
+def _two_level_mesh(hvd, model: int):
+    """``{"cross": 2, "local": data / 2, "model": model}``."""
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+
+    n_data = hvd.size() // model
+    if n_data % 2:
+        raise SystemExit(f"--variant two-level-dp needs an even data size, got {n_data}")
+    return build_mesh({"cross": 2, "local": n_data // 2, "model": model})
+
+
 def _named(tree):
     from horovod_tpu_torch.parallel.rules import named_tree_paths
 
@@ -83,68 +118,90 @@ def _flat(tree):
     return torch.cat([t.detach().reshape(-1) for _, t in _named(tree)])
 
 
-def _parity(device, model: int, fused: bool) -> None:
+def _parity(hvd, mesh, model: int, fused: bool, variant: str) -> None:
     import numpy as np
     import torch
 
     from horovod_tpu_torch.models.transformer import TransformerLM, make_gpt_loss_fn
     from horovod_tpu_torch.ops import collective_matmul as cm
-    from horovod_tpu_torch.ops.collectives import allgather
+    from horovod_tpu_torch.ops.collectives import allgather, flat_group
+    from horovod_tpu_torch.parallel.mesh import axis_groups
     from horovod_tpu_torch.utils.convert import (
         gather_params, local_params_from_flax, params_from_flax, params_to_numpy)
 
-    hvd, mesh = _setup(device, model)
-    try:
-        r, n, dev = hvd.rank(), hvd.size(), hvd.device()
-        # Every rank draws the same weights from the seed.
-        flat0 = params_to_numpy(TransformerLM(**DIMS, dtype=torch.float32, device=dev, seed=0))
-        params = local_params_from_flax(flat0, "gpt", mesh, device=dev)
-        rng = np.random.RandomState(0)
-        tokens = torch.from_numpy(rng.randint(0, DIMS["vocab_size"], (BATCH, SEQ))).to(dev)
-        labels = torch.roll(tokens, -1, dims=1)
-        step = hvd.make_train_step(
-            make_gpt_loss_fn(DIMS["n_heads"], model_axis="model", dtype=torch.float32),
-            torch.optim.SGD([t for _, t in _named(params)], lr=LR),
-            mesh=mesh, rules="gpt", tp_overlap=fused)
-        cm.AGMM_LAUNCHES = cm.MRS_LAUNCHES = 0
-        losses = [float(step(params, (tokens, labels))) for _ in range(STEPS)]
-        launches = {"b3": cm.AGMM_LAUNCHES, "b4": cm.MRS_LAUNCHES}
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    data_axis = ("cross", "local") if variant == "two-level-dp" else "data"
+    data_group = (axis_groups(mesh, data_axis) if variant == "two-level-dp"
+                  else mesh.get_group("data"))
+    # Every rank draws the same weights from the seed.
+    flat0 = params_to_numpy(TransformerLM(**DIMS, dtype=torch.float32, device=dev, seed=0))
+    params = local_params_from_flax(flat0, "gpt", mesh, device=dev)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, DIMS["vocab_size"], (BATCH, SEQ))).to(dev)
+    labels = torch.roll(tokens, -1, dims=1)
+    step = hvd.make_train_step(
+        make_gpt_loss_fn(DIMS["n_heads"], model_axis="model", dtype=torch.float32),
+        torch.optim.SGD([t for _, t in _named(params)], lr=LR),
+        mesh=mesh, rules="gpt", tp_overlap=fused, data_axis=data_axis, **VARIANTS[variant])
+    poison = {"on": False}
+    if variant == "skip" and r == POISONED_RANK:
+        dict(_named(params))[POISONED_LEAF].register_hook(
+            lambda g: g * float("nan") if poison["on"] else g)
+    cm.AGMM_LAUNCHES = cm.MRS_LAUNCHES = 0
+    losses, unchanged = [], []
+    for s in range(STEPS):
+        poison["on"] = variant == "skip" and s == SKIPPED
+        before = _flat(params)
+        losses.append(float(step(params, (tokens, labels))))
+        unchanged.append(bool(torch.equal(before, _flat(params))))
+    launches = {"b3": cm.AGMM_LAUNCHES, "b4": cm.MRS_LAUNCHES}
 
-        mine = _flat(params)
-        over_data = allgather(mine[None], group=mesh.get_group("data"))
-        same = bool((over_data == over_data[0]).all())
-        whole = _flat(gather_params(params, "gpt", mesh))
-        if r != 0:
-            return
+    mine = _flat(params)
+    over_data = allgather(mine[None], group=flat_group(data_group))
+    same = bool((over_data == over_data[0]).all())
+    skips = allgather(torch.tensor([unchanged], device=dev))
+    whole = _flat(gather_params(params, "gpt", mesh))
+    if r != 0:
+        return
 
-        ref = params_from_flax(flat0, device=dev)
-        ref_opt = torch.optim.SGD([t.requires_grad_() for _, t in _named(ref)], lr=LR)
-        ref_loss_fn = make_gpt_loss_fn(DIMS["n_heads"], dtype=torch.float32)
-        ref_losses = []
-        for _ in range(STEPS):
-            ref_opt.zero_grad()
-            loss = ref_loss_fn(ref, (tokens, labels))
-            loss.backward()
-            ref_opt.step()
-            ref_losses.append(loss.item())
-        diff = (whole - _flat(ref)).abs()
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-        result = {
-            "ranks": n, "mesh": {"data": n // model, "model": model}, "fused": fused,
-            "device": str(dev),
-            "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-            "losses": losses, "whole_batch_losses": ref_losses,
-            "max_loss_rel_err": loss_rel, "max_param_abs_err": float(diff.max()),
-            "data_ranks_identical": same, "launches_rank0": launches,
-        }
-        print(json.dumps(result), flush=True)
-        ok = same and loss_rel <= LOSS_RTOL and result["max_param_abs_err"] <= PARAM_ATOL
-        if fused and dev.type == "cuda":
-            ok = ok and launches["b3"] > 0 and launches["b4"] > 0
-        if not ok:
-            raise SystemExit("tensor-parallel run disagrees with the whole-batch run")
-    finally:
-        hvd.shutdown()
+    ref = params_from_flax(flat0, device=dev)
+    ref_opt = torch.optim.SGD([t.requires_grad_() for _, t in _named(ref)], lr=LR)
+    ref_loss_fn = make_gpt_loss_fn(DIMS["n_heads"], dtype=torch.float32)
+    ref_losses = []
+    for s in range(STEPS):
+        ref_opt.zero_grad()
+        loss = ref_loss_fn(ref, (tokens, labels))
+        ref_losses.append(loss.item())
+        if variant == "skip" and s == SKIPPED:
+            continue                            # every rank skips this step
+        loss.backward()
+        ref_opt.step()
+    diff = (whole - _flat(ref)).abs()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    result = {
+        "ranks": n, "mesh": axes, "fused": fused, "variant": variant, "device": str(dev),
+        "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "losses": losses, "whole_batch_losses": ref_losses,
+        "max_loss_rel_err": loss_rel, "max_param_abs_err": float(diff.max()),
+        "data_ranks_identical": same, "launches_rank0": launches,
+        "streamed_groups": list(step.optimizer.streamed_groups),
+    }
+    ok = same
+    if variant == "skip":
+        want = [s == SKIPPED for s in range(STEPS)]
+        result["skipped_by_rank"] = skips.tolist()
+        ok = ok and all(row.tolist() == want for row in skips)
+    print(json.dumps(result), flush=True)
+    tol = (INT8_RTOL, INT8_RTOL) if variant == "quantized" else (LOSS_RTOL, PARAM_ATOL)
+    ok = ok and loss_rel <= tol[0] and result["max_param_abs_err"] <= tol[1]
+    if fused and dev.type == "cuda":
+        ok = ok and launches["b3"] > 0 and launches["b4"] > 0
+    if variant == "overlap":
+        launched, _, groups = result["streamed_groups"]
+        ok = ok and launched == groups > 1
+    if not ok:
+        raise SystemExit(f"tensor-parallel run ({variant}) disagrees with the whole-batch run")
 
 
 def _family(name: str) -> str:
@@ -347,12 +404,20 @@ def main() -> int:
     ap.add_argument("--primitives", action="store_true",
                     help="time one call of each primitive against NCCL collectives")
     ap.add_argument("--device", default=None, help="cpu for gloo; default: one GPU per rank")
+    ap.add_argument("--variant", default="posthoc",
+                    help=f"comma list of {', '.join(VARIANTS)} (the parity check)")
     args = ap.parse_args()
     if args.ranks % args.model:
         ap.error(f"--model {args.model} does not divide --ranks {args.ranks}")
+    variants = args.variant.split(",")
+    unknown = [v for v in variants if v not in VARIANTS]
+    if unknown:
+        ap.error(f"unknown --variant {unknown}; choose from {list(VARIANTS)}")
+    if (args.bench or args.primitives) and variants != ["posthoc"]:
+        ap.error("--variant applies to the parity check")
     if "HOROVOD_RANK" not in os.environ:
         argv = ["--ranks", str(args.ranks), "--model", str(args.model),
-                "--device", args.device or "cuda"]
+                "--device", args.device or "cuda", "--variant", args.variant]
         argv += ["--fused"] * args.fused + ["--bench"] * args.bench
         argv += ["--primitives"] * args.primitives
         return launch_ranks("horovod_tpu_torch.tools.tp_parity", argv, args.ranks)
@@ -361,7 +426,14 @@ def main() -> int:
     elif args.primitives:
         _primitives(args.device, args.model)
     else:
-        _parity(args.device, args.model, args.fused)
+        hvd, mesh = _setup(args.device, args.model)
+        try:
+            two_level = _two_level_mesh(hvd, args.model) if "two-level-dp" in variants else None
+            for variant in variants:
+                _parity(hvd, two_level if variant == "two-level-dp" else mesh, args.model,
+                        args.fused, variant)
+        finally:
+            hvd.shutdown()
     return 0
 
 

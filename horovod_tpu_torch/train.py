@@ -22,16 +22,24 @@ The reduction, as the options select it:
   rank's shards only, the new shards all-gathered (``parallel/zero.py``);
 - ``op=Adasum``: the adaptive pairwise reduction per bucket
   (``ops/adasum.py``), post hoc only;
-- ``nonfinite``: the guard around the reduction (``guard/``).
+- ``nonfinite``: the guard around the reduction (``guard/``);
+- ``hierarchical=True``: every bucket two-level over a ``(cross, local)``
+  tuple of groups (``HOROVOD_HIERARCHICAL_ALLREDUCE``: reduce-scatter in
+  the node, allreduce of the shard across nodes, all-gather in the node;
+  ``topo/compositor.py``), with the options above: the int8 wire on the
+  cross level only, ZeRO-1's reduce-scatter and all-gather two-level,
+  Adasum between node sums. ``make_train_step(mesh=..., hierarchical=True)``
+  takes the groups from a ``build_hierarchical_mesh`` mesh.
 
-The hierarchical allreduce and the options of the composed DP×TP step are
-not ported (ROADMAP A7b), nor pinned tunings (A13); asking for them raises
-``NotImplementedError``.
+Plan selection (``hierarchical="auto"`` on a mesh with a (cross, local)
+grid, ``"planned"``) and pinned tunings (``tuned``) are ROADMAP A13; asking
+for them raises ``NotImplementedError``.
 
 ``make_train_step(rules=..., mesh=...)`` builds the composed DP×TP step
 (``_build_composed_train_step`` of the JAX package): the parameters are this
 rank's tensor-parallel shards, the loss runs on them with the model axis
-bound, and the gradients reduce over the data axis only.
+bound, and the gradients reduce over the data axis only, with the data-axis
+options above (a ``(cross, local)`` data scope too).
 """
 
 from __future__ import annotations
@@ -86,32 +94,75 @@ def _check_overlap_rejections(overlap: bool, quantized: bool, op: ReduceOp) -> N
         )
 
 
-def _resolve_error_feedback(error_feedback: Optional[bool], quantized: bool) -> bool:
+def _resolve_error_feedback(error_feedback: Optional[bool], quantized: bool,
+                            hierarchical: bool = False) -> bool:
     """Error feedback defaults ON for the flat int8 wire, where the residual
-    compensates this rank's quantizer; asking for it without the wire is an
-    error, not a silent no-op."""
+    compensates this rank's quantizer, and OFF for the hierarchical wire
+    (int8 on the cross level only: the quantizer sees post-local-reduction
+    shards no per-rank residual can attribute); forcing it where it cannot
+    act is an error, not a silent no-op."""
     if not quantized:
         if error_feedback:
             raise ValueError("error_feedback=True requires quantized=True")
         return False
+    if hierarchical:
+        if error_feedback:
+            raise ValueError(
+                "error feedback compensates the flat int8 ring; the hierarchical DCN-only "
+                "wire has no per-rank quantizer to compensate — leave error_feedback unset")
+        return False
     return True if error_feedback is None else bool(error_feedback)
 
 
-def _check_unported(hierarchical: Any = False, tuned: Any = None) -> None:
-    """The flat data axis is ported; the hierarchical allreduce and pinned
-    tunings are not."""
+def _resolve_hierarchical(hierarchical: Any, mesh=None) -> bool:
+    """The ``hierarchical`` knob: True/False pass through; ``"auto"`` on a
+    mesh with no (cross, local) grid is False. Plan selection
+    (``"planned"``, and ``"auto"`` anywhere else, where the JAX package
+    selects a plan per bucket from the topology model) is ROADMAP A13."""
+    if hierarchical == "auto" and mesh is not None:
+        from .parallel.mesh import hierarchy_axes
+
+        if not hierarchy_axes(mesh):
+            return False
     if hierarchical in ("auto", "planned"):
         raise NotImplementedError(
-            f"hierarchical={hierarchical!r} is not ported yet: the topology compositor's "
-            "plan selection is ROADMAP A13, the two-level collectives A7b")
-    if hierarchical:
-        raise NotImplementedError(
-            "hierarchical=True is not ported yet (ROADMAP A7b, the two-level collectives)")
+            f"hierarchical={hierarchical!r} selects a plan per bucket through the topology "
+            "compositor's plan selection, which is not ported yet (ROADMAP A13)")
+    return bool(hierarchical)
+
+
+def _check_hierarchy_group(group: Any) -> None:
+    """``hierarchical=True`` reduces over a ``(cross, local)`` pair of
+    groups, the JAX package's axis tuple."""
+    if not (isinstance(group, tuple) and len(group) == 2):
+        raise ValueError(
+            f"hierarchical=True needs a (cross, local) axis tuple, got {group!r}: pass "
+            "group=parallel.mesh.axis_groups(mesh, ('cross', 'local')), or "
+            "make_train_step(..., mesh=build_hierarchical_mesh(local_size), hierarchical=True)")
+
+
+def _check_tuned(tuned: Any) -> None:
+    """Pinned offline tunings are ROADMAP A13."""
     if tuned is None:
         tuned = os.environ.get(_env.HOROVOD_TUNED_FILE, "") or None
     if tuned not in (None, False):
         raise NotImplementedError("tuned= (pinned offline tunings) is not ported yet "
                                   "(ROADMAP A13)")
+
+
+def _select_reduce_fn(op: ReduceOp, hierarchical: bool, quantized: bool):
+    """A bucket's reduction, post hoc and streamed alike: Adasum (between
+    node sums over a (cross, local) pair), the int8 wire (on the cross level
+    only when hierarchical), the two-level allreduce, or None, the flat
+    allreduce."""
+    from .ops.adasum import adasum_reduce_fn
+    from .ops.quantized import quantized_reduce_fn
+
+    if op == ReduceOp.ADASUM:
+        return adasum_reduce_fn
+    if quantized:
+        return quantized_reduce_fn("two-level" if hierarchical else "flat")
+    return fusion._hier_reduce_fn if hierarchical else None
 
 
 def error_feedback_state(opt_state: Any, params: Any) -> EFState:
@@ -139,8 +190,13 @@ def allreduce_gradients(
     bucket over the int8 ring, SUM/AVERAGE only, integer buckets exact.
     ``nonfinite`` (None reads ``HOROVOD_GUARD_NONFINITE``): ``zero``
     sanitizes before the wire, ``warn`` logs a non-finite reduced value;
-    ``skip`` and ``abort`` act at the step (``DistributedOptimizer``)."""
-    _check_unported(hierarchical, False)
+    ``skip`` and ``abort`` act at the step (``DistributedOptimizer``).
+    ``hierarchical=True`` reduces two-level over ``group``, a ``(cross,
+    local)`` pair of groups (with ``quantized``: int8 on the cross level
+    only)."""
+    hierarchical = _resolve_hierarchical(hierarchical)
+    if hierarchical:
+        _check_hierarchy_group(group)
     quantized = _resolve_quantized(quantized)
     policy = resolve_policy(nonfinite)
     if quantized:
@@ -152,22 +208,20 @@ def allreduce_gradients(
                 "compression would add loss for no bandwidth win")
     if policy == "zero":
         grads = _nf.sanitize(list(grads))
-    reduced = _fused(grads, op, group, fusion_threshold_bytes, compression, quantized)
+    reduced = _fused(grads, op, group, fusion_threshold_bytes, compression, quantized,
+                     hierarchical)
     if policy == "warn":
         _warn_nonfinite(reduced, "reduce")
     return reduced
 
 
-def _fused(grads, op, group, threshold, compression, quantized) -> List[torch.Tensor]:
-    """One fused allreduce through the reduce_fn ``op`` and the wire need."""
-    from .ops.adasum import adasum_reduce_fn
-    from .ops.quantized import quantized_reduce_fn
-
-    reduce_fn = (adasum_reduce_fn if op == ReduceOp.ADASUM
-                 else quantized_reduce_fn("flat") if quantized else None)
+def _fused(grads, op, group, threshold, compression, quantized,
+           hierarchical) -> List[torch.Tensor]:
+    """One fused allreduce through the reduce_fn the options select."""
     compressed = [compression.compress(g) for g in grads]
     reduced = fusion.fused_allreduce([c for c, _ in compressed], op=op, threshold_bytes=threshold,
-                                     group=group, reduce_fn=reduce_fn)
+                                     group=group,
+                                     reduce_fn=_select_reduce_fn(op, hierarchical, quantized))
     return [compression.decompress(r, ctx) for r, (_, ctx) in zip(reduced, compressed)]
 
 
@@ -189,7 +243,9 @@ class DistributedOptimizer:
     are divided by it, as the JAX package folds the divisor into its update.
     ``group`` is the process group the gradients reduce over (None: every
     rank; the data axis's group in the composed DP×TP step), and Average
-    divides by its size.
+    divides by its size. A tuple of groups (``parallel.mesh.axis_groups``,
+    outermost first) is the JAX package's axis tuple: the reduction runs
+    flat over its flattened group, and ZeRO-1 two-level.
 
     The options of the JAX ``DistributedOptimizer`` on one data axis:
 
@@ -218,11 +274,18 @@ class DistributedOptimizer:
       raises ``HorovodInternalError``.
     - ``op=Adasum`` reduces each bucket adaptively (``ops/adasum.py``), post
       hoc only.
+    - ``hierarchical=True`` (``group`` a ``(cross, local)`` pair) reduces
+      every bucket two-level, post hoc or streamed; with ``quantized`` the
+      int8 wire runs on the cross level only and error feedback is off; with
+      Adasum the node sums combine across nodes.
 
-    The combinations the JAX builders refuse raise ``ValueError`` here too.
-    Unlike the JAX optax wrapper, ``zero1`` takes error feedback and
-    skip/abort: the step here owns the state the JAX wrapper could not
-    reach. ``hierarchical`` and ``tuned`` raise ``NotImplementedError``."""
+    The combinations the JAX builders refuse raise ``ValueError`` here too,
+    ``zero1`` with ``hierarchical`` among them: a two-level ZeRO-1 is
+    ``make_train_step(zero1=True, hierarchical=True, mesh=...)``, or a
+    tuple ``group`` here. Unlike the JAX optax wrapper, ``zero1`` takes
+    error feedback and skip/abort: the step here owns the state the JAX
+    wrapper could not reach. ``hierarchical="auto"``/``"planned"`` and
+    ``tuned`` raise ``NotImplementedError`` (ROADMAP A13)."""
 
     def __init__(
         self,
@@ -244,7 +307,8 @@ class DistributedOptimizer:
         hierarchical: Any = False,
         tuned: Any = None,
     ):
-        _check_unported(hierarchical, tuned)
+        hierarchical = _resolve_hierarchical(hierarchical)
+        _check_tuned(tuned)
         quantized = _resolve_quantized(quantized)
         _check_overlap_rejections(overlap, quantized, op)
         if quantized and compression is not Compression.none:
@@ -260,14 +324,30 @@ class DistributedOptimizer:
                 raise ValueError(
                     "zero1=True reduce-scatters raw buckets; cast compression has no "
                     "shard form — use quantized=True instead")
+            if hierarchical:
+                raise ValueError(
+                    "DistributedOptimizer(zero1=True) runs over the flat data axis; "
+                    "hierarchical zero1 lives in make_train_step(zero1=True, "
+                    "hierarchical=True), which owns the mesh")
+            if quantized and isinstance(group, tuple) and len(group) > 1:
+                raise ValueError(
+                    "quantized zero1 runs the flat int8 ring reduce-scatter over ONE axis; "
+                    "hierarchical (DCN-only) compression is not defined for the RS+AG "
+                    "decomposition — drop hierarchical or quantized")
+        if hierarchical:
+            _check_hierarchy_group(group)
         self._opt = optimizer
         self._compression = compression
         self._op = op
         self._threshold = fusion_threshold_bytes
         self._first_bucket = first_bucket_bytes
         self._group = group
+        # The groups the skip/abort flag is agreed over (the composed step
+        # adds the model group).
+        self._flag_group = group
+        self._hierarchical = hierarchical
         self._quantized = quantized
-        self._use_ef = _resolve_error_feedback(error_feedback, quantized)
+        self._use_ef = _resolve_error_feedback(error_feedback, quantized, hierarchical)
         self._overlap = overlap
         self._policy = resolve_policy(nonfinite)
         if zero1:
@@ -388,7 +468,7 @@ class DistributedOptimizer:
             return fusion.quantized_ef_allreduce(grads, ef, op=self._op, group=self._group,
                                                  threshold_bytes=self._threshold)
         return _fused(grads, self._op, self._group, self._threshold, self._compression,
-                      self._quantized), None
+                      self._quantized, self._hierarchical), None
 
     def synchronize(self) -> None:
         """Reduce every gradient: finish the streamed groups, or reduce post
@@ -437,7 +517,7 @@ class DistributedOptimizer:
         post = _nf.local_flag(reduced)
         pre = self._pending["pre"]
         flag = post if pre is None else torch.maximum(pre.to(post.device), post)
-        return float(_nf.agree_flag(flag.to(basics.device()), self._group)) > 0
+        return float(_nf.agree_flag(flag.to(basics.device()), self._flag_group)) > 0
 
     def step(self, closure=None):
         if self._pending is None:
@@ -538,10 +618,11 @@ def make_train_step(
     first_bucket_bytes: Optional[int] = None,
     hierarchical: Any = False,
     tuned: Any = None,
+    topo_algorithm: Optional[str] = None,
     mesh=None,
     rules: Any = None,
     model_axis: str = "model",
-    data_axis: str = "data",
+    data_axis: Any = "data",
     tp_overlap: Optional[bool] = None,
 ):
     """Build ``step(params, batch)``: forward, backward, the reduction of
@@ -560,72 +641,82 @@ def make_train_step(
     here in a :class:`DistributedOptimizer` with ``op``, ``compression``,
     ``fusion_threshold_bytes`` and the data-axis options (``overlap``,
     ``first_bucket_bytes``, ``quantized``, ``error_feedback``, ``zero1``,
-    ``nonfinite``; see there), or a :class:`DistributedOptimizer` that
-    already carries them. A plain optimizer's parameters are walked by the
-    module's parameter names (the JAX package's leaf order and top-level
-    children) when ``params`` is a module. With ``nonfinite="abort"`` the
-    step raises ``HorovodInternalError`` when any rank's gradients were not
-    finite; the update is applied on no rank.
+    ``nonfinite``, ``hierarchical``; see there), or a
+    :class:`DistributedOptimizer` that already carries them. A plain
+    optimizer's parameters are walked by the module's parameter names (the
+    JAX package's leaf order and top-level children) when ``params`` is a
+    module. With ``nonfinite="abort"`` the step raises
+    ``HorovodInternalError`` when any rank's gradients were not finite; the
+    update is applied on no rank. The returned step's ``optimizer`` is the
+    :class:`DistributedOptimizer` it steps.
 
-    ``hierarchical`` and ``tuned`` keep the JAX signature and raise
-    ``NotImplementedError`` (ROADMAP A7b and A13).
+    ``hierarchical=True`` takes the ``(cross, local)`` groups from ``mesh``
+    (``parallel.mesh.build_hierarchical_mesh``) and reduces every bucket
+    two-level over them; with ``zero1`` the reduce-scatter and the
+    all-gather run two-level. ``hierarchical="auto"`` on a mesh with no
+    (cross, local) grid is flat; plan selection (``"auto"`` elsewhere,
+    ``"planned"``) and ``tuned`` raise ``NotImplementedError`` (ROADMAP
+    A13). ``topo_algorithm`` pins a plan only under plan selection and is
+    otherwise moot, as in the JAX package, except ``"split"`` with ``zero1``
+    (no reduce-scatter form), a ``ValueError``.
 
     ``rules`` (a rule table or a shipped name, ``"gpt"``; see
     ``parallel/rules.py``) switches to the composed DP×TP step on ``mesh``
     (a ``DeviceMesh`` with ``data_axis`` and ``model_axis``), described in
-    :func:`_build_composed_train_step`; its data-axis options are not
-    ported (ROADMAP A7b). ``tp_overlap`` (default: the
+    :func:`_build_composed_train_step`. ``tp_overlap`` (default: the
     ``HOROVOD_TP_OVERLAP`` knob) selects its fused collective-matmul path
     and needs ``rules``."""
-    variants = {"nonfinite": nonfinite not in (None, "off"), "quantized": bool(quantized),
-                "error_feedback": bool(error_feedback), "zero1": zero1, "overlap": overlap,
-                "first_bucket_bytes": first_bucket_bytes is not None}
     if rules is not None:
-        asked = [name for name, on in {**variants, "hierarchical": bool(hierarchical),
-                                       "compression": compression is not None}.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"make_train_step options of the composed step not ported yet: "
-                f"{', '.join(asked)} (ROADMAP A7b)")
-        _check_unported(False, tuned)
+        _check_tuned(tuned)
         return _build_composed_train_step(
             loss_fn, optimizer, mesh, rules=rules, model_axis=model_axis,
             data_axis=data_axis, op=ReduceOp.AVERAGE if op is None else op,
             fusion_threshold_bytes=fusion_threshold_bytes, has_aux=has_aux,
-            tp_overlap=tp_overlap,
+            tp_overlap=tp_overlap, compression=compression, hierarchical=hierarchical,
+            quantized=quantized, error_feedback=error_feedback, overlap=overlap,
+            first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite,
+            topo_algorithm=topo_algorithm, zero1=zero1,
         )
-    if hierarchical:
-        raise NotImplementedError(
-            f"make_train_step options not ported yet: hierarchical={hierarchical!r} "
-            "(ROADMAP A7b; 'auto'/'planned' plan selection A13)")
     if tp_overlap is not None:
         raise ValueError(
             "tp_overlap selects the fused collective-matmul TP path of the "
             "composed builder — pass rules=... (and a model axis); without "
             "tensor parallelism there is no TP psum to fuse"
         )
+    _check_tuned(tuned)
+    if zero1 and topo_algorithm == "split":
+        raise ValueError(
+            "topo_algorithm='split' has no reduce-scatter decomposition; zero1 lowers flat "
+            "or two-level by the mesh shape")
+    hierarchical = _resolve_hierarchical(hierarchical, mesh)
     if isinstance(optimizer, DistributedOptimizer):
-        _check_unported(False, tuned)
         if (op is not None or compression is not None or fusion_threshold_bytes is not None
-                or any(variants.values()) or quantized is not None):
+                or nonfinite not in (None, "off") or quantized is not None or zero1 or overlap
+                or error_feedback or first_bucket_bytes is not None or hierarchical):
             raise ValueError(
                 "op, compression, fusion_threshold_bytes and the data-axis options are "
                 "set on the DistributedOptimizer already; pass them there"
             )
         dist_opt = optimizer
     else:
+        # Under zero1 the hierarchy is the group's: the reduce-scatter and
+        # the all-gather run two-level over a tuple of groups.
         dist_opt = DistributedOptimizer(
             optimizer,
             compression=compression or Compression.none,
             op=ReduceOp.AVERAGE if op is None else op,
             fusion_threshold_bytes=fusion_threshold_bytes,
+            group=_hierarchy_groups(mesh) if hierarchical else None,
             quantized=quantized, error_feedback=error_feedback, overlap=overlap,
             first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite, zero1=zero1,
-            tuned=tuned,
+            hierarchical=hierarchical and not zero1,
         )
+    # The loss is averaged over the reduction's ranks (every rank, unless
+    # the optimizer reduces over the flattened group of an axis tuple).
+    loss_group = getattr(dist_opt._group, "flat", None)
 
     def average(t: torch.Tensor) -> torch.Tensor:
-        return collectives.allreduce(t.detach(), op=ReduceOp.AVERAGE)
+        return collectives.allreduce(t.detach(), op=ReduceOp.AVERAGE, group=loss_group)
 
     def step(params, batch):
         if isinstance(params, torch.nn.Module):
@@ -641,7 +732,21 @@ def make_train_step(
             return average(loss), _tree_map(average, aux)
         return average(loss)
 
+    step.optimizer = dist_opt
     return step
+
+
+def _hierarchy_groups(mesh):
+    """The ``(cross, local)`` groups of a hierarchical mesh, with their
+    flattened group: the axis tuple ``hierarchical=True`` reduces over."""
+    from .parallel.mesh import CROSS_AXIS, LOCAL_AXIS, axis_groups
+
+    names = () if mesh is None else tuple(mesh.mesh_dim_names)
+    if CROSS_AXIS not in names or LOCAL_AXIS not in names:
+        raise ValueError(
+            "hierarchical=True needs a (cross, local) axis tuple: pass "
+            f"mesh=build_hierarchical_mesh(local_size) (mesh axes: {names or None})")
+    return axis_groups(mesh, (CROSS_AXIS, LOCAL_AXIS))
 
 
 def _average_buffers(module: torch.nn.Module) -> None:
@@ -661,11 +766,20 @@ def _build_composed_train_step(
     *,
     rules: Any,
     model_axis: str,
-    data_axis: str,
+    data_axis: Any,
     op: ReduceOp,
     fusion_threshold_bytes: Optional[int],
     has_aux: bool,
     tp_overlap: Optional[bool],
+    compression=None,
+    hierarchical: Any = False,
+    quantized: Optional[bool] = None,
+    error_feedback: Optional[bool] = None,
+    overlap: bool = False,
+    first_bucket_bytes: Optional[int] = None,
+    nonfinite: Optional[str] = None,
+    topo_algorithm: Optional[str] = None,
+    zero1: bool = False,
 ):
     """The composed DP×TP step, ``step(params, batch)``.
 
@@ -681,38 +795,77 @@ def _build_composed_train_step(
     tree (its whole shapes); the loss runs on the local shards inside
     ``mesh_scope(mesh)`` and ``overlap_scope(tp_overlap)``, so
     ``model_axis="model"`` in the loss resolves to the mesh's model group;
-    backward; the gradients are allreduced over the DATA group only, fused
-    into buckets in the JAX package's leaf order (the TP conjugates already
-    made the replicated leaves' gradients whole and the same on every model
-    rank); the optimizer steps on the local shards. Returns the loss
-    averaged over data, then model (and the aux so averaged with
-    ``has_aux``)."""
+    backward; the gradients are reduced over the DATA group only (the TP
+    conjugates already made the replicated leaves' gradients whole and the
+    same on every model rank), by a :class:`DistributedOptimizer` over the
+    data group that the first call builds (``step.optimizer``) with the
+    data-axis options; the optimizer steps on the local shards. Returns the
+    loss averaged over data, then model (and the aux so averaged with
+    ``has_aux``).
+
+    The data-axis options, as the JAX builder has them: ``overlap`` and
+    ``first_bucket_bytes`` stream the data-group reduction from the
+    backward; ``quantized`` moves it over the flat int8 ring with error
+    feedback off; ``zero1`` shards the optimizer state over the data group,
+    as :func:`init_composed_zero1_state` builds it; ``nonfinite`` agrees its
+    skip/abort flag over the data AND the model groups, so one model rank's
+    NaN skips the step on every rank. ``data_axis`` may be an axis tuple,
+    ``("cross", "local")``: the reduction then runs flat over the tuple's
+    flattened group, and ZeRO-1's two-level. ``hierarchical=True``,
+    ``compression``, ``topo_algorithm``, ``error_feedback`` and
+    ``quantized`` with a data-axis tuple raise the JAX builder's
+    ``ValueError``s."""
     from .parallel import rules as _rules
     from .parallel import tp as _tp
 
     rules = _rules.resolve_rules(rules)
+    dp_axes = tuple(data_axis) if isinstance(data_axis, (tuple, list)) else (data_axis,)
     if mesh is None:
         raise ValueError("composed mode (rules=...) needs mesh=, a DeviceMesh with "
                          f"axes ({data_axis!r}, {model_axis!r})")
     names = tuple(mesh.mesh_dim_names)
-    if model_axis == data_axis:
+    if model_axis in dp_axes:
         raise ValueError(f"model_axis {model_axis!r} cannot also be a data axis")
-    for ax in (data_axis, model_axis):
+    for ax in dp_axes + (model_axis,):
         if ax not in names:
             raise ValueError(
                 f"composed mode needs mesh axes ({data_axis!r}, {model_axis!r}); "
                 f"mesh has {names}"
             )
+    if hierarchical == "auto":
+        hierarchical = False        # the explicit axis tuple is the hierarchy
+    if hierarchical:
+        raise ValueError(
+            "composed rules= mode scopes hierarchy to the DP axes EXPLICITLY: pass "
+            "data_axis=('cross', 'local') for a two-level DP scope instead of "
+            "hierarchical=True — the TP psums must never be re-planned onto DCN, so the knob "
+            "that re-plans the whole step is rejected")
+    if topo_algorithm is not None:
+        raise ValueError(
+            "topo_algorithm pins a compositor plan; the composed DP axis lowers flat and TP "
+            "psums are never re-planned — drop topo_algorithm")
+    if compression not in (None, Compression.none):
+        raise ValueError("composed mode rejects cast compression; use quantized=True for the "
+                         "DP-axis int8 wire")
+    if error_feedback:
+        raise ValueError("error feedback rides the single-axis streamed side channel; "
+                         "composed mode runs the int8 wire EF-off")
     if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
         raise ValueError(
             f"composed mode reduces SUM/AVERAGE over the data axis; got {ReduceOp(op).name}"
         )
+    quantized = _resolve_quantized(quantized)
+    _check_overlap_rejections(overlap, quantized, op)
+    if quantized and len(dp_axes) > 1:
+        raise ValueError(
+            "quantized composed DP runs the flat int8 ring over ONE data axis; the two-level "
+            "DP scope has no int8 RS+AG form — drop quantized or the axis tuple")
     if isinstance(optimizer, DistributedOptimizer):
         raise ValueError("composed mode wraps a plain torch optimizer itself: its "
                          "gradients reduce over the data axis only")
-    data_group, model_group = mesh.get_group(data_axis), mesh.get_group(model_axis)
-    n_data = mesh.size(names.index(data_axis))
-    d_idx = mesh.get_local_rank(data_axis)
+    data_group = _data_groups(mesh, dp_axes)
+    model_group = mesh.get_group(model_axis)
+    d_idx, n_data = collectives.group_rank_size(data_group)
     built: dict = {}
 
     def rows(t: torch.Tensor) -> torch.Tensor:
@@ -722,17 +875,24 @@ def _build_composed_train_step(
         return t[d_idx * (b // n_data):(d_idx + 1) * (b // n_data)]
 
     def average(t: torch.Tensor) -> torch.Tensor:
-        t = collectives.allreduce(t.detach(), op=ReduceOp.AVERAGE, group=data_group)
+        t = collectives.allreduce(t.detach(), op=ReduceOp.AVERAGE,
+                                  group=collectives.flat_group(data_group))
         return collectives.allreduce(t, op=ReduceOp.AVERAGE, group=model_group)
 
     def step(params, batch):
         if "opt" not in built:
             specs = _rules.match_partition_rules(rules, params)
             _rules.preflight_rules(rules, mesh, _rules.global_shapes(params, specs, mesh))
-            built["opt"] = DistributedOptimizer(
+            dist_opt = DistributedOptimizer(
                 optimizer, named_parameters=_rules.named_tree_paths(params), op=op,
                 fusion_threshold_bytes=fusion_threshold_bytes, group=data_group,
+                quantized=quantized, error_feedback=False, overlap=overlap,
+                first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite, zero1=zero1,
             )
+            # A model rank's NaN must skip the step on every rank of the mesh.
+            levels = data_group if isinstance(data_group, tuple) else (data_group,)
+            dist_opt._flag_group = (*levels, model_group)
+            built["opt"] = step.optimizer = dist_opt
             step.sharding_specs = specs
         dist_opt = built["opt"]
         dist_opt.zero_grad(set_to_none=True)
@@ -746,14 +906,60 @@ def _build_composed_train_step(
         return average(loss)
 
     step.sharding_specs = None
+    step.optimizer = None
     return step
 
 
-def init_composed_zero1_state(*args, **kwargs):
-    """The composed ZeRO-1 optimizer state of the JAX package; not ported
-    yet (ROADMAP A7b)."""
-    raise NotImplementedError(
-        "composed ZeRO-1 (init_composed_zero1_state) is not ported yet (ROADMAP A7b)")
+def _data_groups(mesh, dp_axes: Tuple[str, ...]):
+    """The data scope's group, or for an axis tuple its groups with the
+    flattened one (``parallel.mesh.axis_groups``)."""
+    from .parallel.mesh import axis_groups
+
+    return mesh.get_group(dp_axes[0]) if len(dp_axes) == 1 else axis_groups(mesh, dp_axes)
+
+
+def init_composed_zero1_state(
+    optimizer: torch.optim.Optimizer,
+    params: Any,
+    rules: Any,
+    mesh,
+    *,
+    model_axis: str = "model",
+    data_axis: Any = "data",
+    threshold_bytes: Optional[int] = None,
+    first_bucket_bytes: Optional[int] = None,
+    quantized: bool = False,
+):
+    """This rank's ZeRO-1 state for ``make_train_step(rules=...,
+    zero1=True)``: the whole tree ``params`` (tensors or numpy arrays,
+    nested by path) is cut to this rank's model shard by the rules
+    (``parallel/rules.local_shard_tree``), and the streamed per-bucket state
+    of those local leaves is built over the data scope
+    (``parallel/zero.init_zero1_stream_state``), sharded at this rank's data
+    index (outer-major over an axis tuple). It is the state the composed
+    zero1 step builds at its first call (``step.optimizer.zero1_state``).
+    The bucket partition is over the model rank's LOCAL leaves, so it
+    round-trips with the in-step update. No error-feedback residual: the
+    composed int8 wire runs EF-off.
+
+    The JAX package's function builds every rank's cell at once, stacked
+    ``[n_data, n_model, ...]``, and its step indexes ``[0, 0]`` inside
+    ``shard_map``; here each rank keeps only its own ``[d, m]`` cell."""
+    import numpy as np
+
+    from .parallel import rules as _rules
+    from .parallel import zero as _zero
+    from .parallel.mesh import axis_size
+
+    rules = _rules.resolve_rules(rules)
+    dp_axes = tuple(data_axis) if isinstance(data_axis, (tuple, list)) else (data_axis,)
+    specs = _rules.match_partition_rules(rules, params)
+    coords = {model_axis: (mesh.get_local_rank(model_axis), axis_size(mesh, model_axis))}
+    local = _tree_map(lambda a: torch.as_tensor(np.asarray(a)) if isinstance(a, np.ndarray)
+                      else a, _rules.local_shard_tree(params, specs, coords))
+    return _zero.init_zero1_stream_state(
+        optimizer, local, group=_data_groups(mesh, dp_axes), threshold_bytes=threshold_bytes,
+        first_bucket_bytes=first_bucket_bytes, quantized=quantized, error_feedback=False)
 
 
 class GradientAccumulator:

@@ -35,7 +35,8 @@ def test_import_loads_no_jax():
         "horovod_tpu_torch.models.mnist_cnn, horovod_tpu_torch.bench, "
         "horovod_tpu_torch.common.quant, horovod_tpu_torch.ops.quantized, "
         "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.parallel.zero, "
-        "horovod_tpu_torch.guard, horovod_tpu_torch.guard.nonfinite\n"
+        "horovod_tpu_torch.guard, horovod_tpu_torch.guard.nonfinite, "
+        "horovod_tpu_torch.topo, horovod_tpu_torch.topo.compositor\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

@@ -23,8 +23,10 @@ and tokens, gloo ranks on the CPU:
 - the data-group reduction (``fused_allreduce`` and ``DistributedOptimizer``
   with ``group=``): model ranks keep different shards, data ranks identical;
 - the refusals: ``n_heads % n``, ``T % n``, the row bias shape, ``tp_overlap``
-  without ``rules``, the options not ported yet, the composed step's
-  rejections (test_tp_overlap_requires_rules and the reference builder's).
+  without ``rules``, the composed step's rejections
+  (test_tp_overlap_requires_rules and the reference builder's); the
+  data-axis options build the composed step (their runs are in
+  tests/test_torch_composed_variants.py).
 """
 
 import json
@@ -435,20 +437,48 @@ def test_tp_overlap_requires_rules():
                                                             lr=0.1), tp_overlap=True)
 
 
+@pytest.fixture
+def one_rank(tmp_path):
+    hvd.init(device="cpu", init_method=f"file://{tmp_path}/store")
+    try:
+        yield hvd
+    finally:
+        hvd.shutdown()
+
+
 @pytest.mark.parametrize("option", [dict(zero1=True), dict(overlap=True), dict(quantized=True),
                                     dict(hierarchical=True), dict(nonfinite="skip"),
                                     dict(compression=hvd.Compression.fp16)])
-def test_composed_options_not_ported_yet(option):
+def test_composed_options_not_ported_yet(one_rank, option):
+    """The options the composed step refused before its data-axis variants
+    were ported: zero1, overlap, quantized and nonfinite now build it (their
+    runs are held in tests/test_torch_composed_variants.py); hierarchical
+    and compression raise the JAX builder's ValueError, as there."""
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        hvd.make_train_step(lambda p, b: p, opt, rules="gpt", **option)
+    mesh = build_mesh({"data": 1, "model": 1})
+    if "hierarchical" in option or "compression" in option:
+        with pytest.raises(ValueError, match="scopes hierarchy|rejects cast compression"):
+            hvd.make_train_step(lambda p, b: p, opt, rules="gpt", mesh=mesh, **option)
+    else:
+        step = hvd.make_train_step(lambda p, b: p, opt, rules="gpt", mesh=mesh, **option)
+        assert callable(step) and step.optimizer is None     # built at the first call
 
 
-def test_init_composed_zero1_state_not_ported_yet():
+def test_init_composed_zero1_state_not_ported_yet(one_rank):
+    """Ported: on a data 1 x model 1 mesh the state holds each bucket
+    whole, without an error-feedback residual."""
+    from horovod_tpu_torch.parallel.mesh import build_mesh
     from horovod_tpu_torch.train import init_composed_zero1_state
 
-    with pytest.raises(NotImplementedError, match="init_composed_zero1_state"):
-        init_composed_zero1_state(None, {}, "gpt", None)
+    params = {"a": {"kernel": torch.arange(6.0).reshape(2, 3)}, "b": {"bias": torch.ones(3)}}
+    state = init_composed_zero1_state(torch.optim.SGD([torch.zeros(1)], lr=0.1), params, "gpt",
+                                      build_mesh({"data": 1, "model": 1}))
+    assert state.ef is None
+    shards = torch.cat([s for g in state.shards.values() for s in g.values()])
+    assert torch.equal(torch.sort(shards).values,
+                       torch.sort(torch.cat([torch.arange(6.0), torch.ones(3)])).values)
 
 
 _MESH22 = SimpleNamespace(mesh_dim_names=("data", "model"))

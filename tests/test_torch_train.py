@@ -164,11 +164,15 @@ def test_backward_passes_per_step_averages_microbatches(one_rank):
 
 @pytest.mark.parametrize("option", ["hierarchical", "tuned"])
 def test_unported_options_raise(one_rank, option):
+    """What is left unported: plan selection (hierarchical="planned"; True
+    runs two-level, tests/test_torch_hierarchical.py) and pinned tunings,
+    both ROADMAP A13."""
     hvd = one_rank
     w = torch.nn.Parameter(torch.zeros(2))
+    value = "planned" if option == "hierarchical" else True
     with pytest.raises(NotImplementedError, match=option):
         hvd.make_train_step(lambda p, b: p.sum(), torch.optim.SGD([w], lr=0.1),
-                            **{option: True})
+                            **{option: value})
 
 
 @pytest.mark.parametrize("kwargs,match", [

@@ -67,6 +67,7 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
 from horovod_tpu_torch.ops.fusion import tree_order
+from horovod_tpu_torch.parallel.mesh import build_hierarchical_mesh
 from horovod_tpu_torch.utils.convert import load_flax_params, params_to_numpy
 
 d = os.environ["HVD_TEST_DIR"]
@@ -95,16 +96,25 @@ def same(a, b):
         and all(torch.equal(x[1], y[1]) for x, y in zip(a[1], b[1]))
 
 
+# A variant with "local_size" runs make_train_step(mesh=<(cross, local) mesh>,
+# **kwargs) with a plain optimizer; the others wrap a DistributedOptimizer.
+meshes = {ls: build_hierarchical_mesh(ls)
+          for ls in sorted({v["local_size"] for v in cfg["variants"].values()
+                            if "local_size" in v})}
 for name, v in cfg["variants"].items():
     model = TransformerLM(**cfg["dims"], dtype=torch.float32, device="cpu", seed=0)
     load_flax_params(model, init)
     kw = dict(v["kwargs"])
     if "op" in kw:
         kw["op"] = getattr(hvd, kw["op"])
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=cfg["lr"], weight_decay=1e-4, eps=1e-8),
-        named_parameters=model.named_parameters(), **kw)
-    step = hvd.make_train_step(loss_fn, opt)
+    adamw = torch.optim.AdamW(model.parameters(), lr=cfg["lr"], weight_decay=1e-4, eps=1e-8)
+    if "local_size" in v:
+        step = hvd.make_train_step(loss_fn, adamw, mesh=meshes[v["local_size"]], **kw)
+        opt = step.optimizer
+        opt.bind_module(model)
+    else:
+        opt = hvd.DistributedOptimizer(adamw, named_parameters=model.named_parameters(), **kw)
+        step = hvd.make_train_step(loss_fn, opt)
     out = {"losses": [], "groups": [], "raised": [], "unchanged": []}
     for s in range(cfg["steps"]):
         poison = torch.zeros(per)
@@ -157,7 +167,10 @@ def gpt_setup(seed: int = 0):
 def run_port_variants(workdir, variants: dict, n: int, setup) -> dict:
     """Run every variant ``{name: {"kwargs": DistributedOptimizer options,
     "poison": [step, rank] (rank -1: every rank)}}`` as n gloo ranks in one
-    spawn; returns ``{name: [per-rank dict of arrays, losses, ...]}``."""
+    spawn; returns ``{name: [per-rank dict of arrays, losses, ...]}``. A
+    variant with ``"local_size"`` passes its kwargs to ``make_train_step``
+    with a plain optimizer on a ``build_hierarchical_mesh(local_size)``
+    mesh."""
     import json
 
     import numpy as np
@@ -183,10 +196,11 @@ def run_port_variants(workdir, variants: dict, n: int, setup) -> dict:
     return out
 
 
-def run_jax_variant(setup, n: int, poison=None, **kw):
+def run_jax_variant(setup, n: int, poison=None, local_size=None, **kw):
     """JAX's ``make_train_step`` with the same option on an n-device data
-    mesh, the same loss, weights and batch: (losses, final named params,
-    the opt_state after each step)."""
+    mesh (a ``(cross, local)`` mesh with ``local_size``), the same loss,
+    weights and batch: (losses, final named params, the opt_state after
+    each step)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -194,7 +208,7 @@ def run_jax_variant(setup, n: int, poison=None, **kw):
 
     import horovod_tpu.jax as hvdj
     from horovod_tpu.models import transformer as ref
-    from horovod_tpu.parallel.mesh import build_mesh
+    from horovod_tpu.parallel.mesh import build_hierarchical_mesh, build_mesh
     from horovod_tpu.parallel.rules import named_tree_paths
     from horovod_tpu.parallel.zero import init_zero1_stream_state
 
@@ -203,7 +217,8 @@ def run_jax_variant(setup, n: int, poison=None, **kw):
     def loss_fn(p, b):
         return ref.lm_loss(model.apply({"params": p}, b[0]), b[1]) * (1 + b[2].sum())
 
-    mesh = build_mesh({"data": n}, devices=jax.devices()[:n])
+    mesh = (build_mesh({"data": n}, devices=jax.devices()[:n]) if local_size is None
+            else build_hierarchical_mesh(local_size, jax.devices()[:n]))
     tx = optax.adamw(GPT_LR)
     kw.setdefault("fusion_threshold_bytes", GPT_THRESHOLD)
     if kw.get("zero1"):
