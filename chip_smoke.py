@@ -140,6 +140,24 @@ Phases, each printed as it ends:
    transformer (at ``[slice]``'s batch of 8) at reduced iterations, each in
    its own process: one JSON line with bench.py's metric name, a positive
    value and 0 < mfu <= 1; the transformer's tokens/s beside ``[slice]``'s.
+13. ``[eager]``: the eager Horovod API (``horovod_tpu_torch.eager``) through
+   ``init()``: the native core (built from ``cpp/src`` into
+   ``horovod_tpu_torch/build/`` alongside the nvcc builds) and the NCCL plan
+   executor on its own CUDA stream, at one rank. Every eager op on CUDA
+   tensors of f32, bf16, f16, i32, i64 and u8 (allreduce with every op,
+   allgather, broadcast, alltoall with and without splits, reducescatter,
+   the grouped forms): each output on the card, data movement and the sum
+   over one rank bitwise the input, the scaled sum within one rounding of
+   the dtype; the grouped allreduce of GPT-2-small's whole parameter set
+   (every tensor, f32 and bf16) bitwise, in one plan, with the core's plan
+   count and fused bytes, its ms against ``ops/fusion.fused_allreduce`` on
+   the same tensors in turns, and the NCCL kernels a plan from
+   ``torch.profiler``; ``broadcast_object``/``allgather_object``, a size-1
+   process set, ``join`` and ``barrier``; stream safety (a spin kernel and
+   a chain of adds write the input on a side stream just before the
+   enqueue, and the result must hold the final values); the median latency
+   of a 4-byte allreduce from enqueue to ``synchronize`` at the default
+   ``HOROVOD_CYCLE_TIME`` and at 1 ms.
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -204,6 +222,14 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _catch(fn):
+    """fn()'s result, or the exception it raised (for a thread's caller to check)."""
+    try:
+        return fn()
+    except BaseException as exc:  # noqa: BLE001 - handed to check() by the caller
+        return exc
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -271,10 +297,22 @@ def phase_card():
 
 
 def phase_build():
+    import threading
+
+    from horovod_tpu_torch.common import native
     from horovod_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    # The eager plane's native core (g++) builds beside the kernels (nvcc).
+    core = {}
+    core_build = threading.Thread(target=lambda: core.update(
+        path=_catch(native.ensure_built)))
+    core_build.start()
     reports = _build.build(["flash_attention", "collective_matmul"])
+    core_build.join()
+    check(not isinstance(core["path"], BaseException),
+          f"the native core did not build: {core['path']}")
+    print(f"[build] native core {core['path']}", flush=True)
     secs = time.perf_counter() - t0
     spills, missing = [], []
     gated = {"flash_attention": set(MMA_KERNELS), "collective_matmul": {CM_TMA_KERNEL}}
@@ -2143,6 +2181,219 @@ def phase_bench(slice_tokens_per_s: float):
     print(f"[bench] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+EAGER_DTYPES = ("f32", "bf16", "f16", "i32", "i64", "u8")
+EAGER_TURNS = 5          # the grouped allreduce against fused_allreduce, in turns
+EAGER_LAT_REPS = 60      # 4-byte allreduces a cycle time
+
+
+def _eager_ops_on_card(hvd, card):
+    """Every eager op on CUDA tensors of every dtype at one rank."""
+    import torch
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
+              "i32": torch.int32, "i64": torch.int64, "u8": torch.uint8}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n_checks = 0
+    for tag, dt in dtypes.items():
+        if dt.is_floating_point:
+            x = (torch.randn(1000, 7, device="cuda", generator=gen) * 3).to(dt)
+        else:
+            x = torch.randint(0, 100, (1000, 7), device="cuda", generator=gen).to(dt)
+        outs = {f"allreduce {op}": hvd.allreduce(x, op=getattr(hvd.ReduceOp, op),
+                                                  name=f"e.{tag}.{op}")
+                for op in ("SUM", "AVERAGE", "MIN", "MAX", "PRODUCT")}
+        outs["allgather"] = hvd.allgather(x, name=f"e.{tag}.ag")
+        outs["broadcast"] = hvd.broadcast(x, 0, name=f"e.{tag}.bc")
+        outs["alltoall"] = hvd.alltoall(x, name=f"e.{tag}.a2a")
+        outs["alltoall splits"], rs = hvd.alltoall(x, splits=[x.shape[0]], name=f"e.{tag}.a2av")
+        outs["reducescatter"] = hvd.reducescatter(x, name=f"e.{tag}.rs")
+        for i, o in enumerate(hvd.grouped_allreduce([x, x[:10]], op=hvd.Sum,
+                                                    name=f"e.{tag}.gar")):
+            outs[f"grouped allreduce {i}"] = o if i == 0 else torch.cat([o, x[10:]])
+        outs["grouped allgather"] = hvd.grouped_allgather([x], name=f"e.{tag}.gag")[0]
+        outs["grouped reducescatter"] = hvd.grouped_reducescatter([x], name=f"e.{tag}.grs")[0]
+        for what, o in outs.items():
+            check(o.is_cuda and o.device == x.device, f"[eager] {tag} {what} left the card")
+            check(o.dtype == dt and torch.equal(o, x), f"[eager] {tag} {what} is not the input")
+        check(rs.tolist() == [x.shape[0]], f"[eager] {tag} alltoall splits {rs}")
+        n_checks += len(outs)
+        if dt.is_floating_point:
+            # pre 0.5, post 3: the input times 1.5, one rounding of the dtype.
+            got = hvd.allreduce(x, op=hvd.Sum, prescale_factor=0.5, postscale_factor=3.0,
+                                name=f"e.{tag}.scaled").double()
+            want = x.double() * 1.5
+            ulp = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
+                   torch.float16: 2.0 ** -11}[dt]
+            err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+            check(err <= 2 * ulp, f"[eager] {tag} scaled sum {err:.3e} beyond one rounding")
+            n_checks += 1
+    print(f"[eager] {n_checks} op x dtype results on {card}: each on the card, data movement "
+          f"and sums over one rank bitwise the input, scaled sums within one rounding, over "
+          f"dtypes {', '.join(dtypes)}", flush=True)
+
+
+def _eager_stream_safety(hvd):
+    """The input is written on a side stream (a spin kernel, then a chain
+    of adds) just before the enqueue: the executor must wait on the ready
+    event, and synchronize must order the side stream after the plan."""
+    import torch
+
+    side = torch.cuda.Stream()
+    adds = 40
+    x = torch.zeros(1 << 24, device="cuda")
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s of spinning before the writes
+        for _ in range(adds):
+            x.add_(1.0)
+        h = hvd.allreduce_async(x, op=hvd.Sum, name="e.stream")
+        out = hvd.synchronize(h)
+        total = out.sum()                       # on the side stream, after the plan
+    torch.cuda.synchronize()
+    ok = bool(torch.all(out == adds)) and float(total) == adds * x.numel()
+    check(ok, f"[eager] stream safety: the result holds {float(out.min())}..{float(out.max())}, "
+              f"not the final {adds}")
+    print(f"[eager] stream safety: {adds} adds after a spin kernel on a side stream, enqueued "
+          f"from it; the result holds the final value {adds} in all {x.numel()} elements",
+          flush=True)
+
+
+def _eager_latency(hvd, reps: int):
+    """Median ms of a 4-byte allreduce: enqueue to synchronize's return, and
+    to the value on the host."""
+    import torch
+
+    x = torch.ones(1, device="cuda")
+    to_sync, to_host = [], []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        h = hvd.allreduce_async(x, op=hvd.Sum, name="e.lat")
+        out = hvd.synchronize(h)
+        t1 = time.perf_counter()
+        check(float(out) == 1.0, f"[eager] latency probe returned {float(out)}")
+        t2 = time.perf_counter()
+        if i >= 5:
+            to_sync.append((t1 - t0) * 1e3)
+            to_host.append((t2 - t0) * 1e3)
+    return statistics.median(to_sync), statistics.median(to_host)
+
+
+def phase_eager(card):
+    """[eager]: the eager API over the native core and the NCCL executor at
+    one rank (see the module docstring, 13)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.env import Config
+    from horovod_tpu_torch.core.nccl_executor import NcclPlanExecutor
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.tools.eager_parity import gpt2_small_grads
+
+    t_phase = time.perf_counter()
+    hvd.init()
+    try:
+        rt = basics._runtime.eager
+        check(isinstance(rt.executor, NcclPlanExecutor) and hvd.nccl_enabled(),
+              f"[eager] the runtime runs {type(rt.executor).__name__}, not the NCCL executor")
+        default_cycle = rt.core.cycle_time_ms()
+        _eager_ops_on_card(hvd, card)
+        _eager_stream_safety(hvd)
+        objs = hvd.allgather_object({"rank": hvd.rank(), "card": card})
+        check(objs == [{"rank": 0, "card": card}], f"[eager] allgather_object {objs}")
+        check(hvd.broadcast_object([1, "two", 3.0]) == [1, "two", 3.0], "[eager] broadcast_object")
+        ps = hvd.add_process_set([0])
+        y = torch.arange(12.0, device="cuda")
+        check(torch.equal(hvd.allreduce(y, op=hvd.Sum, process_set=ps), y) and
+              torch.equal(hvd.allgather(y, process_set=ps), y), "[eager] size-1 process set")
+        hvd.remove_process_set(ps)
+        hvd.join()
+        hvd.barrier()
+        print("[eager] allgather_object, broadcast_object, a size-1 process set, join and "
+              "barrier held", flush=True)
+
+        plans, orig = [], rt.executor.execute
+
+        def spy(plan, entries, topo):
+            plans.append((len(plan["names"]), int(plan["total_bytes"])))
+            return orig(plan, entries, topo)
+
+        rt.executor.execute = spy
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            grads = gpt2_small_grads(dt, "cuda", seed=3)
+            elements = sum(g.numel() for g in grads)
+            plans.clear()
+            outs = hvd.grouped_allreduce(grads, op=hvd.Sum, name=f"e.grads.{tag}")
+            check(all(torch.equal(o, g) for o, g in zip(outs, grads)),
+                  f"[eager] grouped allreduce {tag} is not the input")
+            check(len(plans) == 1 and plans[0][0] == len(grads),
+                  f"[eager] grouped allreduce {tag}: plans {plans}, want one of {len(grads)}")
+            fused = fusion.fused_allreduce(grads, op=hvd.Sum)
+            check(all(torch.equal(o, g) for o, g in zip(fused, grads)),
+                  f"[eager] fused_allreduce {tag} is not the input")
+            del outs, fused
+            times = {"eager": [], "fused": []}
+            for i in range(EAGER_TURNS):
+                for kind in ("eager", "fused") if i % 2 == 0 else ("fused", "eager"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if kind == "eager":
+                        outs = hvd.grouped_allreduce(grads, op=hvd.Sum, name=f"e.grads.{tag}")
+                    else:
+                        outs = fusion.fused_allreduce(grads, op=hvd.Sum)
+                    torch.cuda.synchronize()
+                    times[kind].append((time.perf_counter() - t0) * 1e3)
+                    del outs
+            # Where the host's time goes: the enqueues, then the waits.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handles = hvd.grouped_allreduce_async(grads, op=hvd.Sum, name=f"e.grads.{tag}")
+            t1 = time.perf_counter()
+            outs = [hvd.synchronize(h) for h in handles]
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            split = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3)
+            del outs
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                plans.clear()
+                outs = hvd.grouped_allreduce(grads, op=hvd.Sum, name=f"e.grads.{tag}")
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation]
+            nccl = [e for e in kernels if "nccl" in e.name.lower()]
+            moved = 4 * elements * dt.itemsize      # pack read + write, unpack read + write
+            print(f"[eager] grouped_allreduce of GPT-2-small's {len(grads)} parameter tensors, "
+                  f"{elements} {tag} elements: {len(plans)} plan(s) of {plans[0][0]} tensors, "
+                  f"{plans[0][1]} fused bytes; ms median {statistics.median(times['eager']):.3f} "
+                  f"(all {[round(t, 3) for t in times['eager']]}) against "
+                  f"fused_allreduce {statistics.median(times['fused']):.3f} "
+                  f"(all {[round(t, 3) for t in times['fused']]}), in turns on {card}; "
+                  f"bound {moved / HBM_BYTES_PER_S * 1e3:.3f} ms for {moved} bytes moved; "
+                  f"one call split: enqueue {split[0]:.3f} ms, synchronize {split[1]:.3f}, "
+                  f"device drain {split[2]:.3f}; "
+                  f"profiled: {len(nccl)} NCCL kernel(s) a plan ({len(kernels)} kernels, "
+                  f"{sum(e.time_range.elapsed_us() for e in kernels) / 1e3:.3f} ms device "
+                  f"time)", flush=True)
+            del grads, outs
+        rt.executor.execute = orig
+        lat_default = _eager_latency(hvd, EAGER_LAT_REPS)
+    finally:
+        hvd.shutdown()
+    cfg = Config.from_env()
+    cfg.cycle_time_ms = 1.0
+    hvd.init(config=cfg)
+    try:
+        lat_1ms = _eager_latency(hvd, EAGER_LAT_REPS)
+    finally:
+        hvd.shutdown()
+    print(f"[eager] 4-byte allreduce, median ms from enqueue to synchronize / to the value on "
+          f"the host: {lat_default[0]:.3f} / {lat_default[1]:.3f} at HOROVOD_CYCLE_TIME "
+          f"{default_cycle:g} ms, {lat_1ms[0]:.3f} / {lat_1ms[1]:.3f} at 1 ms "
+          f"({EAGER_LAT_REPS - 5} calls each, on {card})", flush=True)
+    print(f"[eager] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -2254,6 +2505,7 @@ def main() -> int:
     phase_hier(card)
     phase_cnn()
     phase_bench(slice_tokens_per_s)
+    phase_eager(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

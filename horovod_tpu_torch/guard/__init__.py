@@ -16,12 +16,17 @@ The policy comes from the caller, else ``HOROVOD_GUARD_NONFINITE``, else
 
 The sentinels themselves are in :mod:`.nonfinite`. The digest agreement
 and the ``hvd_guard_*`` metrics are not ported (ROADMAP A12).
+
+The eager runtimes' payload tap is a seam here: they call
+``TAP.check_payload(name, tensor)`` on allreduce/Adasum submissions behind
+``if guard.ACTIVE:``. ``ACTIVE`` is False (the eager sentinel is ROADMAP
+A12), so the check is the whole cost.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Optional
 
 from ..common.env import HOROVOD_GUARD_NONFINITE
 
@@ -41,3 +46,12 @@ def resolve_policy(explicit: Optional[str] = None) -> str:
             f"{NONFINITE_POLICIES}"
         )
     return name
+
+
+class _NullTap:
+    def check_payload(self, name: str, tensor: Any) -> Any:
+        return tensor
+
+
+ACTIVE = False
+TAP = _NullTap()

@@ -44,7 +44,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..common.types import ReduceOp
+from ..common.types import ReduceOp, Status  # noqa: F401  (Status: the eager ops' status type)
 
 Group = Optional[dist.ProcessGroup]
 
@@ -194,6 +194,22 @@ def allgather(x: torch.Tensor, *, group: Group = None, dim: int = 0) -> torch.Te
     the JAX package requires. Differentiable: the backward is the tiled
     reduce-scatter (SUM) of the cotangent."""
     return _AllGather.apply(x, group, dim % x.dim())
+
+
+def allgatherv(x: torch.Tensor, *, group: Group = None,
+               max_dim0: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allgather with dim 0 differing between ranks: every rank pads its
+    ``x`` to ``max_dim0`` rows and the padded blocks are gathered, so the
+    first result has ``size * max_dim0`` rows with each rank's padding
+    zeroed; the second holds each rank's true dim 0 (int32, one a rank). The
+    caller compacts the rows (the reference's displacement-based
+    Allgatherv, ``mpi_operations.cc:83-162``). Not differentiable."""
+    n = x.shape[0]
+    if n > max_dim0:
+        raise ValueError(f"allgatherv: dim 0 of {n} exceeds max_dim0={max_dim0}")
+    padded = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, max_dim0 - n))
+    sizes = torch.tensor([n], dtype=torch.int32, device=x.device)
+    return _allgather(padded.contiguous(), group, 0), _allgather(sizes, group, 0)
 
 
 def reducescatter(

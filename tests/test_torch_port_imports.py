@@ -46,6 +46,31 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_eager_modules_load_no_jax():
+    """The eager API, its runtimes, the executor, the binding to the core
+    and the analysis modules, imported and driven once on the CPU, leave
+    jax, flax, optax and the JAX package out of sys.modules."""
+    code = (
+        "import sys, numpy as np\n"
+        "import horovod_tpu_torch as hvd, horovod_tpu_torch.eager, horovod_tpu_torch.core, "
+        "horovod_tpu_torch.core.runtime, horovod_tpu_torch.core.native_runtime, "
+        "horovod_tpu_torch.core.nccl_executor, horovod_tpu_torch.common.native, "
+        "horovod_tpu_torch.analysis.findings, horovod_tpu_torch.analysis.ordering, "
+        "horovod_tpu_torch.analysis.groups, horovod_tpu_torch.analysis.preflight, "
+        "horovod_tpu_torch.fault, horovod_tpu_torch.metrics, horovod_tpu_torch.trace, "
+        "horovod_tpu_torch.tools.eager_parity\n"
+        "hvd.init(device='cpu')\n"
+        "assert hvd.allreduce(np.ones(2, np.float32), op=hvd.Sum).tolist() == [1.0, 1.0]\n"
+        "hvd.shutdown()\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _knobs(mod):
     return {k: getattr(mod, k) for k in dir(mod) if k.startswith("HOROVOD_")}
 
