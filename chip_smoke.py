@@ -159,6 +159,32 @@ Phases, each printed as it ends:
    of a 4-byte allreduce from enqueue to ``synchronize`` at the default
    ``HOROVOD_CYCLE_TIME`` and at 1 ms.
 
+14. ``[torch-binding]``: the hook-driven binding (``horovod_tpu_torch.torch``)
+   at one rank. Its op surface on CUDA tensors of f32, bf16 and f16
+   (outputs on the card and bitwise the input; ``allreduce_``,
+   ``broadcast_`` and ``allreduce_async_`` returning the caller's tensor at
+   its own ``data_ptr``; an in-place allreduce enqueued from a side stream
+   behind a spin kernel); gradients produced on a side stream, whose hooks
+   must run on that stream and reduce to the plain backward's gradients;
+   the hook-driven ``DistributedOptimizer`` on GPT-2-small (8 x 1024, AdamW
+   3e-4, weight decay 1e-4, after ``broadcast_parameters`` and
+   ``broadcast_optimizer_state``, whose AdamW step counts must stay on the
+   CPU) against ``make_train_step``, in turns, 5 steps each: the loss
+   finite and falling, 149 hooks fired and 149 handles pending every step,
+   B1's launches counted, the hooks' thread printed beside the caller's,
+   the median step split into forward + backward (with the enqueues in the
+   hooks), ``step()`` (with its synchronize) and the device drain, and the
+   core's plans a step; one step each with ``backward_passes_per_step=2``,
+   ``Compression.fp16`` and ``op=Adasum`` (within two f32 ulps of the local
+   AdamW step); ResNet-50 at 32 x 224² through the binding against
+   ``make_train_step``, in turns (img/s), and with all 53 BatchNorms a
+   ``SyncBatchNorm`` forced onto its sync path against plain BatchNorm;
+   ``SyncBatchNorm``'s sync path against ``nn.BatchNorm2d`` at one rank in
+   f32 with TF32 off and with a bf16 input (output, dx, dweight, dbias and
+   the running statistics); then ``[micro]``, the micro-benchmark at one
+   rank (``--one-rank``: no peer, only the control plane costs anything),
+   and ``[examples]``, the three example copies, each in its own process.
+
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -2394,6 +2420,506 @@ def phase_eager(card):
     print(f"[eager] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+BINDING_TURNS = 5        # the hook-driven steps against make_train_step, in turns
+SYNC_BN_STEPS = 3        # ResNet-50 steps with every BN synchronized, in turns with plain BN
+EXAMPLES = [
+    ("pytorch_mnist", []),
+    ("pytorch_synthetic_benchmark", ["--num-warmup-batches", "1", "--num-batches-per-iter",
+                                     "2", "--num-iters", "2"]),
+    ("pytorch_imagenet_resnet50", ["--epochs", "1", "--synthetic-batches", "2"]),
+]
+
+
+def _binding_ops_on_card(bhvd, card):
+    """The binding's op surface on CUDA tensors: outputs on the card, the
+    in-place forms in the caller's own storage, and an in-place allreduce
+    enqueued from a side stream right behind a spin kernel."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    n_checks = 0
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                    ("f16", torch.float16)):
+        x = (torch.randn(1000, 7, device="cuda", generator=gen) * 3).to(dt)
+        outs = {"allreduce sum": bhvd.allreduce(x, op=bhvd.Sum, name=f"b.{tag}.sum"),
+                "allreduce average": bhvd.allreduce(x, name=f"b.{tag}.avg"),
+                "allgather": bhvd.allgather(x, name=f"b.{tag}.ag"),
+                "broadcast": bhvd.broadcast(x, 0, name=f"b.{tag}.bc"),
+                "alltoall": bhvd.alltoall(x, name=f"b.{tag}.a2a"),
+                "async": bhvd.synchronize(bhvd.allreduce_async(x, op=bhvd.Sum,
+                                                               name=f"b.{tag}.async"))}
+        outs["alltoall splits"], rs = bhvd.alltoall(x, splits=torch.tensor([x.shape[0]]),
+                                                    name=f"b.{tag}.a2av")
+        outs["grouped allreduce"] = bhvd.grouped_allreduce([x], op=bhvd.Sum,
+                                                           name=f"b.{tag}.gar")[0]
+        outs["grouped allgather"] = bhvd.grouped_allgather([x], name=f"b.{tag}.gag")[0]
+        outs["grouped reducescatter"] = bhvd.grouped_reducescatter([x], name=f"b.{tag}.grs")[0]
+        for what, o in outs.items():
+            check(o.is_cuda and o.device == x.device, f"[torch-binding] {tag} {what} left the card")
+            check(o.dtype == dt and torch.equal(o, x), f"[torch-binding] {tag} {what} is not the input")
+        check(rs.tolist() == [x.shape[0]], f"[torch-binding] {tag} alltoall splits {rs}")
+        for what, fn in (("allreduce_", lambda y: bhvd.allreduce_(y, op=bhvd.Sum,
+                                                                  name=f"b.{tag}.ar_")),
+                         ("broadcast_", lambda y: bhvd.broadcast_(y, 0, name=f"b.{tag}.bc_")),
+                         ("allreduce_async_", lambda y: bhvd.synchronize(bhvd.allreduce_async_(
+                             y, op=bhvd.Sum, name=f"b.{tag}.ara_")))):
+            y = x.clone()
+            ptr = y.data_ptr()
+            z = fn(y)
+            check(z is y and y.data_ptr() == ptr and torch.equal(y, x),
+                  f"[torch-binding] {tag} {what} did not write into the caller's storage")
+            n_checks += 1
+        n_checks += len(outs)
+    side = torch.cuda.Stream()
+    adds = 40
+    x = torch.zeros(1 << 24, device="cuda")
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s of spinning before the writes
+        for _ in range(adds):
+            x.add_(1.0)
+        ptr = x.data_ptr()
+        bhvd.synchronize(bhvd.allreduce_async_(x, op=bhvd.Sum, name="b.stream"))
+        total = x.sum()                         # on the side stream, after the write-back
+    torch.cuda.synchronize()
+    check(x.data_ptr() == ptr and bool(torch.all(x == adds)) and float(total) == adds * x.numel(),
+          f"[torch-binding] stream safety: the result holds {float(x.min())}..{float(x.max())}, "
+          f"not the final {adds}")
+    print(f"[torch-binding] mpi_ops: {n_checks} op x dtype results on {card} (f32, bf16, f16): "
+          f"each on the card and bitwise the input; allreduce_/broadcast_/allreduce_async_ "
+          f"return the caller's tensor at its own data_ptr; an allreduce_async_ enqueued from a "
+          f"side stream behind a spin kernel and {adds} adds holds {adds} in all {x.numel()} "
+          f"elements", flush=True)
+
+
+def _binding_hook_stream(bhvd):
+    """A gradient produced on a side stream: the hook records its ready
+    event on the stream autograd ran the producer on, so the reduced
+    gradient (at one rank, the gradient itself) matches a plain backward."""
+    import threading
+    import torch
+
+    def mlp():
+        torch.manual_seed(5)
+        return torch.nn.Sequential(torch.nn.Linear(1024, 4096), torch.nn.GELU(),
+                                   torch.nn.Linear(4096, 1024)).cuda()
+
+    side = torch.cuda.Stream()
+    x = torch.randn(2048, 1024, device="cuda")
+    ref_model, model = mlp(), mlp()
+    opt = bhvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),
+                                    named_parameters=model.named_parameters())
+    seen = []
+    for p in model.parameters():
+        p.register_post_accumulate_grad_hook(
+            lambda p: seen.append((threading.get_ident(), torch.cuda.current_stream().cuda_stream)))
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        ref_model(x).square().mean().backward()
+        torch.cuda._sleep(200_000_000)
+        model(x).square().mean().backward()
+        opt.synchronize()
+        grads = [p.grad.clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    err = max(float((g - r.grad).abs().max() / r.grad.abs().max())
+              for g, r in zip(grads, ref_model.parameters()))
+    check(err <= 1e-5, f"[torch-binding] the side-stream gradients came back {err:.3e} off")
+    check(len(seen) == 4 and all(s == side.cuda_stream for _, s in seen),
+          f"[torch-binding] hooks ran on streams {[s for _, s in seen]}, not the side stream")
+    print(f"[torch-binding] gradients produced on a side stream behind a spin kernel: the 4 "
+          f"hooks ran on that stream (thread {'not ' if seen[0][0] != threading.get_ident() else ''}"
+          f"the caller's), reduced gradients within {err:.1e} (limit 1e-5 of the largest) of a "
+          f"plain backward", flush=True)
+
+
+def _binding_gpt(bhvd, hvd, card):
+    """The hook-driven DistributedOptimizer on GPT-2-small against
+    make_train_step, in turns, then one step of each variant."""
+    import threading
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"], (BATCH, SEQ))).cuda()
+    labels = torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"], (BATCH, SEQ))).cuda()
+
+    def gpt():
+        return TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+
+    def adamw(m):
+        return torch.optim.AdamW(m.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8)
+
+    mb = gpt()
+    n_tensors = sum(1 for _ in mb.parameters())
+    bopt = bhvd.DistributedOptimizer(adamw(mb), named_parameters=mb.named_parameters())
+    bhvd.broadcast_parameters(mb.state_dict(), root_rank=0)
+    bhvd.broadcast_optimizer_state(bopt, root_rank=0)
+    steps_on = {v["step"].device.type for v in bopt.state.values()}
+    check(steps_on == {"cpu"}, f"[torch-binding] AdamW's step counters came back on {steps_on}")
+    mt = gpt()
+    hvd.broadcast_parameters(mt.state_dict())
+    topt = hvd.DistributedOptimizer(adamw(mt), named_parameters=mt.named_parameters())
+    tstep = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]), topt)
+
+    fired = []
+    for p in mb.parameters():
+        p.register_post_accumulate_grad_hook(lambda p: fired.append(threading.get_ident()))
+    spent = {"enqueue": 0.0, "synchronize": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            fn(*args)
+            spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    bopt._allreduce_grad_async = timed(bopt._allreduce_grad_async, "enqueue")
+    bopt.synchronize = timed(bopt.synchronize, "synchronize")
+    rt = basics._runtime.eager
+    plans, orig_execute = [], rt.executor.execute
+
+    def spy(plan, entries, topo):
+        plans.append(len(plan["names"]))
+        return orig_execute(plan, entries, topo)
+
+    rt.executor.execute = spy
+    rows, times, losses, launches = [], [], [], []
+    try:
+        for i in range(BINDING_TURNS):
+            for kind in ("binding", "make_train_step") if i % 2 == 0 else \
+                    ("make_train_step", "binding"):
+                torch.cuda.synchronize()
+                if kind == "make_train_step":
+                    t0 = time.perf_counter()
+                    tstep(mt, (tokens, labels))
+                    torch.cuda.synchronize()
+                    times.append(("make_train_step", time.perf_counter() - t0))
+                    continue
+                fired.clear()
+                plans.clear()
+                spent.update(enqueue=0.0, synchronize=0.0)
+                f0, b0 = fa.FWD_LAUNCHES, fa.BWD_LAUNCHES
+                t0 = time.perf_counter()
+                bopt.zero_grad()
+                loss = lm_loss(mb(tokens), labels)
+                loss.backward()
+                t1 = time.perf_counter()
+                pending = len(bopt._handles)
+                bopt.step()
+                t2 = time.perf_counter()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                losses.append(float(loss.detach()))
+                times.append(("binding", t3 - t0))
+                launches.append((fa.FWD_LAUNCHES - f0, fa.BWD_LAUNCHES - b0))
+                rows.append({"backward": t1 - t0, "enqueue": spent["enqueue"],
+                             "step": t2 - t1, "synchronize": spent["synchronize"],
+                             "drain": t3 - t2, "plans": len(plans),
+                             "planned_tensors": sum(plans), "hooks": len(fired),
+                             "pending": pending,
+                             "hook_threads": sorted(set(fired))})
+                check(len(fired) == n_tensors and pending == n_tensors,
+                      f"[torch-binding] {len(fired)} hooks fired and {pending} handles were "
+                      f"pending, want {n_tensors} each")
+    finally:
+        rt.executor.execute = orig_execute
+    check(all(np.isfinite(losses)), f"[torch-binding] non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"[torch-binding] loss did not fall: {losses}")
+    check(all(f > 0 and b > 0 for f, b in launches), f"[torch-binding] flash launches {launches}")
+    caller = threading.get_ident()
+    med = {k: statistics.median([t for kk, t in times if kk == k][1:]) * 1e3
+           for k in ("binding", "make_train_step")}
+    split = {k: statistics.median([r[k] for r in rows[1:]]) * 1e3
+             for k in ("backward", "enqueue", "step", "synchronize", "drain")}
+    print(f"[torch-binding] GPT-2-small {BATCH} x {SEQ}, AdamW 3e-4 / wd 1e-4, hook-driven "
+          f"DistributedOptimizer: losses {losses}; {n_tensors} hooks fired and {n_tensors} "
+          f"handles pending each step; hook threads {rows[-1]['hook_threads']} (caller "
+          f"{caller}: {'different' if caller not in rows[-1]['hook_threads'] else 'SAME'}); "
+          f"B1 launches a step (fwd, bwd pairs) {launches}", flush=True)
+    print(f"[torch-binding] step ms median of steps 2-{BINDING_TURNS}, in turns on {card}: "
+          f"binding {med['binding']:.2f} against make_train_step {med['make_train_step']:.2f} "
+          f"({med['binding'] / med['make_train_step']:.3f}x); binding split: forward+backward "
+          f"{split['backward']:.2f} (of it enqueues in the hooks {split['enqueue']:.2f}), step() "
+          f"{split['step']:.2f} (of it synchronize {split['synchronize']:.2f}), device drain "
+          f"{split['drain']:.2f}; core plans a step {[r['plans'] for r in rows]} carrying "
+          f"{[r['planned_tensors'] for r in rows]} tensors; all "
+          f"{[(k, round(t * 1e3, 2)) for k, t in times]}", flush=True)
+    del mt, topt, tstep
+
+    # The variants, one step each on fresh optimizers over the same model.
+    for h in bopt._hook_handles:
+        h.remove()
+    del bopt
+    opt = bhvd.DistributedOptimizer(adamw(mb), named_parameters=mb.named_parameters(),
+                                    backward_passes_per_step=2)
+    opt.zero_grad()
+    lm_loss(mb(tokens), labels).backward()
+    first = len(opt._handles)
+    loss = lm_loss(mb(tokens), labels)
+    loss.backward()
+    second = len(opt._handles)
+    opt.step()
+    check(first == 0 and second == n_tensors and np.isfinite(float(loss)),
+          f"[torch-binding] backward_passes_per_step=2: handles {first} then {second}, loss "
+          f"{float(loss)}")
+    for h in opt._hook_handles:
+        h.remove()
+    opt = bhvd.DistributedOptimizer(adamw(mb), named_parameters=mb.named_parameters(),
+                                    compression=bhvd.Compression.fp16)
+    opt.zero_grad()
+    loss16 = lm_loss(mb(tokens), labels)
+    loss16.backward()
+    opt.step()
+    check(np.isfinite(float(loss16)) and all(p.grad.dtype == p.dtype for p in mb.parameters()),
+          f"[torch-binding] Compression.fp16: loss {float(loss16)}")
+    for h in opt._hook_handles:
+        h.remove()
+    # op=Adasum at one rank: the rebased parameters are the local step's.
+    ref = gpt()
+    ref.load_state_dict(mb.state_dict())
+    ada = bhvd.DistributedOptimizer(adamw(mb), named_parameters=mb.named_parameters(),
+                                    op=bhvd.Adasum)
+    plain = adamw(ref)
+    ada.zero_grad()
+    lossa = lm_loss(mb(tokens), labels)
+    lossa.backward()
+    for p, q in zip(mb.parameters(), ref.parameters()):
+        q.grad = p.grad.clone()
+    ada.step()
+    plain.step()
+    err = max(float((p - q).abs().max()) for p, q in zip(mb.parameters(), ref.parameters()))
+    scale = max(float(q.abs().max()) for q in ref.parameters())
+    check(err <= 2 * 2.0 ** -23 * scale,
+          f"[torch-binding] op=Adasum at one rank: {err:.3e} from the local AdamW step")
+    print(f"[torch-binding] one step each: backward_passes_per_step=2 ({first} then {second} "
+          f"handles after the two backwards, loss {float(loss):.4f}), Compression.fp16 (loss "
+          f"{float(loss16):.4f}), op=Adasum (loss {float(lossa):.4f}; parameters within "
+          f"{err:.2e} of the local AdamW step, limit two f32 ulps of the largest {scale:.3f})",
+          flush=True)
+    del mb, ref, ada, plain, opt
+    torch.cuda.empty_cache()
+
+
+def _forced_sync_batch_norm():
+    """SyncBatchNorm forced onto its sync path at one rank (``_use_sync``:
+    training mode alone)."""
+    from horovod_tpu_torch.torch import SyncBatchNorm
+
+    class ForcedSyncBatchNorm(SyncBatchNorm):
+        def _use_sync(self):
+            return self.training
+
+    return ForcedSyncBatchNorm
+
+
+def _binding_resnet(bhvd, hvd, card):
+    """ResNet-50 at 32 x 224² through the binding against make_train_step,
+    in turns; then with every BN synchronized, in turns with plain BN."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.tools.binding_parity import sync_bn_resnet
+
+    torch.backends.cudnn.benchmark = True
+    batch = _cnn_batch(32, CNN_SIDE, CNN_CLASSES)
+
+    def binding_model(sync_bn=False):
+        m = get_model("resnet50", num_classes=CNN_CLASSES, seed=0)
+        n_bn = sync_bn_resnet(m, _forced_sync_batch_norm()) if sync_bn else 0
+        bhvd.broadcast_parameters(m.state_dict(), root_rank=0)
+        o = bhvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.01, momentum=0.9),
+                                      named_parameters=m.named_parameters())
+        bhvd.broadcast_optimizer_state(o, root_rank=0)
+
+        def step():
+            o.zero_grad()
+            loss = F.cross_entropy(m(batch[0]), batch[1])
+            loss.backward()
+            o.step()
+            return float(loss)
+
+        return m, step, n_bn
+
+    try:
+        mb, bstep, _ = binding_model()
+        mt = get_model("resnet50", num_classes=CNN_CLASSES, seed=0)
+        tstep = _cnn_step(mt, hvd)
+        times = {"binding": [], "make_train_step": []}
+        losses = []
+        for i in range(BINDING_TURNS):
+            for kind in ("binding", "make_train_step") if i % 2 == 0 else \
+                    ("make_train_step", "binding"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if kind == "binding":
+                    losses.append(bstep())
+                else:
+                    tstep(mt, batch)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"[torch-binding] ResNet-50 losses {losses}")
+        med = {k: statistics.median(v[1:]) for k, v in times.items()}
+        print(f"[torch-binding] ResNet-50 32 x 224², SGD 0.01 / momentum 0.9: losses {losses}; "
+              f"img/s (median of steps 2-{BINDING_TURNS}, in turns on {card}) binding "
+              f"{32 / med['binding']:.1f} ({med['binding'] * 1e3:.2f} ms) against "
+              f"make_train_step {32 / med['make_train_step']:.1f} "
+              f"({med['make_train_step'] * 1e3:.2f} ms)", flush=True)
+        del mt, tstep
+
+        ms, sstep, n_bn = binding_model(sync_bn=True)
+        check(n_bn == 53, f"[torch-binding] {n_bn} BatchNorm layers replaced, want 53")
+        times = {"sync": [], "plain": []}
+        slosses = []
+        for i in range(SYNC_BN_STEPS):
+            for kind in ("sync", "plain") if i % 2 == 0 else ("plain", "sync"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if kind == "sync":
+                    slosses.append(sstep())
+                else:
+                    bstep()
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+        check(all(np.isfinite(slosses)), f"[torch-binding] SyncBatchNorm ResNet-50 losses {slosses}")
+        med = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
+        print(f"[torch-binding] ResNet-50 32 x 224² with all {n_bn} BatchNorms synchronized "
+              f"(forced onto the sync path: {2 * n_bn} blocking eager allreduces a step): losses "
+              f"{slosses}; step ms (median of steps 2-{SYNC_BN_STEPS}, in turns) "
+              f"{med['sync']:.2f} against plain BN {med['plain']:.2f} (+{med['sync'] - med['plain']:.2f}"
+              f" ms, {(med['sync'] - med['plain']) / (2 * n_bn):.3f} ms a collective); all "
+              f"{ {k: [round(t * 1e3, 2) for t in v] for k, v in times.items()} }", flush=True)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+
+
+def _binding_sync_bn(card):
+    """SyncBatchNorm's sync path at one rank against nn.BatchNorm2d on the
+    same input: f32 with TF32 off, and a bf16 input (the module in f32)."""
+    import torch
+
+    cls = _forced_sync_batch_norm()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    c = 64
+    errs = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = (torch.randn(32, c, 28, 28, device="cuda", generator=gen) * 2 + 0.5).to(dt)
+        dy = torch.randn(32, c, 28, 28, device="cuda", generator=gen).to(dt)
+        sbn = cls(c, eps=1e-5, momentum=0.1, device="cuda")
+        ref = torch.nn.BatchNorm2d(c, eps=1e-5, momentum=0.1, device="cuda")
+        with torch.no_grad():
+            w = torch.rand(c, device="cuda", generator=gen) + 0.5
+            b = torch.randn(c, device="cuda", generator=gen)
+            for m in (sbn, ref):
+                m.weight.copy_(w)
+                m.bias.copy_(b)
+        xs = x.clone().requires_grad_(True)
+        xr = x.float().clone().requires_grad_(True)
+        ys, yr = sbn(xs), ref(xr)
+        ys.backward(dy)
+        yr.backward(dy.float())
+        check(ys.dtype == dt and xs.grad.dtype == dt, f"[torch-binding] SyncBatchNorm {tag} dtypes")
+        # f32: the sums in another order (one-pass E[x^2] - E[x]^2 against
+        # cuDNN's); bf16: two bf16 ulps of the f32 reference rounded once.
+        y_tol, dx_tol = ((1e-4, 1e-5), (1e-3, 1e-4)) if tag == "f32" else \
+            ((BF16_RTOL, 1e-4), (BF16_RTOL, 1e-4))
+        e = [max_err(ys, yr.to(dt), *y_tol, f"SyncBatchNorm {tag} output"),
+             max_err(xs.grad, xr.grad.to(dt), *dx_tol, f"SyncBatchNorm {tag} dx"),
+             max_err(sbn.weight.grad, ref.weight.grad, 1e-4, 1e-3, f"SyncBatchNorm {tag} dweight"),
+             max_err(sbn.bias.grad, ref.bias.grad, 1e-4, 1e-3, f"SyncBatchNorm {tag} dbias"),
+             max_err(sbn.running_mean, ref.running_mean, 1e-5, 1e-5,
+                     f"SyncBatchNorm {tag} running mean"),
+             max_err(sbn.running_var, ref.running_var, 1e-5, 1e-5,
+                     f"SyncBatchNorm {tag} running var")]
+        errs[tag] = [f"{v:.1e}" for v in e]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print(f"[torch-binding] SyncBatchNorm's sync path (two eager allreduces on CUDA tensors) "
+          f"against nn.BatchNorm2d at one rank on {card}, 32 x {c} x 28², max abs err "
+          f"(output, dx, dweight, dbias, running mean, running var): f32 with TF32 off "
+          f"{errs['f32']} (tolerances 1e-4/1e-5, 1e-3/1e-4, 1e-4/1e-3 x2, 1e-5/1e-5 x2), bf16 "
+          f"input {errs['bf16']} (output and dx at two bf16 ulps of the f32 reference)",
+          flush=True)
+
+
+def _binding_micro():
+    """micro_bench at one rank (its --one-rank flag, in the rows)."""
+    from horovod_tpu_torch.utils import micro_bench
+
+    record = micro_bench.sweep(one_rank=True)
+    rows = record["rows"]
+    check(len(rows) == 4 and all(r["one_rank"] and r["compiled_us"] > 0 and
+                                 r["eager_np_us"] > 0 and r["eager_dev_us"] > 0 for r in rows),
+          f"[micro] rows {rows}")
+    for r in rows:
+        print(f"[micro] one rank on {record['card']}, {r['bytes']} bytes, {r['reps']} reps: "
+              f"median us eager numpy {r['eager_np_med_us']}, eager CUDA tensor "
+              f"{r['eager_dev_med_us']}, floor (the NCCL plan executor alone) "
+              f"{r['compiled_med_us']}, torch.distributed.all_reduce {r['ref_psum_med_us']}; "
+              f"overhead numpy / tensor {r['overhead_np_med_us']} / {r['overhead_dev_med_us']} "
+              f"(noise band {r['noise_band_us']})", flush=True)
+    print(f"[micro] rows: {json.dumps(rows)}", flush=True)
+
+
+def _binding_examples():
+    """The three example copies, each in its own process, at once."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="hvd_examples_") as tmp:
+        procs = []
+        for name, argv in EXAMPLES:
+            if name == "pytorch_imagenet_resnet50":
+                argv = argv + ["--checkpoint-format", os.path.join(tmp, "ck-{epoch}.pth.tar")]
+            cmd = [sys.executable, "-m", f"horovod_tpu_torch.examples.{name}", *argv]
+            procs.append((name, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env={**os.environ, "PYTHONPATH": os.getcwd(), "TMPDIR": tmp})))
+        try:
+            for name, cmd, proc in procs:
+                out = proc.communicate(timeout=600)[0]
+                check(proc.returncode == 0, f"[examples] {name} exited {proc.returncode}: "
+                      f"{out[-3000:]}")
+                print(f"[examples] {' '.join(cmd[1:])}: exit 0; last line: "
+                      f"{out.strip().splitlines()[-1] if out.strip() else ''}", flush=True)
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+def phase_torch_binding(card):
+    """[torch-binding]: the hook-driven binding (``horovod_tpu_torch.torch``)
+    at one rank (see the module docstring, 14)."""
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as bhvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.core.nccl_executor import NcclPlanExecutor
+
+    t_phase = time.perf_counter()
+    bhvd.init()
+    try:
+        check(isinstance(basics._runtime.eager.executor, NcclPlanExecutor),
+              "[torch-binding] the eager runtime does not run the NCCL executor")
+        _binding_ops_on_card(bhvd, card)
+        _binding_hook_stream(bhvd)
+        _binding_gpt(bhvd, hvd, card)
+        _binding_resnet(bhvd, hvd, card)
+        _binding_sync_bn(card)
+    finally:
+        bhvd.shutdown()
+    _binding_micro()
+    _binding_examples()
+    print(f"[torch-binding] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -2506,6 +3032,7 @@ def main() -> int:
     phase_cnn()
     phase_bench(slice_tokens_per_s)
     phase_eager(card)
+    phase_torch_binding(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -39,6 +39,10 @@ whole-vector ``parallel/zero.make_zero1_train_step``, as ``bench.py`` runs
 off as in ``bench.py``. ``detail`` reports them as ``optimizer_state``,
 ``gradient_wire`` and ``reduction_mode`` with ``bench.py``'s values.
 
+``--micro`` is ``bench.py``'s: the eager-against-floor allreduce sweep of
+``utils/micro_bench.py`` runs first, at ``--ranks`` ranks (default 2) one
+card each, and its rows go into ``detail["micro_allreduce"]``.
+
 Options of ``bench.py`` that the port has not ported exit non-zero and
 name the ROADMAP item that ports them.
 """
@@ -50,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -98,9 +103,10 @@ UNPORTED = {
     "serve": "A11 (serving)",
     "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
     "tuned": "A13 (tune/)",
-    "micro": "A8 (the eager Horovod API)",
 }
 UNPORTED_MODELS = {"moe": "A10 (expert parallelism)"}
+# The file of the micro-benchmark's record, for the bench's rank 0 (--micro).
+MICRO_ROWS_VAR = "HVD_BENCH_MICRO_ROWS"
 
 
 def _analytic_flops_cnn(model, image_size, batch_per_chip):
@@ -192,8 +198,9 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the data")
     ap.add_argument("--device", default=None,
                     help="cpu for gloo on the CPU; default: the card (one per rank)")
-    ap.add_argument("--ranks", type=int, default=1,
-                    help="ranks to launch on this host, one per card (bench.py's --devices)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks to launch on this host, one per card (bench.py's --devices); "
+                         "default 1, and 2 for the --micro sweep")
     ap.add_argument("--overlap", action="store_true",
                     help="streamed reduction: each layer group's buckets reduce inside the "
                          "backward")
@@ -202,7 +209,10 @@ def parse_args(argv=None):
     ap.add_argument("--quantized", action="store_true",
                     help="transformer: int8 gradient wire (the ring allreduce; the ring "
                          "reduce-scatter with --zero1)")
-    for flag in ("serve", "scan", "micro"):
+    ap.add_argument("--micro", action="store_true",
+                    help="also run the eager-against-floor allreduce micro-benchmark at "
+                         "--ranks ranks (default 2), one card each (detail.micro_allreduce)")
+    for flag in ("serve", "scan"):
         ap.add_argument(f"--{flag}", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tuned", default="", help=argparse.SUPPRESS)
@@ -217,6 +227,10 @@ def parse_args(argv=None):
     if args.model in UNPORTED_MODELS:
         ap.error(f"--model {args.model} is not ported yet: ROADMAP "
                  f"{UNPORTED_MODELS[args.model]}")
+    if args.micro and args.ranks == 1:
+        ap.error("--micro needs at least 2 ranks, one card each")
+    args.micro_ranks = (args.ranks or 2) if args.micro else 0
+    args.ranks = args.ranks or 1
     if args.ranks < 1:
         ap.error("--ranks must be at least 1")
     if args.smoke:
@@ -398,6 +412,9 @@ def run(args) -> int:
                     **common,
                 },
             }
+        if args.micro and rank == 0:
+            with open(os.environ[MICRO_ROWS_VAR]) as f:
+                out["detail"]["micro_allreduce"] = json.load(f)["rows"]
         if rank == 0:
             print(json.dumps(out), flush=True)
         return 0
@@ -405,14 +422,32 @@ def run(args) -> int:
         hvd.shutdown()
 
 
+def run_micro(args, out_dir: str) -> None:
+    """The micro-benchmark (``utils/micro_bench.py``) at ``args.micro_ranks``
+    ranks, before the bench's own ranks start; rank 0's record goes to a
+    file that the bench's rank 0 reads (``MICRO_ROWS_VAR``)."""
+    from .utils import micro_bench
+
+    path = os.path.join(out_dir, "micro.json")
+    code = micro_bench.run(args.micro_ranks, args.device, out=path)
+    if code != 0 or not os.path.exists(path):
+        raise RuntimeError(f"the micro-benchmark's ranks exited {code}")
+    os.environ[MICRO_ROWS_VAR] = path
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.ranks > 1 and "HOROVOD_RANK" not in os.environ:
-        from .tools.launch import launch_ranks
+    if "HOROVOD_RANK" in os.environ:
+        return run(args)
+    with tempfile.TemporaryDirectory(prefix="hvd_bench_") as out_dir:
+        if args.micro:
+            run_micro(args, out_dir)
+        if args.ranks > 1:
+            from .tools.launch import launch_ranks
 
-        return launch_ranks("horovod_tpu_torch.bench", argv, args.ranks)
-    return run(args)
+            return launch_ranks("horovod_tpu_torch.bench", argv, args.ranks)
+        return run(args)
 
 
 if __name__ == "__main__":

@@ -257,7 +257,7 @@ def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
 @pytest.mark.parametrize("argv,item", [
     (["--tp", "2"], "A6"),
     (["--serve"], "A11"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
-    (["--micro"], "A8"), (["--model", "moe"], "A10"),
+    (["--model", "moe"], "A10"),
 ])
 def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys):
     from horovod_tpu_torch import bench
@@ -267,6 +267,26 @@ def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP {item}" in err
+
+
+@pytest.mark.parametrize("argv,ranks,micro_ranks", [
+    ([], 1, 0), (["--micro"], 1, 2), (["--micro", "--ranks", "4"], 4, 4),
+])
+def test_bench_micro_ranks(argv, ranks, micro_ranks):
+    """--micro is ported (utils/micro_bench.py): its sweep runs at --ranks
+    ranks, 2 by default, while the bench itself defaults to one."""
+    from horovod_tpu_torch import bench
+
+    args = bench.parse_args(argv + ["--device", "cpu"])
+    assert (args.ranks, args.micro_ranks) == (ranks, micro_ranks)
+
+
+def test_bench_micro_refuses_one_rank(capsys):
+    from horovod_tpu_torch import bench
+
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--micro", "--ranks", "1", "--device", "cpu"])
+    assert "at least 2 ranks" in capsys.readouterr().err
 
 
 def test_bench_mfu_is_null_past_one_and_peak_by_sku():

@@ -71,6 +71,36 @@ def test_eager_modules_load_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+
+def test_binding_modules_load_no_jax_and_torch_is_pytorch():
+    """The torch binding (a subpackage named ``torch``), its micro-benchmark
+    and its parity tool, imported and driven once on the CPU, leave jax,
+    flax, optax and the JAX package out of sys.modules; ``import torch``
+    inside and after them is PyTorch's own."""
+    code = (
+        "import sys, torch as before\n"
+        "import horovod_tpu_torch.torch as hvd, horovod_tpu_torch.torch.mpi_ops, "
+        "horovod_tpu_torch.torch.compression, horovod_tpu_torch.torch.sync_batch_norm, "
+        "horovod_tpu_torch.utils.micro_bench, horovod_tpu_torch.tools.binding_parity\n"
+        "import torch\n"
+        "assert torch is before and hasattr(torch, 'nn'), torch.__file__\n"
+        "assert hvd.SyncBatchNorm.__mro__[1] is torch.nn.modules.batchnorm._BatchNorm\n"
+        "hvd.init(device='cpu')\n"
+        "x = torch.ones(2)\n"
+        "assert hvd.allreduce_(x, op=hvd.Sum) is x\n"
+        "hvd.shutdown()\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print(torch.__file__)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    path = proc.stdout.strip().splitlines()[-1]
+    assert os.path.dirname(path) == os.path.dirname(torch.__file__), path
+    assert not path.startswith(PORT), path
+
 def _knobs(mod):
     return {k: getattr(mod, k) for k in dir(mod) if k.startswith("HOROVOD_")}
 
