@@ -185,6 +185,31 @@ Phases, each printed as it ends:
    rank (``--one-rank``: no peer, only the control plane costs anything),
    and ``[examples]``, the three example copies, each in its own process.
 
+15. ``[pp]``: pipeline parallelism (``parallel/pp.py``), which runs B1 in
+   every block: GPT-2-small through ``make_pp_lm_train_step`` on a ``stage 1
+   x data 1`` mesh, 8 microbatches of 1 x 1024, ``remat=True``, 5 AdamW steps
+   (3e-4, weight decay 1e-4): the loss finite and falling, B1's forward and
+   backward launches counted every step (printed a step), and the first loss
+   within ``PP_LOSS_RTOL`` of ``make_train_step``'s on the same weights and
+   batch; step ms and tokens/s beside the card's name and power limit. Then
+   the 4-stage schedule at the same width played on the card by four
+   threads, one per stage (``VirtualLine``: the stage axis's seam, which
+   also fails a receive with no matching send, a send nobody takes, or a
+   shape or dtype that differs): its loss and every parameter's gradient
+   (zero where another stage owns the parameter) against the one-stage
+   run's at the initial weights, within two bf16 ulps of each tensor's
+   largest element.
+16. ``[ep]``: expert parallelism (``parallel/ep.py``; no TPU kernel): the
+   MoE layer's index dispatch against its dense one-hot form
+   (``_moe_ffn_dense``) at 4096 tokens, 16 experts, d 512 / 2048, bitwise in
+   f32 with TF32 off and in bf16, and the bf16 output within 2e-2 of the
+   largest f32 output over the tokens both route alike; both forwards timed;
+   the forward at 4 virtual expert ranks played by threads through
+   ``VirtualHop``'s ``all_to_all`` bitwise the one-rank forward over each
+   rank's shard in f32; then ``python -m horovod_tpu_torch.bench --model
+   moe`` at the reference's dims on one card (expert 1), 5 timed steps: its
+   JSON line, a finite loss below the first step's, tokens/s and MFU.
+
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -2920,6 +2945,293 @@ def phase_torch_binding(card):
     _binding_examples()
     print(f"[torch-binding] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+PP_MICRO = 8              # [pp]: microbatches of one sequence, GPT-2-small's 8 x 1024 batch
+PP_STAGES = 4             # [pp]: the stages the threads play (3 blocks each)
+# [pp]: the pipeline's first loss against make_train_step's on the same weights
+# and batch. Both run the same bf16 blocks; they differ in the embedding sum
+# (f32 then one cast here, two bf16 lookups added in bf16 in the module) and
+# in the GEMMs' row counts, so the mean loss over 8192 tokens moves by a few
+# bf16 roundings of its terms, not by a bf16 ulp of the loss (2^-8 = 3.9e-3).
+PP_LOSS_RTOL = 1e-2
+# [pp]: the 4-stage schedule's gradients against the one-stage run's: each at
+# most two bf16 ulps (2^-7) of the tensor's largest element away.
+PP_GRAD_REL = 2.0 ** -7
+EP_TOKENS, EP_DIMS = 4096, dict(d_model=512, d_hidden=2048, experts=16)
+EP_RANKS = 4              # [ep]: the virtual expert ranks
+
+
+class VirtualLine:
+    """One stage of a pipeline played on one card by threads, the transport
+    seam of parallel/pp.py (``rank``, ``n``, ``post``, ``wait``,
+    ``broadcast``): each post puts this stage's send and whether it receives
+    on the board, waits for the other stages, and takes a device copy of
+    what its source sent (one stream for all threads, so a read follows the
+    kernel that made the data). It checks the schedule's pairing a NCCL run
+    would deadlock on: a receive with no matching send, a send nobody takes,
+    or shapes and dtypes that differ."""
+
+    def __init__(self, rank, n, board):
+        self.rank, self.n, self.board = rank, n, board
+
+    def _all(self, item):
+        slots, barrier = self.board["slots"], self.board["barrier"]
+        slots[self.rank] = item
+        barrier.wait()
+        got = list(slots)
+        barrier.wait()
+        return got
+
+    def post(self, send, recv_like, step):
+        got = self._all((send, recv_like is not None))
+        if send is not None:
+            dst = self.rank + step
+            check(0 <= dst < self.n and got[dst][1],
+                  f"virtual line: stage {self.rank} sent to {dst}, which posted no receive")
+        if recv_like is None:
+            return None, None
+        src = self.rank - step
+        sent = got[src][0] if 0 <= src < self.n else None
+        check(sent is not None and sent.shape == recv_like.shape and sent.dtype == recv_like.dtype,
+              f"virtual line: stage {self.rank} receives {tuple(recv_like.shape)} "
+              f"{recv_like.dtype} from {src}, which sent "
+              f"{None if sent is None else (tuple(sent.shape), sent.dtype)}")
+        return sent.clone(), None
+
+    @staticmethod
+    def wait(handle):
+        return handle[0]
+
+    def broadcast(self, x, root):
+        return self._all((x, False))[root][0].clone()
+
+
+def play_line(n, fn):
+    """Run ``fn(line)`` for n virtual stages in n threads; their results by
+    stage. A failure in any stage fails the phase."""
+    import threading
+
+    import torch
+
+    board = {"slots": [None] * n, "barrier": threading.Barrier(n, timeout=300)}
+    results, errors = [None] * n, []
+
+    def body(s):
+        try:
+            results[s] = fn(VirtualLine(s, n, board))
+        except BaseException as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+            board["barrier"].abort()
+
+    threads = [threading.Thread(target=body, args=(s,)) for s in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    return results
+
+
+def _pp_grads(flat, n_stages, tokens, labels, line):
+    """One stage's loss and gradients (zeros where another stage owns the
+    parameter) of GPT-2-small through ``pipeline_lm_loss`` at the initial
+    weights, as CPU tensors by flax name."""
+    import torch
+    from horovod_tpu_torch.parallel.pp import pipeline_lm_loss
+    from horovod_tpu_torch.tools.pp_parity import (gpt_embed_fn, gpt_head_loss_fn,
+                                                   gpt_stage_fn)
+    from horovod_tpu_torch.utils.convert import (flatten, nest, pp_params_from_flax,
+                                                 pp_params_to_flax)
+
+    params = pp_params_from_flax(flat, n_stages, line.rank)
+    loss = pipeline_lm_loss(gpt_embed_fn(torch.bfloat16),
+                            gpt_stage_fn(GPT2_SMALL["n_heads"], torch.bfloat16),
+                            gpt_head_loss_fn(torch.bfloat16), params["embed"], params["stages"],
+                            params["head"], tokens, labels, axis_name=line, remat=True)
+    grads = nest({p: t.grad if t.grad is not None else torch.zeros_like(t)
+                  for p, t in flatten(params).items()})
+    named = pp_params_to_flax(grads, n_stages, line.rank, GPT2_SMALL["n_layers"])
+    return float(loss), {k: torch.from_numpy(v) for k, v in named.items()}
+
+
+def phase_pp(card):
+    """[pp]: GPT-2-small through make_pp_lm_train_step on one card, then the
+    4-stage schedule played by threads (the module docstring, 15)."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.tools.pp_parity import _gpt_step
+    from horovod_tpu_torch.utils.convert import params_to_numpy, pp_params_from_flax
+
+    t_phase = time.perf_counter()
+    hvd.init()
+    try:
+        model = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+        flat = params_to_numpy(model)
+        rng = np.random.RandomState(3)
+        tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                                       (PP_MICRO, 1, SEQ))).cuda()
+                          for _ in range(2))
+
+        def adamw(ps):
+            return torch.optim.AdamW(ps, lr=3e-4, weight_decay=1e-4, eps=1e-8)
+
+        # make_train_step's first loss: the loss of the initial weights.
+        dp_step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]),
+                                      adamw(model.parameters()))
+        dp_loss = float(dp_step(model, (tokens.reshape(-1, SEQ), labels.reshape(-1, SEQ))))
+        del model, dp_step
+        mesh = build_mesh({"stage": 1, "data": 1})
+        params = pp_params_from_flax(flat, 1, 0)
+        step = _gpt_step(mesh, params, torch.bfloat16, GPT2_SMALL["n_heads"], adamw)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, launches = [], [], []
+        for _ in range(STEPS):
+            fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(params, tokens, labels)))
+            times.append(time.perf_counter() - t0)
+            launches.append((fa.FWD_LAUNCHES, fa.BWD_LAUNCHES))
+        print(f"[pp] GPT-2-small through make_pp_lm_train_step on a stage 1 x data 1 mesh, "
+              f"{PP_MICRO} microbatches of 1 x {SEQ}, remat, AdamW 3e-4 / wd 1e-4: losses "
+              f"{losses}; B1 launches a step (fwd, bwd pairs) {launches}", flush=True)
+        check(all(np.isfinite(losses)), f"[pp] non-finite loss: {losses}")
+        check(losses[-1] < losses[0], f"[pp] loss did not fall: {losses}")
+        check(all(f > 0 and b > 0 for f, b in launches), f"[pp] B1 launches {launches}")
+        rel = abs(losses[0] - dp_loss) / abs(dp_loss)
+        check(rel <= PP_LOSS_RTOL, f"[pp] first loss {losses[0]} against make_train_step's "
+              f"{dp_loss}: rel {rel:.2e} > {PP_LOSS_RTOL}")
+        med = statistics.median(times[1:])
+        print(f"[pp] first loss {losses[0]:.6f} against make_train_step's {dp_loss:.6f} (rel "
+              f"{rel:.2e}, limit {PP_LOSS_RTOL}); step ms median {med * 1e3:.2f} (steps "
+              f"2-{STEPS}; first {times[0] * 1e3:.1f}), tokens/s {PP_MICRO * SEQ / med:.0f} on "
+              f"{card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del params, step
+
+        # The one-stage gradients at the initial weights, then 4 stages by threads.
+        (ref_loss, ref), = play_line(1, lambda line: _pp_grads(flat, 1, tokens, labels, line))
+        t0 = time.perf_counter()
+        staged = play_line(PP_STAGES, lambda line: _pp_grads(flat, PP_STAGES, tokens, labels,
+                                                              line))
+        staged_s = time.perf_counter() - t0
+        worst, n_checked, seen = 0.0, 0, set()
+        for s, (loss, grads) in enumerate(staged):
+            check(loss == staged[0][0], f"[pp] stage {s} loss {loss} != stage 0's {staged[0][0]}")
+            for name, g in grads.items():
+                owner = (name.startswith("block_") or (s == 0 and name.split("/")[0] in
+                                                        ("embeddings", "pos_embeddings"))
+                         or (s == PP_STAGES - 1 and name.split("/")[0] in ("ln_f", "lm_head")))
+                if not owner:
+                    check(not g.any(), f"[pp] stage {s} holds a gradient of {name}")
+                    continue
+                worst = max(worst, rel_err(g, ref[name], f"[pp] stage {s} grad {name}",
+                                           PP_GRAD_REL))
+                n_checked += 1
+                seen.add(name)
+        check(seen == set(ref), f"[pp] gradients never checked: {sorted(set(ref) - seen)}")
+        rel = abs(staged[0][0] - ref_loss) / abs(ref_loss)
+        check(rel <= PP_GRAD_REL, f"[pp] 4-stage loss {staged[0][0]} against {ref_loss}")
+        print(f"[pp] {PP_STAGES}-stage schedule played by {PP_STAGES} threads on {card} "
+              f"({PP_MICRO + PP_STAGES - 1} forward and backward ticks, bubble share "
+              f"{(PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1):.3f}, {staged_s:.1f} s): loss "
+              f"{staged[0][0]:.6f} against the one-stage run's {ref_loss:.6f} (rel {rel:.2e}); "
+              f"{n_checked} gradients, worst {worst:.2e} of the tensor's largest element "
+              f"(limit {PP_GRAD_REL:.2e})", flush=True)
+    finally:
+        hvd.shutdown()
+    print(f"[pp] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_ep(card):
+    """[ep]: the MoE layer's index dispatch against its dense form, 4
+    virtual expert ranks against one, and the MoE bench (the module
+    docstring, 16)."""
+    import os
+
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.parallel.ep import MoEParams, _moe_ffn_dense, init_moe_params, moe_ffn
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    d, e = EP_DIMS["d_model"], EP_DIMS["experts"]
+    p32 = init_moe_params(g, d_model=d, d_hidden=EP_DIMS["d_hidden"], num_experts=e,
+                          num_expert_shards=EP_RANKS)
+    x32 = torch.randn(EP_RANKS * EP_TOKENS, d, generator=g, device="cuda")
+    shard = x32[:EP_TOKENS]
+    with torch.no_grad():
+        y32, aux32 = moe_ffn(p32, shard, expert_axis=None)
+        d32, daux32 = _moe_ffn_dense(p32, shard, expert_axis=None)
+        check(torch.equal(y32, d32) and torch.equal(aux32, daux32),
+              f"[ep] f32 index dispatch != dense form: max diff {(y32 - d32).abs().max():.3e}")
+        p16 = MoEParams(*(t.bfloat16() for t in p32))
+        y16, _ = moe_ffn(p16, shard.bfloat16(), expert_axis=None)
+        d16, _ = _moe_ffn_dense(p16, shard.bfloat16(), expert_axis=None)
+        check(torch.equal(y16, d16), "[ep] bf16 index dispatch != dense form")
+        same = ((shard.bfloat16() @ p16.w_router).float().argmax(-1)
+                == (shard @ p32.w_router).argmax(-1))
+        rows = same & (y16 != 0).any(-1) & (d32 != 0).any(-1)
+        err16 = rel_err(y16[rows], d32[rows], "[ep] bf16 against the f32 form")
+        dropped = int((~(y32 != 0).any(-1)).sum())
+        print(f"[ep] moe_ffn on {card}, {EP_TOKENS} tokens, {e} experts, d {d} / "
+              f"{EP_DIMS['d_hidden']}, capacity {max(1, int(1.25 * EP_TOKENS / e))}: index "
+              f"dispatch bitwise the dense one-hot form in f32 (TF32 off) and in bf16, "
+              f"{dropped} tokens dropped; bf16 against f32 {err16:.2e} of the largest output "
+              f"over the {int(rows.sum())} tokens both route alike and keep", flush=True)
+        t_idx = time_ms(lambda: moe_ffn(p16, shard.bfloat16(), expert_axis=None), 10)
+        t_dense = time_ms(lambda: _moe_ffn_dense(p16, shard.bfloat16(), expert_axis=None), 10)
+        print(f"[ep] bf16 forward ms: index dispatch {t_idx:.3f} against the dense form "
+              f"{t_dense:.3f}", flush=True)
+
+        # Four virtual expert ranks, each its own shard and experts, by threads.
+        per = e // EP_RANKS
+
+        def rank_forward(hop):
+            r = hop.rank
+            local = MoEParams(p32.w_router, p32.w_in[r * per:(r + 1) * per],
+                              p32.w_out[r * per:(r + 1) * per])
+            return moe_ffn(local, x32[r * EP_TOKENS:(r + 1) * EP_TOKENS], expert_axis=hop)
+
+        results, hops = play_grid(1, EP_RANKS, lambda lv: rank_forward(lv.local))
+        for r, (y, aux) in enumerate(results):
+            ref_y, ref_aux = moe_ffn(p32, x32[r * EP_TOKENS:(r + 1) * EP_TOKENS],
+                                     expert_axis=None)
+            check(torch.equal(y, ref_y) and torch.equal(aux, ref_aux),
+                  f"[ep] virtual expert rank {r} != the one-rank forward: max diff "
+                  f"{(y - ref_y).abs().max():.3e}")
+        print(f"[ep] {EP_RANKS} virtual expert ranks by threads ({hops} all-to-alls a rank): "
+              f"every rank's output and aux bitwise the one-rank forward over its shard in f32",
+              flush=True)
+
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model", "moe",
+           "--num-warmup-batches", "1", "--num-batches-per-iter", "5", "--num-iters", "1"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": os.getcwd()})
+    check(proc.returncode == 0, f"[ep] bench moe exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    check(len(lines) == 1, f"[ep] bench moe printed {len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    det = out["detail"]
+    print(f"[ep] {' '.join(cmd[2:])}: {lines[0]}", flush=True)
+    check(out["metric"] == "moe_synthetic_tokens_per_sec_per_chip" and out["value"] > 0,
+          f"[ep] bench moe: {out['metric']} {out['value']}")
+    check(np.isfinite(det["loss"]) and det["loss"] < det["initial_loss"],
+          f"[ep] bench moe loss {det['initial_loss']} -> {det['loss']}")
+    check(det["mesh"] == {"data": 1, "expert": 1}, f"[ep] bench moe mesh {det['mesh']}")
+    print(f"[ep] MoE bench at the reference dims, expert 1: {out['value']:.1f} tokens/s, MFU "
+          f"{det['mfu']} ({det['flops_source']}), loss {det['initial_loss']:.4f} -> "
+          f"{det['loss']:.4f}, on {card}", flush=True)
+    print(f"[ep] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -3033,6 +3345,8 @@ def main() -> int:
     phase_bench(slice_tokens_per_s)
     phase_eager(card)
     phase_torch_binding(card)
+    phase_pp(card)
+    phase_ep(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -1,8 +1,10 @@
 """Synthetic benchmark of the port: the counterpart of ``bench.py``'s
-default paths (the data-parallel CNN step and ``--model transformer``).
+default paths (the data-parallel CNN step, ``--model transformer`` and
+``--model moe``).
 
     python -m horovod_tpu_torch.bench                        # ResNet-50, 32 x 224² a card
     python -m horovod_tpu_torch.bench --model transformer    # GPT-2-small, 8 x 1024 a card
+    python -m horovod_tpu_torch.bench --model moe            # Switch MoE, 32 x 1024 tokens a card
     python -m horovod_tpu_torch.bench --ranks 4              # one process per card, NCCL
     python -m horovod_tpu_torch.bench --smoke --device cpu   # tiny shapes, gloo on the CPU
 
@@ -10,7 +12,8 @@ Prints ONE JSON line from rank 0, with ``bench.py``'s metric names and
 ``detail`` keys: ``<model>_synthetic_images_per_sec_per_chip`` (img/s per
 card, the mean over ``--num-iters`` timed iterations of
 ``--num-batches-per-iter`` steps each, after ``--num-warmup-batches``
-steps) or ``transformer_synthetic_tokens_per_sec_per_chip``.
+steps), ``transformer_synthetic_tokens_per_sec_per_chip`` or
+``moe_synthetic_tokens_per_sec_per_chip``.
 
 The CNN step is ``bench.py``'s: ``get_model(name)`` in bf16 with f32
 parameters and statistics, SGD 0.01 with momentum 0.9 through
@@ -30,6 +33,14 @@ and on the CPU) times the steps of the fastest iteration over its time and
 the dense bf16 peak of the detected card; null on the CPU and whenever the
 share reads over 1.
 The card's power limit stands beside it.
+
+``--model moe`` is ``bench.py``'s ``run_moe_benchmark`` (``build_moe``):
+d_model 512, d_hidden 2048, 4 Switch layers of 16 experts, vocab 32768,
+``--batch-size`` x ``--seq-len`` tokens a card (32 x 1024), bf16 compute over
+f32 master weights, AdamW 3e-4, on a ``{"data": n / ep, "expert": ep}`` mesh
+with ep 4 where 4 divides the card count, else 2, else 1; ``detail`` carries
+``mesh`` and the first step's loss as ``initial_loss``, and MFU falls back to
+``_analytic_flops_moe`` where the flop counter undercounts.
 
 ``--overlap``, ``--zero1`` and ``--quantized`` are ``bench.py``'s: the
 streamed reduction (``DistributedOptimizer(overlap=True)``), ZeRO-1 (the
@@ -104,7 +115,9 @@ UNPORTED = {
     "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
     "tuned": "A13 (tune/)",
 }
-UNPORTED_MODELS = {"moe": "A10 (expert parallelism)"}
+# bench.py:1206-1214: the Switch MoE stack and its smoke dims.
+MOE_DIMS = dict(d_model=512, d_hidden=2048, n_layers=4, experts=16, vocab=32768)
+MOE_SMOKE = dict(d_model=64, d_hidden=128, n_layers=2, experts=8, vocab=512)
 # The file of the micro-benchmark's record, for the bench's rank 0 (--micro).
 MICRO_ROWS_VAR = "HVD_BENCH_MICRO_ROWS"
 
@@ -186,7 +199,7 @@ def _power_limit(device) -> str:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="resnet50",
-                    choices=CNN_MODELS + ["transformer"] + sorted(UNPORTED_MODELS))
+                    choices=CNN_MODELS + ["transformer", "moe"])
     ap.add_argument("--batch-size", type=int, default=32, help="per-card batch")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--seq-len", type=int, default=1024, help="transformer: sequence length")
@@ -224,9 +237,8 @@ def parse_args(argv=None):
         ap.error("--zero1 is implemented for --model transformer only")
     if args.quantized and args.model != "transformer":
         ap.error("--quantized applies to --model transformer only")
-    if args.model in UNPORTED_MODELS:
-        ap.error(f"--model {args.model} is not ported yet: ROADMAP "
-                 f"{UNPORTED_MODELS[args.model]}")
+    if args.model == "moe" and (args.overlap or args.micro):
+        ap.error("--model moe runs the DP x EP step; --overlap and --micro do not apply")
     if args.micro and args.ranks == 1:
         ap.error("--micro needs at least 2 ranks, one card each")
     args.micro_ranks = (args.ranks or 2) if args.micro else 0
@@ -236,6 +248,8 @@ def parse_args(argv=None):
     if args.smoke:
         if args.model == "transformer":
             args.batch_size, args.seq_len = 2, 128
+        elif args.model == "moe":
+            args.batch_size, args.seq_len = 2, 64
         else:
             args.batch_size, args.image_size, args.num_classes = 4, 64, 100
             if args.model == "inception3":
@@ -301,6 +315,8 @@ def run(args) -> int:
     hvd.init(device, init_method=store_url() if STORE_DIR_VAR in os.environ else None)
     init_s = time.perf_counter() - t0
     try:
+        if args.model == "moe":
+            return _run_moe(args, init_s)
         rank, n = hvd.rank(), hvd.size()
         dev = hvd.device()
         on_card = dev.type == "cuda"
@@ -420,6 +436,153 @@ def run(args) -> int:
         return 0
     finally:
         hvd.shutdown()
+
+
+def moe_mesh_axes(n: int):
+    """``bench.py``'s MoE mesh for n cards: expert 4, else 2, else 1."""
+    ep = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+    return {"data": n // ep, "expert": ep}
+
+
+def _analytic_flops_moe(d_model, d_hidden, vocab, n_layers, tokens_per_chip):
+    """Per-card step FLOPs of the top-1 Switch stack (``bench.py:1188``):
+    each token runs ONE expert's two products a layer plus the head
+    projection (2 FLOPs a multiply-add, x3 for train)."""
+    per_token_fwd = n_layers * 2 * (2 * d_model * d_hidden) + 2 * d_model * vocab
+    return 3.0 * per_token_fwd * tokens_per_chip
+
+
+def build_moe(dims: dict, tokens_per_chip: int, seed: int = 0):
+    """``bench.py``'s MoE model on this job's mesh (``moe_mesh_axes``):
+    ``(step, params, batch, mesh)``. The embedding and head are normal x 0.02,
+    each layer ``init_moe_params`` (drawn on the CPU from ``seed``, this
+    rank's expert rows kept), all f32 master weights on this rank's device;
+    the forward computes in bf16 (embedding rows, each layer's weights and
+    the head cast), the logits in f32, the loss ``lm_loss`` plus 0.01 x the
+    layers' summed aux loss; AdamW 3e-4 (weight decay 1e-4) through
+    ``make_ep_train_step``. ``batch`` is the global token stream (every
+    rank's ``tokens_per_chip`` tokens), which the step shards over (data,
+    expert)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    from .models.transformer import lm_loss
+    from .ops.fusion import tree_leaves
+    from .parallel.ep import MoEParams, init_moe_params, make_ep_train_step, moe_ffn
+    from .parallel.mesh import build_mesh
+    from .utils.convert import moe_params_from_numpy
+
+    dev, n = hvd.device(), hvd.size()
+    axes = moe_mesh_axes(n)
+    mesh = build_mesh(axes)
+    e = mesh.get_local_rank("expert")
+    g = torch.Generator().manual_seed(seed)
+    d, v = dims["d_model"], dims["vocab"]
+
+    def leaf(t):
+        return t.to(dev).requires_grad_()
+
+    params = {
+        "embed": leaf(torch.randn(v, d, generator=g) * 0.02),
+        "layers": [moe_params_from_numpy(
+            init_moe_params(g, d_model=d, d_hidden=dims["d_hidden"],
+                            num_experts=dims["experts"], num_expert_shards=axes["expert"],
+                            device="cpu"), n_shards=axes["expert"], index=e, device=dev)
+            for _ in range(dims["n_layers"])],
+        "head": leaf(torch.randn(d, v, generator=g) * 0.02),
+    }
+    rng = np.random.RandomState(seed)
+    total = tokens_per_chip * n
+    batch = tuple(torch.from_numpy(rng.randint(0, v, (total,))).to(dev) for _ in range(2))
+
+    def loss_fn(p, b):
+        tok, lab = b
+        h = p["embed"][tok].to(torch.bfloat16)
+        aux_total = 0.0
+        for layer in p["layers"]:
+            out, aux = moe_ffn(MoEParams(*(t.to(torch.bfloat16) for t in layer)), h)
+            h = h + out
+            aux_total = aux_total + aux
+        return lm_loss((h @ p["head"].to(torch.bfloat16)).float(), lab), aux_total
+
+    opt = torch.optim.AdamW(tree_leaves(params), lr=3e-4, weight_decay=1e-4, eps=1e-8)
+    return make_ep_train_step(loss_fn, opt, mesh), params, batch, mesh
+
+
+def _run_moe(args, init_s: float) -> int:
+    """The DP x EP MoE benchmark (``bench.py``'s ``run_moe_benchmark``):
+    tokens/s a card, MFU from the flop counter or ``_analytic_flops_moe``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import horovod_tpu_torch as hvd
+
+    dims = MOE_SMOKE if args.smoke else MOE_DIMS
+    rank, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    on_card = dev.type == "cuda"
+    tokens_per_chip = args.batch_size * args.seq_len
+    step, params, batch, _ = build_moe(dims, tokens_per_chip, args.seed)
+    d, e = dims["d_model"], dims["experts"]
+    n_params = 2 * dims["vocab"] * d + dims["n_layers"] * (d * e + 2 * e * d * dims["d_hidden"])
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    with FlopCounterMode(display=False) as counter:
+        loss = step(params, batch)
+    measured = counter.get_total_flops() or None
+    initial_loss = float(loss)
+    for _ in range(args.num_warmup_batches - 1):
+        loss = step(params, batch)
+    float(loss)
+    iter_times = []
+    for _ in range(args.num_iters):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(args.num_batches_per_iter):
+            loss = step(params, batch)
+        sync()
+        iter_times.append(time.perf_counter() - t0)
+    loss = float(loss)
+    platform = "gpu" if on_card else "cpu"
+    kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    steps = args.num_batches_per_iter
+    total = float(np.mean([tokens_per_chip * n * steps / dt for dt in iter_times]))
+    flops, source = _reconcile_flops(
+        measured, _analytic_flops_moe(dims["d_model"], dims["d_hidden"], dims["vocab"],
+                                      dims["n_layers"], tokens_per_chip), platform)
+    out = {
+        "metric": "moe_synthetic_tokens_per_sec_per_chip",
+        "value": round(total / n, 1),
+        "unit": "tokens/s/chip",
+        "vs_baseline": None,
+        "detail": {
+            "total_tokens_per_sec": round(total, 1),
+            "n_chips": n,
+            "mesh": moe_mesh_axes(n),
+            "tokens_per_chip_per_step": tokens_per_chip,
+            "n_params": n_params,
+            "n_experts": dims["experts"],
+            "loss": loss,
+            "initial_loss": initial_loss,
+            "platform": platform,
+            "device_kind": kind,
+            "power_limit": _power_limit(dev) if on_card else "not measured",
+            "routing": "switch-top1 (static capacity, all_to_all)",
+            "step_time_s": round(float(np.mean(iter_times)) / steps, 6),
+            "scan": False,
+            "mfu": _mfu(flops, steps, min(iter_times), kind) if on_card else None,
+            "flops_per_step_per_chip": round(flops) if flops else None,
+            "flops_source": source,
+            "backend_init_s": round(init_s, 1),
+            "backend_init_attempts": 1,
+        },
+    }
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+    return 0
 
 
 def run_micro(args, out_dir: str) -> None:

@@ -312,6 +312,24 @@ def ring_exchange(sends: Sequence[Tuple[torch.Tensor, int]], group: Group = None
     return recvs, dist.batch_isend_irecv(ops)
 
 
+def p2p_exchange(sends: Sequence[Tuple[torch.Tensor, int]] = (),
+                 recvs: Sequence[Tuple[torch.Tensor, int]] = (), group: Group = None):
+    """The non-cyclic sibling of :func:`ring_exchange`: post every ``(tensor,
+    group rank)`` send and every ``(buffer, group rank)`` receive of this rank
+    in ONE ``batch_isend_irecv`` over the group, and return the works (none
+    when there is nothing to post). The peers must post the matching halves
+    in their own call. NCCL takes a batch that involves only some of the
+    group's ranks once the group's communicator exists, so a caller runs one
+    collective on the group before its first such batch (``parallel/pp.py``'s
+    ``StageLine`` does)."""
+    group = group or dist.group.WORLD
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, peer), group)
+           for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, peer), group)
+            for buf, peer in recvs]
+    return dist.batch_isend_irecv(ops) if ops else []
+
+
 class Ring:
     """A ring over a group (a mesh axis's subgroup, or the world) as the
     ring schedules use it: ``post`` starts one hop, ``wait`` returns what

@@ -3,6 +3,7 @@
     python -m horovod_tpu_torch.tools.sp_parity --ranks 4 --seq 2               # a GPU per rank, NCCL
     python -m horovod_tpu_torch.tools.sp_parity --ranks 4 --seq 4
     python -m horovod_tpu_torch.tools.sp_parity --ranks 4 --seq 2 --device cpu  # gloo on the CPU
+    python -m horovod_tpu_torch.tools.sp_parity --ranks 4 --seq 4 --bench       # GPT-2-small, timed
 
 The ranks form a ``{"data": ranks / seq, "seq": seq}`` mesh and train a
 small f32 GPT whose attention is ``ring_attention`` over the ``seq`` group
@@ -15,6 +16,14 @@ agree, at the tolerances of tests/test_sp_training.py: losses rtol 1e-4,
 parameters rtol 2e-3 / atol 2e-5; and every rank must hold the same
 parameters. Prints one JSON line from rank 0; exits non-zero on any
 disagreement.
+
+``--bench`` times the sequence-parallel step at GPT-2-small's width (d_model
+768, 12 heads, 12 layers, vocab 32768) on a global batch of 2 sequences of
+4096 tokens, ``remat=True``, AdamW 3e-4 (weight decay 1e-4), the
+configuration of ``chip_smoke.py``'s one-card ``[sp]`` phase spread over the
+mesh: each rank's step ms (median of 5 after 2), tokens/s, B2's launches a
+step, peak memory and one profiled step (``utils.profile``): device busy
+ms and device ms by kernel family (B1/B2, cuBLAS, NCCL, the rest).
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from .launch import launch_ranks, store_url
 # The head dim (32) and the local lengths (256 / seq) are ones the kernels take.
 DIMS = dict(vocab_size=512, d_model=128, n_heads=4, n_layers=2, max_len=256)
 BATCH, SEQ, STEPS, LR = 4, 256, 3, 0.1
+GPT2_SMALL = dict(vocab_size=32768, d_model=768, n_heads=12, n_layers=12)
+BENCH_BATCH, BENCH_SEQ, BENCH_WARMUP, BENCH_STEPS = 2, 4096, 2, 5
 LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-4, 2e-3, 2e-5
 
 
@@ -105,19 +116,91 @@ def _worker(device, seq: int) -> None:
         hvd.shutdown()
 
 
+def _bench(device, seq: int) -> None:
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+    from horovod_tpu_torch.parallel.sp import make_sp_train_step
+    from horovod_tpu_torch.utils.profile import profile_step
+
+    from .tp_parity import _family
+
+    hvd.init(device, init_method=store_url())
+    try:
+        r, n = hvd.rank(), hvd.size()
+        dev = hvd.device()
+        mesh = build_mesh({"data": n // seq, "seq": seq})
+        model = TransformerLM(
+            **GPT2_SMALL, max_len=BENCH_SEQ, dtype=torch.bfloat16, device=dev, seed=0,
+            remat=True,
+            attn_fn=partial(ring_attention, group=mesh.get_group("seq"), causal=True))
+        rng = np.random.RandomState(0)
+        shape = (BENCH_BATCH * (n // seq), BENCH_SEQ)
+        tokens = torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"], shape)).to(dev)
+        labels = torch.roll(tokens, -1, dims=1)
+        step = make_sp_train_step(
+            lambda m, tok, lab, pos: lm_loss(m(tok, positions=pos), lab),
+            torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8), mesh)
+        losses, times = [], []
+        for i in range(BENCH_WARMUP + BENCH_STEPS):
+            if i == BENCH_WARMUP:
+                torch.cuda.reset_peak_memory_stats(dev)
+                fa.BLOCK_LAUNCHES = fa.BLOCK_BWD_LAUNCHES = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            losses.append(float(step(model, tokens, labels)))
+            if i >= BENCH_WARMUP:
+                times.append(time.perf_counter() - t0)
+        launches = (fa.BLOCK_LAUNCHES // BENCH_STEPS, fa.BLOCK_BWD_LAUNCHES // BENCH_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        torch.cuda.synchronize(dev)
+        profiled = profile_step(lambda: float(step(model, tokens, labels)), _family)
+        med = statistics.median(times) * 1e3
+        result = {"rank": r, "step_ms": med, "tokens_per_s": shape[0] * BENCH_SEQ / (med / 1e3),
+                  "block_launches_a_step": launches, "peak_gib": peak,
+                  "profiled_step": profiled,
+                  "losses_first_last": (losses[0], losses[-1]),
+                  "all_ms": [round(t * 1e3, 2) for t in times]}
+        results = hvd.allgather_object(result)
+        if r == 0:
+            print(json.dumps({"ranks": n, "mesh": {"data": n // seq, "seq": seq},
+                              "batch": list(shape), "card": torch.cuda.get_device_name(dev),
+                              "by_rank": results}), flush=True)
+        if not all(np.isfinite(x["losses_first_last"]).all() for x in results):
+            raise SystemExit("non-finite loss")
+    finally:
+        hvd.shutdown()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2, help="size of the seq axis; data = ranks / seq")
     ap.add_argument("--device", default=None, help="cpu for gloo; default: one GPU per rank")
+    ap.add_argument("--bench", action="store_true",
+                    help="time GPT-2-small's SP step at T 4096 (the card only)")
     args = ap.parse_args()
     if args.ranks % args.seq:
         ap.error(f"--seq {args.seq} does not divide --ranks {args.ranks}")
+    if args.bench and args.device == "cpu":
+        ap.error("--bench times the card; it has no CPU form")
     if "HOROVOD_RANK" not in os.environ:
         return launch_ranks("horovod_tpu_torch.tools.sp_parity",
                             ["--ranks", str(args.ranks), "--seq", str(args.seq),
-                             "--device", args.device or "cuda"], args.ranks)
-    _worker(args.device, args.seq)
+                             "--device", args.device or "cuda"]
+                            + (["--bench"] if args.bench else []), args.ranks)
+    if args.bench:
+        _bench(args.device, args.seq)
+    else:
+        _worker(args.device, args.seq)
     return 0
 
 

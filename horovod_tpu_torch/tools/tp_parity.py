@@ -219,31 +219,9 @@ def _family(name: str) -> str:
 def _profile(run_step) -> dict:
     """One step under torch.profiler: host ms, device busy ms and device ms
     by kernel family."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from ..utils.profile import profile_step
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    if not kernels:
-        return {"host_ms": host_ms, "device": "not measured: the profiler saw no device activity"}
-    families = {"b3b4": 0.0, "flash": 0.0, "gemm": 0.0, "nccl": 0.0, "other": 0.0}
-    for e in kernels:
-        families[_family(e.name)] += e.time_range.elapsed_us() / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) / 1e3
-    return {"host_ms": host_ms, "device_busy_ms": busy, "kernels": len(kernels),
-            "family_ms": families}
+    return profile_step(run_step, _family)
 
 
 def _bench(device, model: int) -> None:

@@ -143,3 +143,79 @@ def batch_stats_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
     """A module's buffers (a CNN's BatchNorm ``mean`` and ``var``) as the
     flat ``/``-keyed numpy tree of flax's ``batch_stats``."""
     return {n.replace(".", "/"): _to_flax_layout(b) for n, b in module.named_buffers()}
+
+
+# --- pipeline and expert parallelism ------------------------------------------
+
+
+def _leaf(a, device) -> torch.Tensor:
+    t = a.detach().clone() if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
+    return t.to(device).contiguous().requires_grad_()
+
+
+def stacked_row(tree: Mapping[str, Any], index: int, device=None) -> Dict[str, Any]:
+    """Row ``index`` of an ``[n, ...]``-stacked tree (nested dicts of numpy
+    arrays or tensors, the JAX package's PP layout) as this rank's stage
+    parameters: leaf tensors that require grad on ``device`` (None: the
+    card)."""
+    device = resolve_device(device)
+    return nest({path: _leaf(a[index], device) for path, a in flatten(tree).items()})
+
+
+def moe_params_from_numpy(params: Any, *, n_shards: int = 1, index: int = 0, device=None):
+    """A JAX ``MoEParams`` (or any ``(w_router, w_in, w_out)`` of numpy
+    arrays or tensors, the experts' dim global) as the port's, with the expert
+    rows of shard ``index`` of ``n_shards`` (the defaults: every expert);
+    leaves that require grad on ``device`` (None: the card)."""
+    from ..parallel.ep import MoEParams
+
+    device = resolve_device(device)
+    w_router, w_in, w_out = params
+    e_total = np.shape(w_in)[0]
+    if e_total % n_shards:
+        raise ValueError(f"{e_total} experts do not split over {n_shards} shards")
+    rows = slice(index * (e_total // n_shards), (index + 1) * (e_total // n_shards))
+    return MoEParams(_leaf(w_router, device), _leaf(w_in[rows], device),
+                     _leaf(w_out[rows], device))
+
+
+_GPT_EMBED = ("embeddings", "pos_embeddings")
+_GPT_HEAD = ("ln_f", "lm_head")
+
+
+def pp_params_from_flax(flat: Mapping[str, np.ndarray], n_stages: int, stage: int,
+                        device=None) -> Dict[str, Any]:
+    """A flax GPT tree (``params_from_flax``'s ``/``-keyed numpy arrays) as
+    the pipeline's ``{"embed", "stages", "head"}`` for stage ``stage`` of
+    ``n_stages``: the two embedding tables, this stage's blocks (block i of
+    L goes to stage ``i // (L / n_stages)``, renumbered ``block_0..`` within
+    the stage) and ``ln_f`` with ``lm_head``; leaves that require grad on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
+    tree = nest(dict(flat))
+    n_layers = sum(1 for k in tree if k.startswith("block_"))
+    if n_layers % n_stages:
+        raise ValueError(f"{n_layers} blocks do not split evenly over {n_stages} stages")
+    per = n_layers // n_stages
+
+    def part(sub):
+        return nest({path: _leaf(a, device) for path, a in flatten(sub).items()})
+
+    return {
+        "embed": part({k: tree[k] for k in _GPT_EMBED}),
+        "stages": part({f"block_{j}": tree[f"block_{stage * per + j}"] for j in range(per)}),
+        "head": part({k: tree[k] for k in _GPT_HEAD}),
+    }
+
+
+def pp_params_to_flax(params: Mapping[str, Any], n_stages: int, stage: int,
+                      n_layers: int) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`pp_params_from_flax` for one stage: the flax
+    ``/``-keyed numpy arrays of the embed, head and this stage's blocks under
+    their global block numbers."""
+    per = n_layers // n_stages
+    out = {**params_to_numpy(params["embed"]), **params_to_numpy(params["head"])}
+    for path, a in params_to_numpy(params["stages"]).items():
+        block, rest = path.split("/", 1)
+        out[f"block_{stage * per + int(block[len('block_'):])}/{rest}"] = a
+    return out

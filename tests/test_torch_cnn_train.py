@@ -257,7 +257,6 @@ def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
 @pytest.mark.parametrize("argv,item", [
     (["--tp", "2"], "A6"),
     (["--serve"], "A11"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
-    (["--model", "moe"], "A10"),
 ])
 def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys):
     from horovod_tpu_torch import bench
@@ -267,6 +266,23 @@ def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP {item}" in err
+
+
+def test_bench_moe_takes_the_reference_smoke_dims(capsys):
+    """--model moe is ported (ROADMAP A10): --smoke takes bench.py's MoE
+    smoke batch (2 x 64 tokens a card, 2 x 2 steps); the DP-step-only
+    options are refused."""
+    from horovod_tpu_torch import bench
+
+    args = bench.parse_args(["--model", "moe", "--smoke", "--device", "cpu"])
+    assert (args.batch_size, args.seq_len, args.num_batches_per_iter, args.num_iters) == \
+        (2, 64, 2, 2)
+    assert bench.moe_mesh_axes(8) == {"data": 2, "expert": 4}
+    assert bench.moe_mesh_axes(6) == {"data": 3, "expert": 2}
+    assert bench.moe_mesh_axes(3) == {"data": 3, "expert": 1}
+    for flag in ("--overlap", "--zero1", "--quantized"):
+        with pytest.raises(SystemExit):
+            bench.parse_args(["--model", "moe", flag, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("argv,ranks,micro_ranks", [

@@ -36,7 +36,12 @@ def test_import_loads_no_jax():
         "horovod_tpu_torch.common.quant, horovod_tpu_torch.ops.quantized, "
         "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.parallel.zero, "
         "horovod_tpu_torch.guard, horovod_tpu_torch.guard.nonfinite, "
-        "horovod_tpu_torch.topo, horovod_tpu_torch.topo.compositor\n"
+        "horovod_tpu_torch.topo, horovod_tpu_torch.topo.compositor, "
+        "horovod_tpu_torch.parallel, horovod_tpu_torch.parallel._stacked, "
+        "horovod_tpu_torch.parallel.pp, horovod_tpu_torch.parallel.ep, "
+        "horovod_tpu_torch.utils.convergence, horovod_tpu_torch.tools.pp_parity, "
+        "horovod_tpu_torch.tools.ep_parity, horovod_tpu_torch.examples.tp_pp_demo, "
+        "horovod_tpu_torch.examples.moe_expert_parallel\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
@@ -198,6 +203,21 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_gpu):
         MnistCNN()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--smoke", "--model", "moe"])
+    from horovod_tpu_torch.parallel.ep import init_moe_params
+    from horovod_tpu_torch.utils import convert
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_moe_params(torch.Generator(), d_model=4, d_hidden=4, num_experts=2,
+                        num_expert_shards=1)
+    w = np.zeros((2, 4, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.moe_params_from_numpy((w[0], w, w))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.stacked_row({"w": w}, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.pp_params_from_flax({"block_0/w": w[0]}, 1, 0)
     # Asking for the CPU explicitly works.
     TransformerLM(64, d_model=32, n_heads=1, n_layers=1, device="cpu")
     get_model("resnet18", num_classes=10, device="cpu")
@@ -213,6 +233,20 @@ def test_long_context_example_defaults_to_the_card(no_gpu, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(SystemExit):
         long_context_sp.main()
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", ["tp_pp_demo", "moe_expert_parallel"])
+def test_pp_ep_examples_default_to_the_card(no_gpu, monkeypatch, capsys, name):
+    """The pipeline- and expert-parallel examples, likewise."""
+    import importlib
+
+    example = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
+    monkeypatch.delenv("HOROVOD_RANK", raising=False)
+    monkeypatch.setattr(sys, "argv", [name])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(SystemExit):
+        example.main()
     assert "no CUDA device" in capsys.readouterr().err
 
 
