@@ -209,6 +209,24 @@ Phases, each printed as it ends:
    rank's shard in f32; then ``python -m horovod_tpu_torch.bench --model
    moe`` at the reference's dims on one card (expert 1), 5 timed steps: its
    JSON line, a finite loss below the first step's, tokens/s and MFU.
+17. ``[serve]``: serving (``horovod_tpu_torch/serve/``; no TPU kernel: the
+   decode attends by a dense gather over its pages). A small f32 model (2
+   layers, d 64, 4 heads, vocab 128, page size 4, 4 slots, TF32 off): the
+   engine's completions of 6 seeded 4-token prompts (8 new tokens each) on
+   the card at 1 and 2 replicas and on the CPU, each token for token the
+   one-at-a-time full-recompute greedy decode through ``tp_apply`` on the
+   card (B1's f32 kernel, its launches printed; the decode path's must be
+   0). GPT-2-small, 8 slots teacher-forced over 64 positions on shuffled
+   pages (513 pages of 16, a 64-page table: T 1024), in bf16 compute and
+   cache and in f32: every step's logits against one ``tp_apply`` forward
+   (B1) at rel L2 ``SERVE_BF16_REL`` / ``SERVE_F32_REL``, the argmax equal
+   wherever the forward's top-2 margin exceeds ``SERVE_MARGIN`` x the
+   step's max abs error (the positions covered printed). Then ``bench
+   --serve``'s closed loop in process (GPT-2-small at max_len 1024, f32, 8
+   clients, 64 requests of 16 new tokens): its JSON line, tokens/s, p50/p99
+   latency and the batch occupancy; the decode step alone at batch 8 (host
+   ms with its read-back) and one profiled step (CUDA launches, device busy
+   share, device ms by family), beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -3232,6 +3250,195 @@ def phase_ep(card):
     print(f"[ep] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# [serve]: the small f32 model of the token-identity checks (page size 4, 4
+# slots), its seeded prompts and new tokens.
+SERVE_SMALL = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, max_len=64)
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_NEW = 6, 4, 8
+# [serve] at GPT-2-small: 8 slots teacher-forced over 64 positions, page size
+# 16 and 513 pages (8 slots x 1024 positions, and the scratch page); the
+# decode's logits against one tp_apply forward at rel L2 2e-2 in bf16 (bf16
+# weights, k/v and cache on both sides, summed in other orders) and 1e-4 in
+# f32 (TF32 off); the argmax must agree wherever the forward's top-2 margin
+# exceeds SERVE_MARGIN x the step's largest logit error.
+SERVE_SLOTS, SERVE_TF_T, SERVE_PAGE, SERVE_PAGES = 8, 64, 16, 513
+SERVE_BF16_REL, SERVE_F32_REL, SERVE_MARGIN = 2e-2, 1e-4, 4.0
+
+
+def _serve_config(**kw):
+    from horovod_tpu_torch.common.env import Config
+
+    cfg = Config()
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _greedy_full(params, prompt, new, n_heads):
+    """One request alone, no cache: each new token from a full f32
+    ``tp_apply`` forward over the sequence zero-padded to a multiple of 8
+    (causal, so the pad changes no earlier position, and every length takes
+    B1's kernel)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import tp_apply
+
+    seq = list(prompt)
+    dev = params["embeddings"]["embedding"].device
+    for _ in range(new):
+        n = len(seq)
+        tokens = torch.tensor([seq + [0] * (-n % 8)], device=dev)
+        logits = tp_apply(params, tokens, n_heads=n_heads, dtype=torch.float32)
+        seq.append(int(logits[0, n - 1].argmax()))
+    return seq[len(prompt):]
+
+
+def _served(params, prompts, device, replicas, n_heads):
+    """The completions of ``prompts`` by ``serve`` (f32, page size 4, 4
+    slots) on ``device`` with ``replicas`` replicas."""
+    import torch
+    from horovod_tpu_torch.serve import serve
+
+    cfg = _serve_config(serve_kv_pages=64, serve_page_size=4, serve_max_batch=4,
+                        serve_max_wait_us=500, serve_replicas=replicas)
+    with serve(params, n_heads=n_heads, config=cfg, dtype=torch.float32, device=device) as h:
+        rids = [h.submit(p, max_tokens=SERVE_NEW) for p in prompts]
+        h.drain(timeout=120.0)
+        return [list(h.result(r).tokens) for r in rids]
+
+
+def _serve_small():
+    """The small f32 server on the card against the one-at-a-time full
+    recompute (B1) and against the same server on the CPU; 2 replicas too."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.utils.convert import param_tree, params_from_flax, params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    heads = SERVE_SMALL["n_heads"]
+    model = TransformerLM(**SERVE_SMALL, dtype=torch.float32, device="cuda", seed=0)
+    params = param_tree(model)
+    cpu = params_from_flax(params_to_numpy(model), device="cpu")
+    prompts = np.random.RandomState(0).randint(
+        0, SERVE_SMALL["vocab_size"], (SERVE_PROMPTS, SERVE_PROMPT_LEN)).tolist()
+    fa.FWD_LAUNCHES = 0
+    ref = [_greedy_full(params, p, SERVE_NEW, heads) for p in prompts]
+    ref_launches = fa.FWD_LAUNCHES
+    check(ref_launches > 0, "[serve] the full-recompute reference launched no B1 kernel")
+    fa.FWD_LAUNCHES = 0
+    got = {(r, "cuda"): _served(params, prompts, "cuda", r, heads) for r in (1, 2)}
+    serve_launches = fa.FWD_LAUNCHES
+    got[(1, "cpu")] = _served(cpu, prompts, "cpu", 1, heads)
+    for (replicas, dev), tokens in got.items():
+        check(tokens == ref, f"[serve] {dev} engine at {replicas} replicas {tokens} != the "
+                             f"full recompute {ref}")
+    check(serve_launches == 0, f"[serve] the decode launched B1 {serve_launches} times")
+    print(f"[serve] small f32 model (2 layers, d 64, 4 heads, vocab 128), {SERVE_PROMPTS} prompts "
+          f"of {SERVE_PROMPT_LEN} tokens, {SERVE_NEW} new each: the card's engine at 1 and 2 "
+          f"replicas and the CPU's engine token-identical to the one-at-a-time full "
+          f"recompute on the card", flush=True)
+    print(f"[serve] B1 launches: the full-recompute reference {ref_launches} (forward, f32); "
+          f"the decode path {serve_launches}", flush=True)
+
+
+def _teacher_forced(model, dtype, limit):
+    """GPT-2-small: 8 slots over 64 positions, each slot its own shuffled
+    pages, through ``tp_decode_apply`` against one ``tp_apply`` forward at
+    the same positions. Returns the largest rel L2, the positions the margin
+    gate covered and the positions in all."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.transformer import tp_apply, tp_decode_apply
+    from horovod_tpu_torch.serve import make_decode_state
+    from horovod_tpu_torch.utils.convert import param_tree
+
+    params = param_tree(model)
+    heads, d = GPT2_SMALL["n_heads"], GPT2_SMALL["d_model"]
+    width = 1024 // SERVE_PAGE
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"],
+                                          (SERVE_SLOTS, SERVE_TF_T))).cuda()
+    table = torch.from_numpy(rng.permutation(np.arange(1, SERVE_PAGES))
+                             .reshape(SERVE_SLOTS, width)).cuda()
+    cache = make_decode_state(GPT2_SMALL["n_layers"], num_pages=SERVE_PAGES,
+                              page_size=SERVE_PAGE, n_heads=heads, head_dim=d // heads,
+                              dtype=dtype)
+    with torch.no_grad():
+        ref = tp_apply(params, tokens, n_heads=heads, dtype=dtype)        # [8, 64, vocab]
+        worst, covered = 0.0, 0
+        for t in range(SERVE_TF_T):
+            pos = torch.full((SERVE_SLOTS,), t, device="cuda")
+            logits, cache = tp_decode_apply(params, tokens[:, t], pos, cache, table,
+                                            n_heads=heads, dtype=dtype)
+            r = ref[:, t]
+            rel = float((logits - r).norm() / r.norm())
+            check(rel <= limit, f"[serve] {dtype} position {t}: logits rel L2 {rel:.3e} > {limit}")
+            worst = max(worst, rel)
+            err = float((logits - r).abs().max())
+            top2 = r.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > SERVE_MARGIN * err
+            same = logits.argmax(-1) == r.argmax(-1)
+            check(bool(same[sure].all()), f"[serve] {dtype} position {t}: argmax differs where "
+                                          f"the margin exceeds {SERVE_MARGIN} x {err:.3e}")
+            covered += int(sure.sum())
+    return worst, covered, SERVE_SLOTS * SERVE_TF_T
+
+
+def _serve_closed_loop(card):
+    """``bench --serve``'s configuration in process: the closed loop, then
+    the decode step alone at a full batch (``bench.time_decode_step``: host
+    ms a step over 20 steps, each ending in its read-back, none
+    synchronizing before it) and one profiled step."""
+    import torch
+    from horovod_tpu_torch import bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = bench.parse_args(["--serve"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dims, params = bench.serve_model(args, dev)
+    engine = bench.serve_engine(args, dims, params, dev)
+    with engine:
+        loop = bench.closed_loop(engine, args, dims["vocab_size"])
+    out = bench.serve_report(args, dims, loop, dev)
+    det = out["detail"]
+    print(f"[serve] bench --serve: {json.dumps(out)}", flush=True)
+    check(det["requests"] == args.serve_requests and out["value"] > 0,
+          f"[serve] the closed loop answered {det['requests']} of {args.serve_requests}")
+    # The decode step alone: 8 live slots at the engine's geometry.
+    prof = bench.time_decode_step(engine)
+    check("device_busy_ms" in prof, f"[serve] the profiler: {prof}")
+    step_ms, B = prof["step_ms"], args.serve_max_batch
+    share = prof["device_busy_ms"] / prof["host_ms"]
+    print(f"[serve] closed loop on {card}: {out['value']} tokens/s, p50 "
+          f"{det['latency_ms']['p50']} ms, p99 {det['latency_ms']['p99']} ms, mean batch "
+          f"occupancy {det['batch_occupancy_mean']} over {det['batches']} batches; the decode "
+          f"step at batch {B}: {step_ms:.3f} ms (host clock, median of 20, read-back "
+          f"included; no host synchronization inside the step, by "
+          f"torch.cuda.set_sync_debug_mode('error')), {prof['kernels']} CUDA launches a step, "
+          f"device busy "
+          f"{prof['device_busy_ms']:.3f} of {prof['host_ms']:.3f} ms ({share:.1%}) in the "
+          f"profiled step; device ms by family {prof['family_ms']}", flush=True)
+
+
+def phase_serve(card):
+    """[serve]: the serving engine (the module docstring, 17)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    t_phase = time.perf_counter()
+    _serve_small()
+    model = TransformerLM(**GPT2_SMALL, max_len=1024, dtype=torch.bfloat16, seed=0)
+    for dtype, limit in ((torch.bfloat16, SERVE_BF16_REL), (torch.float32, SERVE_F32_REL)):
+        worst, covered, total = _teacher_forced(model, dtype, limit)
+        print(f"[serve] GPT-2-small teacher-forced, {dtype} compute and cache, {SERVE_SLOTS} "
+              f"slots x {SERVE_TF_T} positions on shuffled pages ({SERVE_PAGES} pages of "
+              f"{SERVE_PAGE}): logits rel L2 at most {worst:.3e} (limit {limit}) against "
+              f"tp_apply (B1); argmax identical at the {covered} of {total} positions whose "
+              f"top-2 margin exceeds {SERVE_MARGIN} x the step's max abs error", flush=True)
+    _serve_closed_loop(card)
+    print(f"[serve] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -3347,6 +3554,7 @@ def main() -> int:
     phase_torch_binding(card)
     phase_pp(card)
     phase_ep(card)
+    phase_serve(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -104,6 +104,7 @@ from .train import (
     broadcast_parameters,
     error_feedback_state,
     init_composed_zero1_state,
+    make_decode_step,
     make_train_step,
 )
 
@@ -123,6 +124,6 @@ __all__ = [
     "hierarchical_allreduce", "hierarchical_allgather", "hierarchical_reducescatter",
     "hierarchical_broadcast", "hierarchical_alltoall", "init_composed_zero1_state",
     "DistributedOptimizer", "broadcast_parameters",
-    "broadcast_optimizer_state", "make_train_step", "GradientAccumulator",
+    "broadcast_optimizer_state", "make_train_step", "make_decode_step", "GradientAccumulator",
     "allreduce_gradients", "error_feedback_state", "EFState", "HorovodInternalError",
 ]

@@ -54,6 +54,17 @@ off as in ``bench.py``. ``detail`` reports them as ``optimizer_state``,
 ``utils/micro_bench.py`` runs first, at ``--ranks`` ranks (default 2) one
 card each, and its rows go into ``detail["micro_allreduce"]``.
 
+``--serve`` is ``bench.py``'s ``run_serve_benchmark``: ``--serve-clients``
+closed-loop client threads each keep one request in flight against a live
+``serve.ServeEngine`` (f32 compute and cache, page size 8, ``max(64, 8 x
+max batch)`` pages), after one warmup request outside the timed window;
+one JSON line ``serve_decode_tokens_per_sec`` with the latency percentiles,
+requests/s and the mean batch occupancy. The model is GPT-2-small at
+``max_len`` 1024 (the reference's 256-wide 2-layer model would time only
+the host); ``--smoke`` keeps the reference's smoke geometry. It runs on one
+card; the tensor-parallel server is timed by ``python -m
+horovod_tpu_torch.tools.serve_parity --bench``.
+
 Options of ``bench.py`` that the port has not ported exit non-zero and
 name the ROADMAP item that ports them.
 """
@@ -111,10 +122,11 @@ GPT_SMOKE = dict(vocab_size=512, d_model=128, n_heads=4, n_layers=2)
 UNPORTED = {
     "tp": "A6, the bench's composed DP x TP mode (the A9 step is timed by "
           "horovod_tpu_torch.tools.tp_parity --bench)",
-    "serve": "A11 (serving)",
     "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
     "tuned": "A13 (tune/)",
 }
+# bench.py:1361-1364: the serving benchmark's smoke geometry.
+SERVE_SMOKE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=1, max_len=64)
 # bench.py:1206-1214: the Switch MoE stack and its smoke dims.
 MOE_DIMS = dict(d_model=512, d_hidden=2048, n_layers=4, experts=16, vocab=32768)
 MOE_SMOKE = dict(d_model=64, d_hidden=128, n_layers=2, experts=8, vocab=512)
@@ -225,14 +237,39 @@ def parse_args(argv=None):
     ap.add_argument("--micro", action="store_true",
                     help="also run the eager-against-floor allreduce micro-benchmark at "
                          "--ranks ranks (default 2), one card each (detail.micro_allreduce)")
-    for flag in ("serve", "scan"):
-        ap.add_argument(f"--{flag}", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--serve", action="store_true",
+                    help="closed-loop benchmark of the serving engine: N clients each keep "
+                         "one request in flight; tokens/s, p50/p99 latency, batch occupancy")
+    ap.add_argument("--serve-clients", type=int, default=8,
+                    help="--serve: concurrent closed-loop clients")
+    ap.add_argument("--serve-requests", type=int, default=64,
+                    help="--serve: total requests across clients")
+    ap.add_argument("--serve-max-batch", type=int, default=8,
+                    help="--serve: engine max batch size")
+    ap.add_argument("--serve-max-wait-us", type=int, default=2000,
+                    help="--serve: batcher head deadline")
+    ap.add_argument("--serve-max-tokens", type=int, default=16,
+                    help="--serve: tokens generated per request")
+    ap.add_argument("--serve-replicas", type=int, default=1,
+                    help="--serve: DP serving replicas")
+    ap.add_argument("--scan", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tuned", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for flag, item in UNPORTED.items():
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
+    if args.serve:
+        # bench.py's refusals: serving has no optimizer, backward or gradients.
+        for flag in ("zero1", "overlap", "quantized"):
+            if getattr(args, flag):
+                ap.error(f"--serve benchmarks the inference decode path: --{flag} acts on "
+                         f"the gradients of training, which serving has none of — drop "
+                         f"--{flag}")
+        if args.micro or (args.ranks or 1) > 1:
+            ap.error("--serve runs one engine on one card; the tensor-parallel server is "
+                     "timed by python -m horovod_tpu_torch.tools.serve_parity --bench")
+        args.model = "transformer"
     if args.zero1 and args.model != "transformer":
         ap.error("--zero1 is implemented for --model transformer only")
     if args.quantized and args.model != "transformer":
@@ -245,6 +282,9 @@ def parse_args(argv=None):
     args.ranks = args.ranks or 1
     if args.ranks < 1:
         ap.error("--ranks must be at least 1")
+    if args.smoke and args.serve:
+        args.serve_clients = min(args.serve_clients, 4)
+        args.serve_requests = min(args.serve_requests, 16)
     if args.smoke:
         if args.model == "transformer":
             args.batch_size, args.seq_len = 2, 128
@@ -585,6 +625,188 @@ def _run_moe(args, init_s: float) -> int:
     return 0
 
 
+def serve_model(args, device):
+    """The served model's dims and its parameter tree (f32, from
+    ``--seed``): GPT-2-small at max_len 1024, or ``SERVE_SMOKE``."""
+    import torch
+
+    from .models.transformer import TransformerLM
+    from .utils.convert import param_tree
+
+    dims = dict(SERVE_SMOKE) if args.smoke else dict(GPT2_SMALL, max_len=1024)
+    model = TransformerLM(**dims, dtype=torch.float32, device=device, seed=args.seed)
+    return dims, param_tree(model)
+
+
+def serve_engine(args, dims, params, device):
+    """``bench.py``'s serving engine over ``params``: f32 compute and
+    cache, page size 8, ``max(64, 8 x max batch)`` pages."""
+    import torch
+
+    from .serve import ServeEngine
+    from .train import make_decode_step
+
+    step = make_decode_step(n_heads=dims["n_heads"], dtype=torch.float32)
+    return ServeEngine(
+        params, step, n_layers=dims["n_layers"], n_heads=dims["n_heads"],
+        head_dim=dims["d_model"] // dims["n_heads"],
+        num_pages=max(64, 8 * args.serve_max_batch), page_size=8,
+        max_batch_size=args.serve_max_batch, max_wait_us=args.serve_max_wait_us,
+        max_context=dims["max_len"], replicas=args.serve_replicas,
+        cache_dtype=torch.float32, device=device)
+
+
+def closed_loop(engine, args, vocab: int) -> dict:
+    """``--serve-clients`` threads, each keeping one request in flight
+    (``--serve-requests`` in all, prompts of 1-8 tokens drawn from ``1000 +
+    client``), after one warmup request outside the timed window. Returns
+    the wall time, the completions, the batches and the decode steps of
+    the timed window."""
+    import threading
+
+    n_clients = max(1, args.serve_clients)
+    per_client = max(1, args.serve_requests // n_clients)
+    results, lock = [], threading.Lock()
+
+    def client(cid):
+        rng = np.random.RandomState(1000 + cid)
+        for j in range(per_client):
+            prompt = [int(t) for t in rng.randint(0, vocab, size=1 + rng.randint(8))]
+            rid = engine.submit(prompt, max_tokens=args.serve_max_tokens,
+                                request_id=f"c{cid}.{j}")
+            comp = engine.result(rid, timeout=300.0)
+            with lock:
+                results.append(comp)
+
+    warm = engine.submit([1, 2, 3], max_tokens=2, request_id="warmup")
+    engine.result(warm, timeout=300.0)
+    batches0, batched0, steps0 = engine.batches, engine.batched_requests, engine.steps
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), name=f"bench-client-{c}")
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    batches = engine.batches - batches0
+    return {"wall_s": wall, "completions": results, "clients": n_clients,
+            "batches": batches, "steps": engine.steps - steps0,
+            "occupancy": (engine.batched_requests - batched0) / batches if batches else 0.0}
+
+
+def decode_family(name: str) -> str:
+    """The decode step's kernel families by lower-case kernel name: cuBLAS
+    products (q/k/v, out, MLP, head, the attention's batched products),
+    NCCL, the page gather and the cache write (index kernels), the softmax
+    and the norms' reductions, and elementwise work (casts, adds, gelu, the
+    mask)."""
+    return ("gemm" if any(s in name for s in ("gemm", "cutlass", "cublas", "nvjet", "xmma"))
+            else "nccl" if "nccl" in name
+            else "index" if any(s in name for s in ("index", "gather", "scatter"))
+            else "reduce" if any(s in name for s in ("reduce", "softmax", "norm"))
+            else "elementwise" if any(s in name for s in ("elementwise", "copy", "fill", "cat"))
+            else "other")
+
+
+def time_decode_step(engine, *, steps: int = 20) -> dict:
+    """The engine's decode step alone at a full batch of live slots
+    (positions 8-15, two pages each), at the engine's own geometry (batch,
+    page-table width) on its first replica's cache, with the engine idle:
+    the median host ms of ``steps`` steps, each ending in its read-back,
+    after 5, and one step under ``torch.profiler``
+    (``utils/profile.profile_step``: host ms, device busy ms, kernels,
+    device ms by :func:`decode_family`). On the card every step runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a step that synchronizes
+    the host before its read-back fails."""
+    import statistics
+
+    import torch
+
+    from .utils.profile import profile_step
+
+    B, cache = engine.max_batch_size, engine.replica_caches()[0]
+    table = np.zeros((B, engine.table_width), np.int32)
+    table[:, :2] = np.arange(1, 2 * B + 1).reshape(B, 2)
+    tokens = np.arange(B, dtype=np.int32)
+    checked = engine.device.type == "cuda"
+
+    def one(i):
+        positions = np.full(B, 8 + i % 8, np.int32)
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            nxt, _ = engine.decode_step(engine.params, cache, tokens, positions, table)
+        finally:
+            if checked:
+                torch.cuda.set_sync_debug_mode("default")
+        return nxt.cpu()
+
+    times = []
+    for i in range(steps + 5):
+        t0 = time.perf_counter()
+        one(i)
+        times.append(time.perf_counter() - t0)
+    prof = profile_step(lambda: one(0), decode_family)
+    return {"step_ms": statistics.median(times[5:]) * 1e3, **prof}
+
+
+def serve_report(args, dims, loop: dict, device) -> dict:
+    """``bench.py``'s serving JSON from a :func:`closed_loop` run."""
+    import torch
+
+    ok = [c for c in loop["completions"] if c.outcome == "ok"]
+    if not ok:
+        raise RuntimeError("the serving benchmark completed no requests")
+    wall = loop["wall_s"]
+    lat_ms = np.sort([c.latency_s * 1e3 for c in ok])
+    tokens = int(sum(len(c.tokens) for c in ok))
+    on_card = device.type == "cuda"
+    return {
+        "metric": "serve_decode_tokens_per_sec",
+        "value": round(tokens / wall, 1),
+        "unit": "tokens/s",
+        "vs_baseline": None,
+        "detail": {
+            "requests": len(ok),
+            "clients": loop["clients"],
+            "replicas": args.serve_replicas,
+            "latency_ms": {
+                "p50": round(float(np.percentile(lat_ms, 50)), 3),
+                "p99": round(float(np.percentile(lat_ms, 99)), 3),
+                "mean": round(float(np.mean(lat_ms)), 3),
+                "max": round(float(lat_ms[-1]), 3),
+            },
+            "requests_per_sec": round(len(ok) / wall, 2),
+            "batch_occupancy_mean": round(float(loop["occupancy"]), 3),
+            "batches": loop["batches"],
+            "max_batch_size": args.serve_max_batch,
+            "max_wait_us": args.serve_max_wait_us,
+            "max_tokens": args.serve_max_tokens,
+            "model": {"vocab": dims["vocab_size"], "d_model": dims["d_model"],
+                      "n_heads": dims["n_heads"], "n_layers": dims["n_layers"],
+                      "max_len": dims["max_len"]},
+            "dtype": "float32 compute and cache",
+            "platform": "gpu" if on_card else "cpu",
+            "device_kind": torch.cuda.get_device_name(device) if on_card else "cpu",
+            "power_limit": _power_limit(device) if on_card else "not measured",
+        },
+    }
+
+
+def run_serve(args) -> int:
+    """The closed-loop serving benchmark on one device; prints one JSON
+    line."""
+    from .common.basics import resolve_device
+
+    device = resolve_device(args.device)
+    dims, params = serve_model(args, device)
+    with serve_engine(args, dims, params, device) as engine:
+        loop = closed_loop(engine, args, dims["vocab_size"])
+    print(json.dumps(serve_report(args, dims, loop, device)), flush=True)
+    return 0
+
+
 def run_micro(args, out_dir: str) -> None:
     """The micro-benchmark (``utils/micro_bench.py``) at ``args.micro_ranks``
     ranks, before the bench's own ranks start; rank 0's record goes to a
@@ -601,6 +823,8 @@ def run_micro(args, out_dir: str) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if args.serve:
+        return run_serve(args)
     if "HOROVOD_RANK" in os.environ:
         return run(args)
     with tempfile.TemporaryDirectory(prefix="hvd_bench_") as out_dir:

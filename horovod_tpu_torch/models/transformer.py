@@ -8,7 +8,9 @@ The counterpart of ``horovod_tpu/models/transformer.py``:
   ``block_{i}/mlp/{up,down}``, ``ln_f``, ``lm_head``), so every parameter
   name maps one to one onto the flax tree (``.`` for ``/``);
 - :func:`tp_apply`, the forward over the same tree as a nested dict of
-  tensors, with :func:`lm_loss` and :func:`make_gpt_loss_fn`.
+  tensors, with :func:`lm_loss` and :func:`make_gpt_loss_fn`;
+- :func:`tp_decode_apply`, one serving decode step of that tree over a
+  paged KV cache.
 
 Both forms run the same blocks (:func:`_forward`) and differ where their
 JAX counterparts differ, in the input embedding: the flax module looks each
@@ -303,6 +305,100 @@ def _tp_apply_fused(params, x, *, group, head_dim: int, dtype, attn: Callable):
                                       mlp["down"]["bias"].to(dtype), axis_name=group)
     x = tp.tp_gather_tokens(x, axis_name=group)             # [B, T, C] replicated
     return _head(params, x, dtype)
+
+
+@torch.no_grad()
+def tp_decode_apply(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Dict[str, Any],
+    page_table: torch.Tensor,
+    *,
+    n_heads: int,
+    model_axis=None,
+    dtype=torch.bfloat16,
+):
+    """One incremental decode step of the same parameter tree over a paged
+    KV cache (``serve/kvcache.py``), the JAX package's ``tp_decode_apply``.
+
+    ``tokens``/``positions``: [B] token ids and their global positions.
+    ``cache``: the decode state, per layer ``block_i/attention/cache_k`` and
+    ``cache_v`` of shape [num_pages, page_size, H (local), head_dim].
+    ``page_table``: [B, max_pages] page ids; slot position p lives in page
+    ``page_table[b, p // page_size]`` at offset ``p % page_size``. Padded
+    slots point every entry at the scratch page 0, which no live slot is
+    ever given.
+
+    ``model_axis`` is :func:`tp_apply`'s: None for whole weights, else a
+    process group or an axis name in scope, with this rank's shards: q/k/v
+    and the MLP up-projection column-parallel (the cache holds the local
+    heads), attention-out and MLP-down row-parallel, one all-reduce each.
+
+    The new token's k/v are written into the cache in place before
+    attention reads it, so position p attends over [0..p]; the attention is
+    a dense gather of each slot's pages, an f32 softmax over all of them
+    with the positions past p masked. Returns ``(logits [B, vocab] f32,
+    cache)``."""
+    from ..parallel.tp import column_parallel
+
+    B = tokens.shape[0]
+    emb = params["embeddings"]["embedding"]
+    pos = params["pos_embeddings"]["embedding"]
+    x = (emb[tokens] + pos[positions]).to(dtype)               # [B, C]
+    C = emb.shape[-1]
+    if C % n_heads:
+        raise ValueError(f"d_model {C} not divisible by n_heads {n_heads}")
+    head_dim = C // n_heads
+    f, row = (lambda y: y), _dense_row
+    if model_axis is not None:
+        from ..parallel import tp
+
+        group = tp.resolve_group(model_axis)
+        f = partial(tp.tp_block_input, axis_name=group)
+        row = partial(tp.row_parallel, axis_name=group)
+    # A device scalar (made by a fill, no copy from the host): a true
+    # division, as the reference's, where a host scalar would multiply by
+    # its reciprocal on the card.
+    scale = torch.full((), float(head_dim), device=x.device).sqrt()
+    # Where this position's k/v go and which positions each slot sees: every
+    # layer's cache has the one geometry of make_decode_state, so once.
+    page_size = cache["block_0"]["attention"]["cache_k"].shape[1]
+    T = page_table.shape[1] * page_size
+    page = page_table[torch.arange(B, device=x.device), positions // page_size]
+    off = positions % page_size
+    masked = torch.arange(T, device=x.device)[None, :] > positions[:, None]
+    for i in range(transformer_n_layers(params)):
+        bp = params[f"block_{i}"]
+        ck = cache[f"block_{i}"]["attention"]["cache_k"]
+        cv = cache[f"block_{i}"]["attention"]["cache_v"]
+        h = f(_layer_norm(x, bp["ln_1"], dtype))
+        att = bp["attention"]
+        q = column_parallel(h, att["query"]["kernel"].to(dtype))
+        k = column_parallel(h, att["key"]["kernel"].to(dtype))
+        v = column_parallel(h, att["value"]["kernel"].to(dtype))
+        hl = _check_heads(q.shape[-1], head_dim)
+        q = q.reshape(B, hl, head_dim)
+        k = k.reshape(B, hl, head_dim).to(ck.dtype)
+        v = v.reshape(B, hl, head_dim).to(cv.dtype)
+        # Write this position's k/v into its page BEFORE reading.
+        ck.index_put_((page, off), k)
+        cv.index_put_((page, off), v)
+        # Each slot's logical view through its page table, attended over
+        # [0..position].
+        keys = ck[page_table].reshape(B, T, hl, head_dim)     # [B, MP * page_size, hl, D]
+        vals = cv[page_table].reshape(B, T, hl, head_dim)
+        scores = torch.einsum("bhd,bthd->bth", q.float(), keys.float()) / scale
+        scores = scores.masked_fill(masked[:, :, None], -1e30)
+        p = torch.softmax(scores, dim=1)
+        a = torch.einsum("bth,bthd->bhd", p, vals.float()).to(dtype).reshape(B, hl * head_dim)
+        x = x + row(a, att["out"]["kernel"].to(dtype))
+        h = f(_layer_norm(x, bp["ln_2"], dtype))
+        mlp = bp["mlp"]
+        u = F.gelu(column_parallel(h, mlp["up"]["kernel"].to(dtype), mlp["up"]["bias"].to(dtype)),
+                   approximate="tanh")
+        x = x + row(u, mlp["down"]["kernel"].to(dtype), mlp["down"]["bias"].to(dtype))
+    return _head(params, x, dtype), cache
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

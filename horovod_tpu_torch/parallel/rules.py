@@ -52,6 +52,18 @@ GPT_RULES: Tuple[Rule, ...] = (
 
 NAMED_RULES: Dict[str, Tuple[Rule, ...]] = {"gpt": GPT_RULES}
 
+# The serving decode state (``serve/kvcache.make_decode_state``): leaves
+# ``block_i/attention/cache_k`` / ``cache_v`` of shape [num_pages,
+# page_size, n_heads, head_dim]. The head dim shards over "model", so each
+# tensor-parallel rank holds the pages of its local heads and the decode
+# step's column-parallel k/v land on its own shard with no communication
+# (``GPT_CACHE_RULES`` of the JAX package's parallel/rules.py).
+GPT_CACHE_RULES: Tuple[Rule, ...] = (
+    (r"attention/cache_[kv]$", (None, None, "model", None)),
+)
+
+NAMED_CACHE_RULES: Dict[str, Tuple[Rule, ...]] = {"gpt": GPT_CACHE_RULES}
+
 NormSpec = Tuple[Tuple[str, ...], ...]
 
 

@@ -40,6 +40,10 @@ for them raises ``NotImplementedError``.
 rank's tensor-parallel shards, the loss runs on them with the model axis
 bound, and the gradients reduce over the data axis only, with the data-axis
 options above (a ``(cross, local)`` data scope too).
+
+``make_decode_step`` is the serving half: the batched one-token greedy
+decode over a paged KV cache (``models/transformer.tp_decode_apply``),
+dense or tensor-parallel by the same rule tables.
 """
 
 from __future__ import annotations
@@ -960,6 +964,108 @@ def init_composed_zero1_state(
     return _zero.init_zero1_stream_state(
         optimizer, local, group=_data_groups(mesh, dp_axes), threshold_bytes=threshold_bytes,
         first_bucket_bytes=first_bucket_bytes, quantized=quantized, error_feedback=False)
+
+
+def decode_inputs(tokens, positions, page_table, device: torch.device, prefix=()):
+    """The decode step's inputs as int64 tensors on ``device``: ``prefix``
+    (a few ints), the [B] tokens, the [B] positions and the [B, max_pages]
+    page table packed in that order into one flat tensor, and the three
+    inputs as views of it. From the host they go up in ONE copy, from a
+    pinned buffer without blocking (the caching host allocator keeps the
+    buffer until the copy has run), so the step's only host
+    synchronization stays the read-back of its output."""
+    import numpy as np
+
+    tok, pos = np.asarray(tokens).reshape(-1), np.asarray(positions).reshape(-1)
+    table = np.asarray(page_table)
+    packed = torch.from_numpy(np.concatenate(
+        [np.asarray(prefix, np.int64), tok, pos, table.reshape(-1)]).astype(np.int64))
+    if device.type == "cuda":
+        packed = packed.pin_memory().to(device, non_blocking=True)
+    return packed, split_decode_inputs(packed[len(prefix):], tok.shape[0])
+
+
+def split_decode_inputs(flat: torch.Tensor, batch: int):
+    """(tokens, positions, page_table) views of a packed [B, B, B x
+    max_pages] tensor."""
+    return flat[:batch], flat[batch:2 * batch], flat[2 * batch:].view(batch, -1)
+
+
+def make_decode_step(
+    *,
+    n_heads: int,
+    mesh=None,
+    rules: Any = None,
+    cache_rules: Any = None,
+    model_axis: str = "model",
+    dtype=torch.float32,
+):
+    """The batched one-token greedy decode step of serving, the counterpart
+    of the JAX package's ``make_decode_step``::
+
+        step(params, cache, tokens, positions, page_table)
+            -> (next_tokens [B] int32 on the params' device, cache)
+
+    ``cache`` is the paged decode state (``serve/kvcache.make_decode_state``),
+    updated in place; ``page_table`` the [B, max_pages] slot-to-page map;
+    ``tokens``, ``positions`` and ``page_table`` are host arrays (numpy) or
+    tensors on the params' device. The forward is
+    ``models/transformer.tp_decode_apply``.
+
+    With ``mesh`` and ``rules`` the step is tensor-parallel over
+    ``model_axis``: ``params`` are this rank's shards by the rule table (as
+    ``utils.convert.local_params_from_flax`` cuts them) and the cache holds
+    this rank's heads by ``cache_rules`` (default
+    ``parallel/rules.GPT_CACHE_RULES``: the head dim over the model axis),
+    both tables preflighted against the live trees' whole shapes at the
+    first call. Every rank of the model group must call the step with the
+    same inputs in the same order (``serve.serve`` runs a leader and
+    followers for that). With ``mesh=None`` it is the dense single-card
+    step. The build is deferred to the first call, where the live trees
+    decide the specs."""
+    from .models.transformer import tp_decode_apply
+    from .parallel import rules as _rules
+    from .serve.kvcache import preflight_decode_state
+
+    if (mesh is None) != (rules is None):
+        raise ValueError(
+            "make_decode_step shards by TABLE: pass mesh= and rules= "
+            "together (or neither for the dense reference)"
+        )
+    if mesh is not None and model_axis not in mesh.mesh_dim_names:
+        raise ValueError(
+            f"decode mesh needs axis {model_axis!r}; mesh has "
+            f"{tuple(mesh.mesh_dim_names)}"
+        )
+    built: dict = {}
+
+    def _build(params, cache):
+        if mesh is None:
+            return None
+        crules = (_rules.GPT_CACHE_RULES if cache_rules is None
+                  else _rules.resolve_rules(cache_rules))
+        resolved = _rules.resolve_rules(rules)
+        specs = _rules.match_partition_rules(resolved, params)
+        # Both tables checked against the whole shapes before any step.
+        _rules.preflight_rules(resolved, mesh, _rules.global_shapes(params, specs, mesh))
+        preflight_decode_state(crules, mesh, cache)
+        return mesh.get_group(model_axis)
+
+    def step(params, cache, tokens, positions, page_table):
+        if "group" not in built:
+            built["group"] = _build(params, cache)
+        device = params["embeddings"]["embedding"].device
+        inputs = (tokens, positions, page_table)
+        if all(isinstance(t, torch.Tensor) for t in inputs):
+            tokens, positions, page_table = (t.to(device) for t in inputs)
+        else:
+            _, (tokens, positions, page_table) = decode_inputs(*inputs, device)
+        logits, cache = tp_decode_apply(
+            params, tokens.long(), positions.long(), cache, page_table.long(),
+            n_heads=n_heads, model_axis=built["group"], dtype=dtype)
+        return logits.argmax(dim=-1).to(torch.int32), cache
+
+    return step
 
 
 class GradientAccumulator:

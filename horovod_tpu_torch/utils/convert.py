@@ -13,7 +13,8 @@ buffers of those names.
 For tensor parallelism, :func:`local_params_from_flax` cuts a whole flax
 tree to this rank's shards by a rule table (``parallel/rules.py``), and
 :func:`gather_params` puts the whole tree back together from every rank's
-shards.
+shards. A serving decode state (the paged KV cache) crosses over through
+:func:`decode_state_from_numpy` and :func:`decode_state_to_numpy`.
 """
 
 from __future__ import annotations
@@ -219,3 +220,22 @@ def pp_params_to_flax(params: Mapping[str, Any], n_stages: int, stage: int,
         block, rest = path.split("/", 1)
         out[f"block_{stage * per + int(block[len('block_'):])}/{rest}"] = a
     return out
+
+
+# --- serving ------------------------------------------------------------------
+
+
+def decode_state_from_numpy(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """A decode state (``serve/kvcache.make_decode_state``'s tree) from
+    numpy arrays, nested or flat ``/``-keyed (``block_0/attention/cache_k``),
+    as tensors of the arrays' dtype on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    return nest({path: torch.tensor(np.asarray(a), device=device)
+                 for path, a in flatten(tree).items()})
+
+
+def decode_state_to_numpy(cache: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A decode state as a flat ``/``-keyed dict of f32 numpy arrays (a
+    copy: the decode step writes the cache in place)."""
+    return {path: t.detach().to("cpu", torch.float32, copy=True).numpy()
+            for path, t in flatten(cache).items()}

@@ -256,7 +256,7 @@ def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
 
 @pytest.mark.parametrize("argv,item", [
     (["--tp", "2"], "A6"),
-    (["--serve"], "A11"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
+    (["--serve", "--tp", "2"], "A6"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
 ])
 def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys):
     from horovod_tpu_torch import bench

@@ -106,6 +106,42 @@ def test_binding_modules_load_no_jax_and_torch_is_pytorch():
     assert os.path.dirname(path) == os.path.dirname(torch.__file__), path
     assert not path.startswith(PORT), path
 
+def test_serve_modules_load_no_jax():
+    """The serving stack, its parity tool and the demo's ``--help`` leave
+    jax, flax, optax and the JAX package out of sys.modules."""
+    code = (
+        "import runpy, sys\n"
+        "import horovod_tpu_torch.serve, horovod_tpu_torch.serve.batcher, "
+        "horovod_tpu_torch.serve.kvcache, horovod_tpu_torch.serve.engine, "
+        "horovod_tpu_torch.serve.frontend, horovod_tpu_torch.tools.serve_parity\n"
+        "from horovod_tpu_torch import make_decode_step\n"
+        "sys.argv = ['serve', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('horovod_tpu_torch.serve', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout
+
+
+def test_serving_entry_points_default_to_the_card(no_gpu):
+    """``bench --serve`` and the serving demo start on the card, and
+    without one they raise instead of serving on the CPU."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.serve import __main__ as demo
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--serve", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.main([])
+
+
 def _knobs(mod):
     return {k: getattr(mod, k) for k in dir(mod) if k.startswith("HOROVOD_")}
 
