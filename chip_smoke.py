@@ -227,6 +227,26 @@ Phases, each printed as it ends:
    latency and the batch occupancy; the decode step alone at batch 8 (host
    ms with its read-back) and one profiled step (CUDA launches, device busy
    share, device ms by family), beside the card's name and power limit.
+   The closed loop runs with the metrics tap on, and the engine's HTTP
+   frontend then answers ``GET /metrics`` with the ``hvd_request_*`` and
+   ``hvd_serve_*`` series (one ``ok`` a request, the tokens, the latency
+   count).
+18. ``[hvdrun]``: the launcher and the taps (``horovod_tpu_torch/run``,
+   ``metrics``, ``trace``). ``run(tools.run_parity.gpt_steps, np=1)`` with
+   ``HOROVOD_METRICS=1``, ``HOROVOD_TRACE=1`` and ``HOROVOD_TIMELINE`` set:
+   in a launched worker, 5 DP steps of GPT-2-small at 8 x 1024 (the
+   ``[slice]`` configuration), whose first loss must be within 1e-6
+   relative of ``[slice]``'s; 12 forward and 12 backward (dQ + dK/dV) B1
+   launches a step; a registry holding ``hvd_fusion_buckets`` and the
+   executor's series (and no ``hvd_axis_wire_bytes_total``: the JAX step
+   records none for an axis of one); 5 step spans; a timeline that loads.
+   Then, in the worker, the step with both taps off and on in turns
+   (off, on, on, off, 3 rounds) and the host synchronizations of a step with
+   each, in the same turns after one uncounted step
+   (``set_sync_debug_mode("warn")``), which must be equal; the launch
+   overhead (``run()`` called to the worker's ``init`` returning); the
+   CLI's exit code on a passing and a failing one-rank command; and
+   ``--check-build``'s lines (NCCL, nvcc and the card marked).
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -1117,7 +1137,7 @@ def phase_train():
               f"{launches}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         profile_step(lambda: float(step(model, (tokens, labels))))
-        return launches, BATCH * SEQ / med
+        return launches, BATCH * SEQ / med, losses[0]
     finally:
         hvd.shutdown()
 
@@ -3397,10 +3417,39 @@ def _serve_closed_loop(card):
     dev = torch.device("cuda", torch.cuda.current_device())
     dims, params = bench.serve_model(args, dev)
     engine = bench.serve_engine(args, dims, params, dev)
-    with engine:
-        loop = bench.closed_loop(engine, args, dims["vocab_size"])
+    from horovod_tpu_torch import metrics
+
+    metrics.install(True)
+    try:
+        with engine:
+            loop = bench.closed_loop(engine, args, dims["vocab_size"])
+            scraped = _scrape_serve_metrics(engine)
+    finally:
+        metrics.reset()
     out = bench.serve_report(args, dims, loop, dev)
     det = out["detail"]
+    # The frontend stamps this process's series role="driver", as the JAX one.
+    samples = {name: {tuple(sorted((k, v) for k, v in lab.items() if k != "role")): val
+                      for _, lab, val in m["samples"]}
+               for name, m in scraped.items()}
+    # The timed requests and the closed loop's one warmup request (2 tokens).
+    n = len(loop["completions"]) + 1
+    tokens = sum(len(c.tokens) for c in loop["completions"]) + 2
+    check(samples.get("hvd_request_total", {}).get((("outcome", "ok"),)) == n,
+          f"[serve] GET /metrics: hvd_request_total {samples.get('hvd_request_total')} != {n} ok")
+    check(samples.get("hvd_serve_tokens_total", {}).get(()) == tokens,
+          f"[serve] GET /metrics: hvd_serve_tokens_total "
+          f"{samples.get('hvd_serve_tokens_total')} != {tokens}")
+    latency = [v for (name, lab, v) in scraped["hvd_request_latency_seconds"]["samples"]
+               if name.endswith("_count")]
+    check(latency == [n], f"[serve] GET /metrics: latency count {latency} != [{n}]")
+    for name in ("hvd_serve_batch_occupancy", "hvd_serve_queue_depth", "hvd_serve_replicas",
+                 "hvd_serve_kv_pages_in_use"):
+        check(name in samples, f"[serve] GET /metrics has no {name}")
+    print(f"[serve] GET /metrics after the closed loop (metrics tap on): "
+          f"{len(scraped)} families, hvd_request_total ok {n}, hvd_serve_tokens_total "
+          f"{samples['hvd_serve_tokens_total'][()]:.0f}, hvd_serve_* "
+          f"{sorted(k for k in samples if k.startswith('hvd_serve_'))}", flush=True)
     print(f"[serve] bench --serve: {json.dumps(out)}", flush=True)
     check(det["requests"] == args.serve_requests and out["value"] > 0,
           f"[serve] the closed loop answered {det['requests']} of {args.serve_requests}")
@@ -3420,6 +3469,23 @@ def _serve_closed_loop(card):
           f"profiled step; device ms by family {prof['family_ms']}", flush=True)
 
 
+def _scrape_serve_metrics(engine) -> dict:
+    """``GET /metrics`` from the engine's HTTP frontend, parsed."""
+    import urllib.request
+
+    from horovod_tpu_torch.metrics import export
+    from horovod_tpu_torch.serve.frontend import ServeFrontend
+
+    front = ServeFrontend(engine, port=0)
+    port = front.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+            check(resp.status == 200, f"[serve] GET /metrics answered {resp.status}")
+            return export.parse_prometheus(resp.read().decode())
+    finally:
+        front.stop()
+
+
 def phase_serve(card):
     """[serve]: the serving engine (the module docstring, 17)."""
     import torch
@@ -3437,6 +3503,75 @@ def phase_serve(card):
               f"top-2 margin exceeds {SERVE_MARGIN} x the step's max abs error", flush=True)
     _serve_closed_loop(card)
     print(f"[serve] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_hvdrun(card, slice_first_loss: float):
+    """[hvdrun]: the launcher and the observability taps (the module
+    docstring, 18)."""
+    import os
+    import tempfile
+
+    import torch
+    from horovod_tpu_torch.metrics import export
+    from horovod_tpu_torch.run import run
+    from horovod_tpu_torch.tools import run_parity
+    from horovod_tpu_torch.trace import merge
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the worker shares this card
+    with tempfile.TemporaryDirectory(prefix="hvdrun_") as work:
+        timeline = os.path.join(work, "timeline.json")
+        env = {"HOROVOD_METRICS": "1", "HOROVOD_TRACE": "1", "HOROVOD_TIMELINE": timeline}
+        t0 = time.time()
+        (res,) = run(run_parity.gpt_steps, np=1, env=env, kwargs=dict(
+            steps=STEPS, dtype="bf16", out_dir=work, ab_rounds=3, sync_check=True))
+        launch_s = res["init_done"] - t0
+        events = merge.load_chrome_trace(timeline)
+    losses, snap = res["losses"], res["metrics"]
+    rel = abs(losses[0] - slice_first_loss) / abs(slice_first_loss)
+    print(f"[hvdrun] run(gpt_steps, np=1) on {res['card']}: losses {losses}; first loss "
+          f"{losses[0]!r} against [slice]'s {slice_first_loss!r}: rel {rel:.3e}", flush=True)
+    check(rel <= 1e-6, f"[hvdrun] first loss rel err {rel:.3e} > 1e-6 against [slice]")
+    layers = GPT2_SMALL["n_layers"]
+    check(res["launches"] == [[layers, layers]] * STEPS,
+          f"[hvdrun] B1 launches a step (fwd, dQ + dK/dV pairs) {res['launches']}")
+    for name in ("hvd_fusion_buckets", "hvd_fusion_bucket_bytes", "hvd_plans_total",
+                 "hvd_op_execute_seconds", "hvd_ops_submitted_total", "hvd_op_bytes"):
+        check(name in snap, f"[hvdrun] the worker's registry has no {name}: {sorted(snap)}")
+    check("hvd_axis_wire_bytes_total" not in snap,
+          "[hvdrun] hvd_axis_wire_bytes_total at one rank (the JAX step records none)")
+    check(export.parse_prometheus(export.render_prometheus([({}, snap)])) != {},
+          "[hvdrun] the worker's exposition is empty")
+    check(res["step_spans"] == STEPS, f"[hvdrun] {res['step_spans']} step spans, not {STEPS}")
+    check(len(events) > 0, "[hvdrun] the timeline holds no event")
+    check(sorted(res["syncs"]["taps_on"]) == sorted(res["syncs"]["taps_off"]),
+          f"[hvdrun] host syncs a step with the taps on/off: {res['syncs']}")
+    on, off = statistics.median(res["taps_on_ms"]), statistics.median(res["taps_off_ms"])
+    print(f"[hvdrun] buckets {snap['hvd_fusion_buckets']['series']}, plan notes "
+          f"{res['plan']}; B1 launches a step {res['launches'][0]}; {res['step_spans']} step "
+          f"spans; timeline events {len(events)}; host syncs a step {res['syncs']}", flush=True)
+    print(f"[hvdrun] step ms with both taps on {on:.2f} vs off {off:.2f} (median of 6 each, "
+          f"in turns off/on/on/off; on {res['taps_on_ms']}, off {res['taps_off_ms']}): "
+          f"{(on - off) / off:+.2%}; launch overhead (run() called to the worker's init "
+          f"returning) {launch_s:.2f} s on {card}", flush=True)
+    worker = [sys.executable, "-c", "import horovod_tpu_torch as h; h.init(); "
+              "assert h.size() == 1 and h.device().type == 'cuda'; h.shutdown()"]
+    codes = {}
+    for name, cmd in (("pass", worker), ("fail", [sys.executable, "-c", "raise SystemExit(7)"])):
+        t0 = time.perf_counter()
+        codes[name] = (subprocess.run([sys.executable, "-m", "horovod_tpu_torch.run", "-np",
+                                       "1", *cmd], timeout=600).returncode,
+                       time.perf_counter() - t0)
+    check(codes["pass"][0] == 0 and codes["fail"][0] == 7, f"[hvdrun] the CLI's codes {codes}")
+    build = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.run", "--check-build"],
+                           capture_output=True, text=True, timeout=300)
+    for line in ("[X] NCCL", "[X] nvcc", "[X] CUDA device"):
+        check(line in build.stdout, f"[hvdrun] --check-build lacks {line!r}:\n{build.stdout}")
+    print(f"[hvdrun] CLI -np 1: rc {codes['pass'][0]} in {codes['pass'][1]:.1f} s (init on "
+          f"the card), rc {codes['fail'][0]} for a rank exiting 7 in {codes['fail'][1]:.1f} s; "
+          f"--check-build: " + "; ".join(l.strip() for l in build.stdout.splitlines()
+                                         if "[X]" in l), flush=True)
+    print(f"[hvdrun] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def gpt_family(name: str) -> str:
@@ -3539,7 +3674,7 @@ def main() -> int:
         rows[name] = dict(block_rows[name], replaces=f"{REPLACED}:386")
     phase_ring_merge()
     phase_small_model()
-    launches, slice_tokens_per_s = phase_train()
+    launches, slice_tokens_per_s, slice_first_loss = phase_train()
     phase_head_dims()
     phase_dp_variants(card)
     sp_launches = phase_sp_train()
@@ -3555,6 +3690,7 @@ def main() -> int:
     phase_pp(card)
     phase_ep(card)
     phase_serve(card)
+    phase_hvdrun(card, slice_first_loss)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

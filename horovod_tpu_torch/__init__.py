@@ -29,6 +29,8 @@ Quick start (one process per GPU)::
     loss = step(model, (tokens, labels))
 """
 
+__version__ = "0.1.0"
+
 from .common.basics import (
     HorovodInternalError,
     cross_rank,
@@ -108,6 +110,16 @@ from .train import (
     make_train_step,
 )
 
+from . import metrics, trace  # noqa: E402 - hvd.metrics() is the callable module
+
+
+def metrics_snapshot() -> dict:
+    """Structured snapshot of this process's metrics registry (plain dicts,
+    lists and numbers); empty when ``HOROVOD_METRICS`` is unset.
+    ``hvd.metrics()`` is the flat one-value-per-series view of it."""
+    return metrics.snapshot()
+
+
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device", "ReduceOp",
@@ -126,4 +138,5 @@ __all__ = [
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "make_train_step", "make_decode_step", "GradientAccumulator",
     "allreduce_gradients", "error_feedback_state", "EFState", "HorovodInternalError",
+    "metrics", "metrics_snapshot",
 ]

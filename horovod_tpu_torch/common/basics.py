@@ -8,11 +8,18 @@ core and its plan executor); ``shutdown`` stops them in the reverse order.
 A native core that fails to build or load makes ``init`` raise: the
 pure-Python runtime runs only where ``HOROVOD_TPU_CORE=python`` asks for
 it.
+
+With ``HOROVOD_METRICS``/``HOROVOD_TRACE`` set and the elastic KV plane's
+address in ``HOROVOD_ELASTIC_KV_ADDR``/``PORT``, ``init`` also starts the
+worker-side pushers of ``horovod_tpu/__init__.py:230-290``, which ship
+this rank's metrics snapshot and span window to that KV server; a pusher
+that cannot start is logged and the job goes on, as there.
 """
 
 from __future__ import annotations
 
 import atexit
+import logging
 import os
 import shutil
 import tempfile
@@ -48,6 +55,7 @@ class _Runtime:
     device: torch.device
     store_dir: Optional[str]
     eager: Any = None       # core.native_runtime.NativeRuntime or core.runtime.Runtime
+    pushers: tuple = ()     # metrics.export.MetricsPusher / trace.pusher.TracePusher
 
 
 _runtime: Optional[_Runtime] = None
@@ -68,6 +76,11 @@ def init(device=None, *, init_method: Optional[str] = None, config=None) -> None
         return
     dev = resolve_device(device)
     topo = detect()
+    if dev.type == "cuda" and dev.index is None and topo.local_size > torch.cuda.device_count():
+        raise RuntimeError(
+            f"{topo.local_size} local ranks on this host but {torch.cuda.device_count()} "
+            f"visible CUDA devices: rank {topo.rank} (local rank {topo.local_rank}) "
+            "would share a card; start at most one rank per card")
     store_dir = None
     if init_method is None:
         if topo.size == 1:
@@ -96,7 +109,36 @@ def init(device=None, *, init_method: Optional[str] = None, config=None) -> None
         if store_dir is not None:
             shutil.rmtree(store_dir, ignore_errors=True)
         raise
-    _runtime = _Runtime(topology=topo, device=dev, store_dir=store_dir, eager=rt)
+    _runtime = _Runtime(topology=topo, device=dev, store_dir=store_dir, eager=rt,
+                        pushers=_start_pushers(topo))
+
+
+def _start_pushers(topo: Topology) -> tuple:
+    """The worker-side metrics and trace pushers (the module docstring);
+    none without an armed tap or a KV address."""
+    from .. import metrics, trace
+
+    if trace.ACTIVE:
+        # The tap armed at import, maybe before the rank was known.
+        trace.TAP.rank = topo.rank
+    addr = os.environ.get("HOROVOD_ELASTIC_KV_ADDR", "")
+    port = os.environ.get("HOROVOD_ELASTIC_KV_PORT", "")
+    if not addr or not port:
+        return ()
+    pushers = []
+    for active, what in ((metrics.ACTIVE, "metrics"), (trace.ACTIVE, "trace")):
+        if not active:
+            continue
+        try:
+            if what == "metrics":
+                from ..metrics.export import MetricsPusher as cls
+            else:
+                from ..trace.pusher import TracePusher as cls
+            pushers.append(cls(addr, int(port), topo.rank))
+        except Exception as exc:  # noqa: BLE001 - observability never blocks init
+            logging.getLogger("horovod_tpu_torch").warning(
+                "could not start the %s pusher: %s", what, exc)
+    return tuple(pushers)
 
 
 def shutdown() -> None:
@@ -110,6 +152,13 @@ def shutdown() -> None:
     try:
         rt.eager.shutdown()
         eager.reset()
+        # Stopped after the runtime, so the final push carries the
+        # teardown-time counts and spans.
+        for pusher in rt.pushers:
+            try:
+                pusher.stop()
+            except Exception:  # noqa: BLE001 - a dead KV server must not fail shutdown
+                pass
     finally:
         dist.destroy_process_group()
         if rt.store_dir is not None:

@@ -206,7 +206,11 @@ class NativeCore:
             cfg.autotune_warmup_samples,
             cfg.autotune_steps_per_sample,
             _LOG_LEVELS.get(cfg.log_level.lower(), 2),
-            cfg.timeline_filename.encode(),
+            # HOROVOD_TIMELINE is the coordinator's file, as in the reference
+            # (operations.cc opens it on rank 0): ranks writing one path would
+            # interleave into a file that does not load. start_timeline opens
+            # one on any rank.
+            (cfg.timeline_filename if topo.rank == 0 else "").encode(),
             coord_addr.encode(),
             coord_port,
             cfg.autotune_log_file.encode(),

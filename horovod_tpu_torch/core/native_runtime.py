@@ -321,6 +321,15 @@ class NativeRuntime:
             entries.append(entry)
         ptype = int(plan["type"])
         op_label = ResponseType(ptype).name if ptype <= ResponseType.ERROR else str(ptype)
+        if _metrics.ACTIVE:
+            now = time.monotonic()
+            for entry in entries:
+                ts = entry.context.pop("metrics_enqueue_ts", None)
+                if ts is not None:
+                    _metrics.TAP.observe("hvd_op_negotiate_seconds", now - ts, op=op_label)
+            with self._entries_lock:
+                depth = sum(len(q) for q in self._entries.values())
+            _metrics.TAP.set("hvd_queue_depth", float(depth))
         status_code, error = 0, ""
         outputs: Dict[str, Any] = {}
         done = None
@@ -329,6 +338,8 @@ class NativeRuntime:
             status_code = int(StatusType.ABORTED)
             error = plan.get("error", "coordinator reported an error")
             logger.error("coordinator abort: %s", error)
+            if _metrics.ACTIVE:
+                _metrics.TAP.inc("hvd_guard_metadata_aborts_total")
         elif ptype != ResponseType.JOIN:
             try:
                 # The "hvd_plan_<id>" string of the core's timeline names the

@@ -8,9 +8,11 @@ the default). All collective work happens on one background thread
 fuse and execute. Like the JAX package's, this runtime serves a job of one
 process: a multi-process job runs on the native core.
 
-Not ported: the catapult timeline writer of ``utils/timeline.py``
-(``HOROVOD_TIMELINE`` and ``start_timeline`` raise here; the native core
-writes its own timeline), ROADMAP A12.
+``HOROVOD_TIMELINE`` and ``start_timeline`` write the catapult timeline of
+``utils/timeline.py`` with the JAX runtime's events and names; the
+metrics (``hvd_op_*``, ``hvd_queue_depth``, ``hvd_cycle_seconds``, the
+stall counters) and the ``hvd_response`` spans sit at the JAX runtime's
+sites.
 """
 
 from __future__ import annotations
@@ -44,12 +46,28 @@ from ..common.types import (
     dtype_from_array,
     dtype_size,
 )
+from ..utils.timeline import (
+    XLA_ADASUM,
+    XLA_ALLGATHER,
+    XLA_ALLREDUCE,
+    XLA_ALLTOALL,
+    XLA_BROADCAST,
+    XLA_REDUCESCATTER,
+    Timeline,
+)
 
 logger = logging.getLogger("horovod_tpu_torch")
 
-_TIMELINE_NOT_PORTED = (
-    "the pure-Python runtime's timeline writer (horovod_tpu/utils/timeline.py) is not "
-    "ported yet (ROADMAP A12); the native core (HOROVOD_TPU_CORE=native) writes the timeline")
+# The timeline's activity name of each request type: the JAX runtime's, which
+# the native core stamps too (utils/timeline.py says why the port keeps them).
+_REQ_TO_TIMELINE = {
+    RequestType.ALLREDUCE: XLA_ALLREDUCE,
+    RequestType.ALLGATHER: XLA_ALLGATHER,
+    RequestType.BROADCAST: XLA_BROADCAST,
+    RequestType.ALLTOALL: XLA_ALLTOALL,
+    RequestType.REDUCESCATTER: XLA_REDUCESCATTER,
+    RequestType.ADASUM: XLA_ADASUM,
+}
 
 
 @dataclass
@@ -433,8 +451,6 @@ class Runtime:
     def __init__(self, config: Config, topology: Topology,
                  coordinator: Optional[Coordinator] = None,
                  data_plane: Optional[DataPlane] = None):
-        if config.timeline_filename:
-            raise NotImplementedError(_TIMELINE_NOT_PORTED)
         self.config = config
         self.topology = topology
         self.coordinator = coordinator or SingleProcessCoordinator()
@@ -448,6 +464,7 @@ class Runtime:
         self.data_plane = data_plane
         self.tensor_queue = TensorQueue()
         self.handle_manager = HandleManager()
+        self.timeline = Timeline()
         self.stall_inspector = StallInspector(config)
         self.negotiation = NegotiationTable()
         self.joined = False
@@ -476,6 +493,8 @@ class Runtime:
     def start(self) -> None:
         if self._thread is not None:
             return
+        if self.config.timeline_filename:
+            self.timeline.initialize(self.config.timeline_filename, self.topology.rank)
         self._thread = threading.Thread(target=self._background_loop, name="hvd_background",
                                         daemon=True)
         self._thread.start()
@@ -490,6 +509,7 @@ class Runtime:
         self._thread = None
         self.tensor_queue.drain(SHUT_DOWN_ERROR)
         self.coordinator.shutdown()
+        self.timeline.shutdown()
 
     @property
     def running(self) -> bool:
@@ -551,6 +571,8 @@ class Runtime:
         if _metrics.ACTIVE:
             entry.context["metrics_enqueue_ts"] = time.monotonic()
             _metrics.TAP.inc("hvd_ops_submitted_total", op=request_type.name)
+        if self.timeline.initialized:
+            self.timeline.negotiate_start(name, request_type.name)
         self._wake.set()
         return handle
 
@@ -595,6 +617,9 @@ class Runtime:
         self.tensor_queue.drain(self._drain_status or SHUT_DOWN_ERROR)
 
     def _run_cycle_once(self) -> None:
+        cycle_t0 = time.perf_counter() if _metrics.ACTIVE else 0.0
+        if self.timeline.initialized and self.config.timeline_mark_cycles:
+            self.timeline.mark_cycle_start()
         requests = self.tensor_queue.pop_requests()
         self.stall_inspector.record([r.tensor_name for r in requests])
         error_responses = self.negotiation.validate(requests)
@@ -608,6 +633,15 @@ class Runtime:
             self._perform_operation(response)
         missing = self.coordinator.missing_ranks()
         report = self.stall_inspector.check(missing)
+        if _metrics.ACTIVE:
+            _metrics.TAP.set("hvd_queue_depth", float(self.tensor_queue.size()))
+            _metrics.TAP.observe("hvd_cycle_seconds", time.perf_counter() - cycle_t0)
+            if report.warned:
+                _metrics.TAP.inc("hvd_stall_warnings_total", len(report.warned))
+            if report.aborted:
+                _metrics.TAP.inc("hvd_stall_aborts_total", len(report.aborted))
+            if report.shutdown:
+                _metrics.TAP.inc("hvd_stall_shutdowns_total")
         if report.aborted and _trace.ACTIVE:
             _trace.TAP.flight_dump("stall-abort")
         for name in report.aborted:
@@ -630,6 +664,8 @@ class Runtime:
                 + "] exceeded HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="
                 f"{self.config.stall_shutdown_time_seconds:g}s; aborting the runtime")
             logger.error("%s", self._drain_status.reason)
+            if _trace.ACTIVE:
+                _trace.TAP.flight_dump("stall-shutdown")
             self._shutdown.set()
 
     def _perform_operation(self, response: Response) -> None:
@@ -651,15 +687,48 @@ class Runtime:
             _fault.fault_point("response", entries[0].name)
         self.stall_inspector.clear([e.name for e in entries])
         self.negotiation.clear([e.name for e in entries])
+        rtype = int(response.response_type)
+        timeline_name = _REQ_TO_TIMELINE.get(
+            RequestType(rtype) if rtype <= int(RequestType.ADASUM) else None, "OP")
+        op_label = timeline_name.replace("XLA_", "")
+        if self.timeline.initialized:
+            for e in entries:
+                self.timeline.negotiate_end(e.name, op_label)
+                self.timeline.start(e.name, timeline_name)
+        if _metrics.ACTIVE:
+            now = time.monotonic()
+            for e in entries:
+                ts = e.context.pop("metrics_enqueue_ts", None)
+                if ts is not None:
+                    _metrics.TAP.observe("hvd_op_negotiate_seconds", now - ts, op=op_label)
+        exec_t0 = time.perf_counter() if (_metrics.ACTIVE or _trace.ACTIVE) else 0.0
         if response.response_type == ResponseType.ERROR:
             status = Status.Aborted(response.error_message)
             logger.error("%s", response.error_message)
+            if _metrics.ACTIVE:
+                _metrics.TAP.inc("hvd_guard_metadata_aborts_total")
         else:
             try:
                 status = self.data_plane.execute(response, entries, self.topology)
             except Exception as exc:  # noqa: BLE001 - reported through the handles
                 logger.exception("data plane failure")
                 status = Status.UnknownError(str(exc))
+        nbytes = sum(int(getattr(e.tensor, "nbytes", 0) or 0) for e in entries)
+        if _metrics.ACTIVE:
+            _metrics.TAP.observe("hvd_op_execute_seconds", time.perf_counter() - exec_t0,
+                                 op=op_label)
+            if nbytes:
+                _metrics.TAP.observe("hvd_op_bytes", nbytes, op=op_label)
+            if not status.ok():
+                _metrics.TAP.inc("hvd_op_errors_total", op=op_label)
+        if _trace.ACTIVE:
+            dur = time.perf_counter() - exec_t0
+            _trace.TAP.event("hvd_response", ph="X", cat="op", ts=time.time() - dur, dur=dur,
+                             op=op_label, tensors=len(entries), nbytes=nbytes,
+                             ok=bool(status.ok()))
+        if self.timeline.initialized:
+            for e in entries:
+                self.timeline.end(e.name, timeline_name)
         for entry in entries:
             if entry.callback is not None:
                 entry.callback(status, to_caller(entry.output, entry.context.get("host", False))
@@ -667,10 +736,17 @@ class Runtime:
 
     # --- timeline (later-reference API) ---
     def start_timeline(self, file_path: str, mark_cycles: bool = False):
-        raise NotImplementedError(_TIMELINE_NOT_PORTED)
+        if self.timeline.initialized:
+            raise ValueError("timeline is already active")
+        # The writer opens its file on its own thread: probe writability
+        # here, so an unwritable path raises instead of blocking later starts.
+        with open(file_path, "w"):
+            pass
+        self.config.timeline_mark_cycles = bool(mark_cycles)
+        self.timeline.initialize(file_path, self.topology.rank)
 
     def stop_timeline(self) -> None:
-        raise NotImplementedError(_TIMELINE_NOT_PORTED)
+        self.timeline.shutdown()
 
     # --- sync ---
     def poll(self, handle: int) -> bool:

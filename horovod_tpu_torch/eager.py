@@ -71,8 +71,12 @@ def _free_port() -> int:
 
 
 def _controller_host(topo) -> str:
-    if os.environ.get("MASTER_ADDR"):
-        return os.environ["MASTER_ADDR"]
+    """Rank 0's address for the core's controller: ``HOROVOD_CONTROLLER_ADDR``
+    (the launcher sets it when rank 0 is on a remote host), else
+    ``MASTER_ADDR``, else loopback for a job on one host."""
+    for var in ("HOROVOD_CONTROLLER_ADDR", "MASTER_ADDR"):
+        if os.environ.get(var):
+            return os.environ[var]
     if topo.local_size == topo.size:
         return "127.0.0.1"
     return socket.gethostbyname(socket.gethostname())

@@ -5,7 +5,7 @@ runtimes call :func:`fault_point` and :func:`payload_fault` behind
 ``if fault.ACTIVE:``, at the sites the JAX package names (``enqueue``,
 ``response``, ``payload``, ``output``; the serving engine's ``request``
 and ``replica``). ``ACTIVE`` is False: fault plans are not ported yet
-(ROADMAP A12), so the check is the whole cost. The exceptions an active
+(ROADMAP A12b), so the check is the whole cost. The exceptions an active
 plan raises are here already, because the serving engine catches
 :class:`ReplicaKilled` at its replica loop.
 """

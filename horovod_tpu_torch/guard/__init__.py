@@ -14,18 +14,25 @@ The policy comes from the caller, else ``HOROVOD_GUARD_NONFINITE``, else
 - ``abort`` agrees the same flag and raises ``HorovodInternalError`` from
   the step.
 
-The sentinels themselves are in :mod:`.nonfinite`. The digest agreement
-and the ``hvd_guard_*`` metrics are not ported (ROADMAP A12).
+The sentinels themselves are in :mod:`.nonfinite`; the DP step counts
+its detections in ``hvd_guard_nonfinite_total`` and
+``hvd_guard_skipped_steps_total``. The digest agreement is ROADMAP A12c.
 
-The eager runtimes' payload tap is a seam here: they call
-``TAP.check_payload(name, tensor)`` on allreduce/Adasum submissions behind
-``if guard.ACTIVE:``. ``ACTIVE`` is False (the eager sentinel is ROADMAP
-A12), so the check is the whole cost.
+The eager runtimes call ``TAP.check_payload(name, tensor)`` on
+allreduce/Adasum submissions behind ``if guard.ACTIVE:``, the JAX
+package's eager sentinel (``horovod_tpu/guard/__init__.py:122-185``):
+armed at import from ``HOROVOD_GUARD_NONFINITE`` (any policy but
+``off``), it counts a non-finite payload, raises under ``abort`` (after a
+flight dump), logs under ``warn`` and zeroes the non-finite entries under
+``zero`` and ``skip`` (a per-submission skip would strand the peers
+inside the collective). Off, the ``ACTIVE`` check is the whole cost.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import threading
 from typing import Any, Optional
 
 from ..common.env import HOROVOD_GUARD_NONFINITE
@@ -48,10 +55,89 @@ def resolve_policy(explicit: Optional[str] = None) -> str:
     return name
 
 
+logger = logging.getLogger("horovod_tpu_torch.guard")
+
+
+def _count(name: str, value: float = 1.0, **labels) -> None:
+    from .. import metrics as _metrics
+
+    if _metrics.ACTIVE:
+        _metrics.TAP.inc(name, value, **labels)
+
+
+class GuardTap:
+    """The live tap: the eager payload sentinel and its counter."""
+
+    def __init__(self, policy: str):
+        self.policy = policy
+
+    def check_payload(self, name: str, tensor: Any) -> Any:
+        """Apply the non-finite policy to one eager reduction payload (a
+        tensor or an array) before it is enqueued; returns it, sanitized
+        under ``zero``/``skip``. Reads the payload on the host."""
+        import numpy as np
+        import torch
+
+        if self.policy == "off" or tensor is None:
+            return tensor
+        t = tensor if torch.is_tensor(tensor) else torch.as_tensor(np.asarray(tensor))
+        if not t.is_floating_point():
+            return tensor
+        finite = torch.isfinite(t)
+        n_bad = int(t.numel() - int(finite.sum()))
+        if n_bad == 0:
+            return tensor
+        _count("hvd_guard_nonfinite_total", n_bad, policy=self.policy, path="eager")
+        if self.policy == "abort":
+            from .. import trace as _trace
+            from ..common.basics import HorovodInternalError
+
+            if _trace.ACTIVE:
+                _trace.TAP.flight_dump("guard-abort")
+            raise HorovodInternalError(
+                f"non-finite gradient guard (policy abort): tensor '{name}' contains {n_bad} "
+                "non-finite value(s); refusing to submit it to the collective")
+        if self.policy == "warn":
+            logger.warning("non-finite guard: tensor '%s' contains %d non-finite value(s); "
+                           "submitting anyway (policy warn)", name, n_bad)
+            return tensor
+        if self.policy == "skip":
+            logger.warning("non-finite guard: policy 'skip' applies step-level agreement in "
+                           "the DP step only; eager tensor '%s' is sanitized (zeroed) instead",
+                           name)
+        out = torch.where(finite, t, torch.zeros((), dtype=t.dtype, device=t.device))
+        return out if torch.is_tensor(tensor) else out.numpy()
+
+
 class _NullTap:
+    policy = "off"
+
     def check_payload(self, name: str, tensor: Any) -> Any:
         return tensor
 
 
+NULL_TAP = _NullTap()
 ACTIVE = False
-TAP = _NullTap()
+TAP: Any = NULL_TAP
+_lock = threading.Lock()
+
+
+def install(policy: Optional[str] = None) -> None:
+    """(De)activate the eager sentinel: ``off`` installs the no-op tap."""
+    global ACTIVE, TAP
+    pol = resolve_policy(policy)
+    with _lock:
+        TAP, ACTIVE = (NULL_TAP, False) if pol == "off" else (GuardTap(pol), True)
+
+
+def reset() -> None:
+    install("off")
+
+
+# Armed at import, as in the JAX package: a worker started with the knob in
+# its environment is guarded without code changes.
+if os.environ.get(HOROVOD_GUARD_NONFINITE, "").strip():
+    try:
+        install()
+    except Exception:  # noqa: BLE001 - a malformed knob must not take down import
+        logger.exception("could not arm the data-plane guard from the environment")

@@ -30,6 +30,14 @@ which walks dicts by sorted key: ``block_0, block_1, block_10, ...,
 embeddings, lm_head, ...``. ``tree_order`` gives that order for
 ``/``- or ``.``-joined parameter names, so the port's buckets match the
 reference's and not ``named_parameters()`` order.
+
+The taps (``hvd_fusion_buckets``, ``hvd_fusion_bucket_bytes``,
+``hvd_axis_wire_bytes_total``, ``hvd_quantized_*``, ``hvd_overlap_groups``
+and the trace's plan notes) sit at the JAX package's sites. There they fire
+at trace time, once per compile; the eager step here fires them the first
+time it runs a plan (:func:`first_sight`: a leaf list, a threshold, a group
+and a path label), so one run's counters equal the JAX step's whatever the
+step count.
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import metrics as _metrics
+from .. import trace as _trace
 from ..common import env as _env
+from ..common.quant import int8_wire_bytes
 from ..common.types import ReduceOp
 from . import collectives
 
@@ -109,6 +120,79 @@ def plan_buckets(
     return buckets
 
 
+# --- the plan taps ----------------------------------------------------------------
+
+DATA_AXIS = "data"
+
+# (metrics tap, trace tap, plan key) triples whose taps have fired.
+_seen_plans: set = set()
+
+
+def first_sight(key: Tuple) -> bool:
+    """True the first time the live taps see the plan ``key``: the eager
+    counterpart of "once per compile". A tap installed anew sees every plan
+    anew."""
+    k = (_metrics.TAP, _trace.TAP, key)
+    if k in _seen_plans:
+        return False
+    _seen_plans.add(k)
+    return True
+
+
+def axis_label(group: Any) -> str:
+    """The ``axis`` label of a reduction's group, in the JAX package's axis
+    names: ``"cross+local"`` for the hierarchical pair, else ``"data"``."""
+    return "cross+local" if isinstance(group, tuple) and len(group) == 2 else DATA_AXIS
+
+
+def record_axis_wire_bytes(payload_bytes: int, group: Any, collective: str,
+                           wire_dtype: str = "f32") -> None:
+    """Per-axis bytes-on-wire of one reduction plan (``horovod_tpu/ops/
+    fusion.py:132``): ring accounting of what ONE step moves per rank over
+    ``group``, ``hvd_axis_wire_bytes_total{axis,collective}`` plus a plan
+    note. Nothing for a group of one rank; no-op when neither tap is armed.
+    Called once per plan (:func:`first_sight`)."""
+    if not (_metrics.ACTIVE or _trace.ACTIVE):
+        return
+    n = collectives.group_rank_size(group)[1]
+    if n <= 1:
+        return
+    payload = int(payload_bytes)
+    if wire_dtype == "int8":
+        payload = int8_wire_bytes(payload)
+    if collective in ("allreduce", "psum"):
+        onwire = 2 * (n - 1) * payload // n
+    else:  # reduce_scatter / all_gather: one ring pass
+        onwire = (n - 1) * payload // n
+    label = axis_label(group)
+    if _metrics.ACTIVE:
+        _metrics.TAP.inc("hvd_axis_wire_bytes_total", float(onwire), axis=label,
+                         collective=collective)
+    if _trace.ACTIVE:
+        _trace.TAP.note_plan(**{f"axis_wire_bytes:{label}:{collective}": int(onwire)})
+
+
+def _record_plan(label: Optional[str], leaves: Sequence[torch.Tensor], buckets: List[List[int]],
+                 threshold_bytes: int, group: Any, collective: str, wire_dtype: str,
+                 gauge: bool = True, **notes: Any) -> bool:
+    """The plan taps of one fused reduction (the wire bytes, the trace's
+    plan note, the ``hvd_fusion_buckets`` gauge unless ``gauge`` is off, as
+    the JAX EF path sets none) the first time the live taps see the plan;
+    True then. A ``label`` of None records nothing."""
+    if not (_metrics.ACTIVE or _trace.ACTIVE) or label is None or not leaves:
+        return False
+    key = (label, threshold_bytes, id(group), collective, wire_dtype,
+           tuple((tuple(l.shape), str(l.dtype)) for l in leaves))
+    if not first_sight(key):
+        return False
+    record_axis_wire_bytes(_tree_bytes(leaves), group, collective, wire_dtype)
+    if _trace.ACTIVE:
+        _trace.TAP.note_plan(fusion_path=label, fusion_buckets=len(buckets), **notes)
+    if _metrics.ACTIVE and gauge:
+        _metrics.TAP.set("hvd_fusion_buckets", float(len(buckets)), path=label)
+    return True
+
+
 def pack_bucket(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     """Flatten and concatenate a same-dtype bucket into one 1-D buffer."""
     return torch.cat([l.reshape(-1) for l in leaves])
@@ -131,6 +215,8 @@ def fused_allreduce(
     postscale_factor: float = 1.0,
     group: collectives.Group = None,
     reduce_fn: Optional[Callable[..., torch.Tensor]] = None,
+    label: Optional[str] = "posthoc",
+    wire_dtype: str = "f32",
 ) -> List[torch.Tensor]:
     """Allreduce every tensor of ``leaves`` with bucket fusion: one
     collective per bucket. Returns the reduced tensors in the input order;
@@ -141,8 +227,22 @@ def fused_allreduce(
     group); Average divides by its size. ``reduce_fn(x, *, op, group,
     prescale_factor, postscale_factor)`` reduces one bucket (default
     ``collectives.allreduce``; the int8 ring's, Adasum's and the two-level
-    :func:`_hier_reduce_fn` take its place, with ``group`` as given)."""
+    :func:`_hier_reduce_fn` take its place, with ``group`` as given).
+    ``label`` is the fusion path the taps name (None: no taps, for
+    reductions the JAX step does outside its fusion layer); ``wire_dtype``
+    (``int8`` under the int8 wire) prices the wire bytes."""
     threshold_bytes = default_threshold_bytes(threshold_bytes)
+    buckets = plan_buckets(leaves, threshold_bytes)
+    if _record_plan(label, leaves, buckets, threshold_bytes, group, "allreduce", wire_dtype):
+        if _metrics.ACTIVE:
+            wire_label = getattr(reduce_fn, "wire_label", None)
+            for bucket in buckets:
+                nbytes = _tree_bytes([leaves[i] for i in bucket])
+                _metrics.TAP.observe("hvd_fusion_bucket_bytes", float(nbytes))
+                if wire_label is not None and leaves[bucket[0]].is_floating_point():
+                    from .quantized import record_wire_bytes
+
+                    record_wire_bytes(sum(leaves[i].numel() for i in bucket) * 4, wire_label)
     if reduce_fn is None:
         # A psum over an axis tuple: one flat collective over its group.
         group = collectives.flat_group(group)
@@ -150,7 +250,7 @@ def fused_allreduce(
     bucket_fn = reduce_fn or collectives.allreduce_
     reduce_fn = reduce_fn or collectives.allreduce
     results: List[Optional[torch.Tensor]] = [None] * len(leaves)
-    for bucket in plan_buckets(leaves, threshold_bytes):
+    for bucket in buckets:
         if len(bucket) == 1:
             i = bucket[0]
             results[i] = reduce_fn(
@@ -329,6 +429,7 @@ def fused_reduce_scatter(
     threshold_bytes: Optional[int] = None,
     quantized: bool = False,
     ef: Optional[Dict[str, torch.Tensor]] = None,
+    label: str = "zero1",
 ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """Per-bucket reduce-scatter of ``leaves``: each bucket of
     :func:`plan_buckets` is packed, padded to ``n`` shards of
@@ -363,11 +464,15 @@ def fused_reduce_scatter(
     from .quantized import quantize_roundtrip, quantized_ring_reduce_scatter
 
     idx, n = collectives.group_rank_size(group)
+    threshold_bytes = default_threshold_bytes(threshold_bytes)
+    buckets = plan_buckets(leaves, threshold_bytes)
+    _record_plan(label, leaves, buckets, threshold_bytes, group, "reduce_scatter",
+                 "int8" if quantized else "f32", zero1_reduction="reduce-scatter")
     if isinstance(group, tuple) and len(group) == 1:
         group = group[0]
     shards: Dict[str, torch.Tensor] = {}
     new_ef: Dict[str, torch.Tensor] = {}
-    for bi, bucket in enumerate(plan_buckets(leaves, default_threshold_bytes(threshold_bytes))):
+    for bi, bucket in enumerate(buckets):
         packed = pack_bucket([leaves[i] for i in bucket])
         total = packed.shape[0]
         if total == 0:
@@ -423,6 +528,7 @@ def quantized_ef_allreduce(
     op: ReduceOp = ReduceOp.AVERAGE,
     group: collectives.Group = None,
     threshold_bytes: Optional[int] = None,
+    label: str = "quantized-ef",
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Bucket-fused int8-wire allreduce with error feedback: returns
     ``(reduced, new_residual)``. ``ef`` holds one float32 residual per leaf
@@ -431,10 +537,14 @@ def quantized_ef_allreduce(
     residual; integer buckets reduce exactly and keep their residual. The
     post-hoc and the streamed (per-group) paths call this same function, so
     equal bucket plans give bitwise-equal steps."""
-    from .quantized import quantize_roundtrip, quantized_ring_allreduce
+    from .quantized import quantize_roundtrip, quantized_ring_allreduce, record_wire_bytes
 
     if op not in _QUANTIZABLE_OPS:
         raise ValueError(f"quantized reduction supports {_QUANTIZABLE_OPS}; got {op}")
+    threshold_bytes = default_threshold_bytes(threshold_bytes)
+    buckets = plan_buckets(leaves, threshold_bytes)
+    record = _record_plan(label, leaves, buckets, threshold_bytes, group, "allreduce", "int8",
+                          gauge=False)
     group = collectives.flat_group(group)
     if len(ef) != len(leaves):
         raise ValueError(
@@ -442,7 +552,7 @@ def quantized_ef_allreduce(
             f"{len(leaves)}: build it with ef_like(params)")
     results: List[Optional[torch.Tensor]] = [None] * len(leaves)
     residuals: List[Optional[torch.Tensor]] = [None] * len(leaves)
-    for bucket in plan_buckets(leaves, default_threshold_bytes(threshold_bytes)):
+    for bucket in buckets:
         if not leaves[bucket[0]].is_floating_point():
             for i in bucket:    # exact sums stay exact; the residual stays zero
                 results[i] = collectives.allreduce(leaves[i], op=op, group=group)
@@ -453,6 +563,8 @@ def quantized_ef_allreduce(
             for i in bucket:
                 results[i], residuals[i] = leaves[i], ef[i]
             continue
+        if record:
+            record_wire_bytes(packed.numel() * 4, label)
         new_res = packed - quantize_roundtrip(packed)
         reduced = quantized_ring_allreduce(packed, group=group, average=op == ReduceOp.AVERAGE)
         shapes = [leaves[i].shape for i in bucket]
@@ -609,8 +721,10 @@ def stream_param_groups(
     tail, not the backward. ``DistributedOptimizer(overlap=True)`` calls
     this with the reduction its options select. ``group`` is the process
     group the launch order is agreed over."""
-    return StreamedReduction(stream_groups(params, threshold_bytes, first_bucket_bytes),
-                             reduce, backward_passes, group)
+    groups = stream_groups(params, threshold_bytes, first_bucket_bytes)
+    if _metrics.ACTIVE:
+        _metrics.TAP.set("hvd_overlap_groups", float(len(groups)))
+    return StreamedReduction(groups, reduce, backward_passes, group)
 
 
 def reduce_in_backward(params: Any, reduce: Callable[[int, List[torch.Tensor]], Any], *,

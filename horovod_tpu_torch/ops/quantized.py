@@ -32,7 +32,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from ..common.quant import BLOCK
+from ..common.quant import BLOCK, int8_saved_bytes, int8_wire_bytes
 from ..common.types import ReduceOp
 from . import collectives
 
@@ -263,14 +263,32 @@ def ef_like(params: Any) -> Any:
 # --- fusion-bucket reduce_fn -------------------------------------------------
 
 
-def quantized_reduce_fn(mode: str = "flat"):
+def record_wire_bytes(nbytes: int, label: str) -> None:
+    """The ``hvd_quantized_*`` counters of one int8 bucket
+    (``horovod_tpu/ops/quantized.py:332``): bytes it puts on the int8 wire
+    and bytes saved against full precision. Once per plan, as there: the
+    fusion layer calls it when it first runs a plan."""
+    from .. import metrics as _metrics
+
+    if not _metrics.ACTIVE:
+        return
+    _metrics.TAP.inc("hvd_quantized_wire_bytes_total", float(int8_wire_bytes(nbytes)),
+                     path=label)
+    _metrics.TAP.inc("hvd_quantized_bytes_saved_total", float(int8_saved_bytes(nbytes)),
+                     path=label)
+    _metrics.TAP.inc("hvd_quantized_buckets_total", 1.0, path=label)
+
+
+def quantized_reduce_fn(mode: str = "flat", label: str = "quantized"):
     """A ``reduce_fn`` for ``ops/fusion.fused_allreduce``: float buckets
     ride the int8 wire, integer buckets reduce exactly (buckets are one
     dtype, so dispatching per bucket loses nothing). ``mode``: ``"flat"``,
     the int8 ring over the group (over the flattened group of a tuple);
     ``"two-level"``, int8 on the outermost level only
     (:func:`quantized_hierarchical_allreduce`; ``group`` is the hierarchy's
-    tuple of groups, outermost first)."""
+    tuple of groups, outermost first). ``label`` names the path in the
+    ``hvd_quantized_*`` counters, which ``fusion.fused_allreduce`` records
+    per float bucket (``fn.wire_label``)."""
     if mode not in ("flat", "two-level"):
         raise ValueError(f"unknown quantized reduce mode {mode!r}")
 
@@ -294,4 +312,5 @@ def quantized_reduce_fn(mode: str = "flat"):
             out = out * postscale_factor
         return out
 
+    fn.wire_label = label
     return fn

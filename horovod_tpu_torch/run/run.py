@@ -1,0 +1,309 @@
+"""``python -m horovod_tpu_torch.run`` — the port's launcher CLI.
+
+The port of ``horovod_tpu/run/run.py``'s fixed path (role parity with the
+reference ``horovodrun``): ``-np``, ``-H``/``--hostfile``, every runtime
+knob as a flag, YAML ``--config-file`` with CLI-override precedence,
+``--check-build``, ``--version``, ``--output-dir``, ``--serve``, and a
+``run()`` Python API that ships a pickled function to every rank and
+gathers the results.
+
+It is a module, not a console script, so nothing shadows the JAX
+package's ``hvdrun``. What is not ported exits nonzero and says why: the
+elastic flags and the ring NIC probe that a job over several remote hosts
+needs are ROADMAP A12b, and ``--tpu-pod`` reads TPU slice metadata, which
+a GPU host does not have.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Any, Callable, List, Optional
+
+from . import config_parser, launcher
+
+# The elastic flags (ElasticDriver, the journal and its supervisor).
+ELASTIC_NOT_PORTED = (
+    "hvdrun: the elastic driver ({flags}) is not ported to horovod_tpu_torch yet "
+    "(ROADMAP A12b); run a fixed job with -np, or the JAX package's hvdrun")
+NIC_PROBE_NOT_PORTED = (
+    "hvdrun: a job over {n} remote hosts needs the ring NIC probe, which is not ported "
+    "to horovod_tpu_torch yet (ROADMAP A12b); pin the control plane's interface with "
+    "--network-interfaces")
+TPU_POD_REFUSED = (
+    "hvdrun: --tpu-pod derives the allocation from TPU slice metadata "
+    "(TPU_WORKER_HOSTNAMES), which a GPU host does not have; use -np with -H or --hostfile")
+
+
+def _preflight(hostnames, args) -> None:
+    """SSH pre-flight (reference ``run/run.py:62-115``): an unreachable host
+    exits 4 before any rank starts. With more than one distinct remote host
+    and no pinned interface the JAX launcher ring-probes the NICs; here that
+    exits 2 naming ROADMAP A12b."""
+    from .disk_cache import default_cache
+
+    hostnames = sorted(dict.fromkeys(hostnames))
+    try:
+        launcher.check_hosts_reachable(
+            hostnames, ssh_port=args.ssh_port,
+            cache=None if args.disable_cache else default_cache())
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        raise SystemExit(4)
+    remote = [h for h in hostnames if not launcher._is_local(h)]
+    if not args.network_interfaces and len(remote) > 1:
+        print(NIC_PROBE_NOT_PORTED.format(n=len(remote)), file=sys.stderr)
+        raise SystemExit(2)
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    parser = argparse.ArgumentParser(
+        "hvdrun", description="Launch a horovod_tpu_torch training job "
+                              "(python -m horovod_tpu_torch.run).")
+    parser.add_argument("-v", "--version", action="store_true")
+    parser.add_argument("-np", "--num-proc", type=int, default=None,
+                        help="Total number of training processes.")
+    parser.add_argument("-H", "--hosts", default=None,
+                        help='Host list, e.g. "host1:4,host2:4".')
+    parser.add_argument("--hostfile", default=None,
+                        help='Hostfile with lines "hostname slots=N".')
+    parser.add_argument("--tpu-pod", action="store_true",
+                        help="Refused: TPU slice metadata does not exist on a GPU host.")
+    parser.add_argument("-p", "--ssh-port", type=int, default=None)
+    parser.add_argument("--output-dir", default=None,
+                        help="Write per-rank stdout/stderr files here.")
+    parser.add_argument("--verbose", action="store_true")
+    parser.add_argument("--check-build", action="store_true",
+                        help="Print build capabilities and exit.")
+    parser.add_argument("--config-file", default=None)
+    # runtime knobs (reference flag set)
+    parser.add_argument("--fusion-threshold-mb", type=int, default=None)
+    parser.add_argument("--cycle-time-ms", type=float, default=None)
+    parser.add_argument("--cache-capacity", type=int, default=None)
+    parser.add_argument("--disable-cache", action="store_true", default=None,
+                        help="turn the response cache off entirely (same as "
+                             "--cache-capacity 0)")
+    parser.add_argument("--start-timeout", type=int, default=None,
+                        help="seconds to wait for all ranks to register with the "
+                             "rendezvous before aborting (HOROVOD_START_TIMEOUT)")
+    parser.add_argument("--hierarchical-allreduce", action="store_true", default=None)
+    parser.add_argument("--hierarchical-allgather", action="store_true", default=None)
+    parser.add_argument("--autotune", action="store_true", default=None)
+    parser.add_argument("--autotune-log-file", default=None)
+    parser.add_argument("--autotune-warmup-samples", type=int, default=None)
+    parser.add_argument("--autotune-steps-per-sample", type=int, default=None)
+    parser.add_argument("--autotune-bayes-opt-max-samples", type=int, default=None)
+    parser.add_argument("--autotune-gaussian-process-noise", type=float, default=None)
+    parser.add_argument("--timeline-filename", default=None)
+    parser.add_argument("--timeline-mark-cycles", action="store_true", default=None)
+    parser.add_argument("--stall-check-disable", action="store_true", default=None)
+    parser.add_argument("--stall-check-time-seconds", type=float, default=None)
+    parser.add_argument("--stall-shutdown-time-seconds", type=float, default=None)
+    parser.add_argument("--log-level", default=None,
+                        choices=["trace", "debug", "info", "warning", "error"])
+    # The JAX launcher's elastic flags: accepted, then refused (ROADMAP A12b).
+    for flag, kw in (("--min-np", dict(type=int)), ("--max-np", dict(type=int)),
+                     ("--host-discovery-script", {}), ("--spares", dict(type=int)),
+                     ("--blacklist-cooldown", dict(type=float))):
+        parser.add_argument(flag, default=None, help="Elastic (ROADMAP A12b): refused.", **kw)
+    for flag in ("--resume", "--auto-resume"):
+        parser.add_argument(flag, action="store_true", help="Elastic (ROADMAP A12b): refused.")
+    parser.add_argument("--network-interfaces", default=None,
+                        help="Comma-separated NICs to use for the control plane.")
+    parser.add_argument("--mesh-axes", default=None,
+                        help='Mesh spec, e.g. "data:4,model:2" (HOROVOD_TPU_MESH_AXES).')
+    parser.add_argument("--serve", action="store_true",
+                        help="Inference-serving mode: sets HOROVOD_SERVE=1 for every rank; "
+                             "with no command, runs python -m horovod_tpu_torch.serve.")
+    parser.add_argument("command", nargs=argparse.REMAINDER,
+                        help="Training command to run on every rank.")
+    args = parser.parse_args(argv)
+
+    if args.config_file:
+        # CLI flags explicitly provided take precedence over YAML
+        # (reference override-tracking): anything non-None was set by CLI.
+        overridden = {
+            k for k, v in vars(args).items()
+            if v is not None and k in config_parser.ARG_TO_ENV
+        }
+        config_parser.parse_config_file(args.config_file, args, overridden)
+    return args
+
+
+def check_build() -> str:
+    """The port's build: torch's collective backends, the native core
+    (whether g++ is there to build it, whether it is built), and the CUDA
+    kernels (whether nvcc is found, whether a card is visible)."""
+    import torch
+    import torch.distributed as dist
+
+    from .. import __version__
+    from ..common import native
+
+    def mark(ok: bool) -> str:
+        return "X" if ok else " "
+
+    def nvcc_found() -> bool:
+        from ..ops import _build
+
+        try:
+            _build._nvcc()
+            return True
+        except RuntimeError:
+            return False
+
+    core_built = os.path.exists(native.library_path()) if native._compiler() else False
+    cuda = torch.cuda.is_available()
+    lines = [
+        f"horovod_tpu_torch v{__version__} (torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda or 'none'}):",
+        "",
+        "Available Frameworks:",
+        "    [X] PyTorch",
+        "    [ ] JAX (the horovod_tpu package)",
+        "",
+        "Available Controllers:",
+        f"    [{mark(native._compiler() is not None)}] native core (cpp/src, built at init"
+        f"{'; built' if core_built else ''})",
+        "    [ ] MPI",
+        "",
+        "Available Tensor Operations:",
+        f"    [{mark(dist.is_nccl_available())}] NCCL",
+        f"    [{mark(dist.is_gloo_available())}] Gloo",
+        "    [ ] MPI",
+        "",
+        "CUDA kernels (horovod_tpu_torch/csrc, built at first use):",
+        f"    [{mark(nvcc_found())}] nvcc",
+        f"    [{mark(cuda)}] CUDA device"
+        + (f" ({torch.cuda.device_count()} x {torch.cuda.get_device_name(0)})" if cuda else ""),
+    ]
+    return "\n".join(lines)
+
+
+def run_commandline(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    if args.version:
+        from .. import __version__
+
+        print(__version__)
+        return 0
+    if args.check_build:
+        print(check_build())
+        return 0
+    elastic = [f for f, v in (("--min-np", args.min_np), ("--max-np", args.max_np),
+                              ("--host-discovery-script", args.host_discovery_script),
+                              ("--spares", args.spares),
+                              ("--blacklist-cooldown", args.blacklist_cooldown),
+                              ("--resume", args.resume), ("--auto-resume", args.auto_resume))
+               if v not in (None, False)]
+    if elastic:
+        print(ELASTIC_NOT_PORTED.format(flags=", ".join(elastic)), file=sys.stderr)
+        return 2
+    if args.tpu_pod:
+        print(TPU_POD_REFUSED, file=sys.stderr)
+        return 2
+    command = list(args.command)
+    if command and command[0] == "--":
+        command = command[1:]
+    if not command and args.serve:
+        # Serving mode's default workload: the built-in HTTP entry point.
+        command = [sys.executable, "-m", "horovod_tpu_torch.serve"]
+    if not command:
+        print("hvdrun: no training command given", file=sys.stderr)
+        return 2
+    if args.num_proc is None:
+        print("hvdrun: -np is required", file=sys.stderr)
+        return 2
+
+    if args.disable_cache:
+        args.cache_capacity = 0
+    env = dict(os.environ)
+    config_parser.set_env_from_args(env, args)
+    if args.network_interfaces:
+        env["HOROVOD_IFACE"] = args.network_interfaces
+    if args.serve:
+        from ..common import env as _env_names
+
+        env[_env_names.HOROVOD_SERVE] = "1"
+
+    if args.hostfile:
+        hosts = launcher.parse_hostfile(args.hostfile)
+    elif args.hosts:
+        hosts = launcher.parse_hosts(args.hosts)
+    else:
+        hosts = [("localhost", args.num_proc)]
+    try:
+        slots = launcher.allocate(hosts, args.num_proc)
+    except ValueError as e:
+        print(f"hvdrun: {e}", file=sys.stderr)
+        return 2
+    try:
+        _preflight([s.hostname for s in slots], args)
+    except SystemExit as e:
+        return e.code
+    return launcher.launch_job(command, slots, env=env, ssh_port=args.ssh_port,
+                               output_dir=args.output_dir, verbose=args.verbose)
+
+
+# ---------------------------------------------------------------- run() API
+def run(
+    fn: Callable,
+    args: tuple = (),
+    kwargs: Optional[dict] = None,
+    np: int = 1,
+    hosts: Optional[str] = None,
+    env: Optional[dict] = None,
+    verbose: bool = False,
+) -> List[Any]:
+    """Run ``fn(*args, **kwargs)`` on ``np`` ranks and return the list of
+    per-rank results (parity with ``horovod.run.run()``). The function is
+    shipped with cloudpickle where it is installed, else with plain pickle,
+    which ships a function by reference: then ``fn`` must be importable by
+    name from a module (not ``__main__``). The package's own directory is
+    put on the ranks' ``PYTHONPATH``."""
+    import pickle
+    import shutil
+    import tempfile
+
+    try:
+        import cloudpickle as _pickler
+    except ImportError:
+        _pickler = pickle
+
+    kwargs = kwargs or {}
+    workdir = tempfile.mkdtemp(prefix="hvdrun_")
+    try:
+        fn_path = os.path.join(workdir, "fn.pkl")
+        with open(fn_path, "wb") as f:
+            _pickler.dump((fn, args, kwargs), f)
+
+        host_list = launcher.parse_hosts(hosts) if hosts else [("localhost", np)]
+        slots = launcher.allocate(host_list, np)
+        run_env = dict(os.environ)
+        if env:
+            run_env.update(env)
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        run_env["PYTHONPATH"] = os.pathsep.join(
+            [root, run_env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+        run_env["HOROVOD_RUN_FN_FILE"] = fn_path
+        run_env["HOROVOD_RUN_RESULT_DIR"] = workdir
+        command = [sys.executable, "-m", "horovod_tpu_torch.run.task_runner"]
+        rc = launcher.launch_job(command, slots, env=run_env, verbose=verbose)
+        if rc != 0:
+            raise RuntimeError(f"hvdrun job failed with exit code {rc}")
+        results = []
+        for slot in slots:
+            with open(os.path.join(workdir, f"result.{slot.rank}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def main() -> None:
+    sys.exit(run_commandline())
+
+
+if __name__ == "__main__":
+    main()

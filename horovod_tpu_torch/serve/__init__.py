@@ -24,8 +24,11 @@ through the same step on its own shards and returns at the stop flag. With
 several replicas the leader issues the steps one at a time, so the
 collectives of two replicas never interleave.
 
-Metrics export, fault plans, the autoscaler and ``hvdrun --serve`` are
-ROADMAP A12; the serving simulator is A13.
+The engine records its ``hvd_request_*``/``hvd_serve_*`` metrics and
+request spans through the live taps (``HOROVOD_METRICS``,
+``HOROVOD_TRACE``); ``python -m horovod_tpu_torch.run --serve`` launches
+the demo. Fault plans and the autoscaler are ROADMAP A12b; the serving
+simulator is A13.
 
 Entry points: :func:`serve` (in process), ``python -m
 horovod_tpu_torch.serve`` (the HTTP demo).
@@ -229,7 +232,7 @@ def serve(
 
     if scale_policy is not None:
         raise NotImplementedError(
-            "the serving autoscaler (ServeScalePolicy) is not ported yet: ROADMAP A12"
+            "the serving autoscaler (ServeScalePolicy) is not ported yet: ROADMAP A12b"
         )
     cfg = config if config is not None else Config.from_env()
     dtype = torch.float32 if dtype is None else dtype

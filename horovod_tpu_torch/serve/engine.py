@@ -28,9 +28,10 @@ host synchronization a step is the read-back of the ``[B]`` next tokens.
 
 The metrics (``hvd_request_*``, ``hvd_serve_*``), trace (``hvd_request``
 spans) and fault (``request``, ``replica``) calls sit at the reference's
-sites behind the port's inactive seams (ROADMAP A12). The autoscaler
-(``scale_policy``, ``autoscale_beat``, the SLO-burn accounting and the
-scale-in verb ``retire_replica``) is A12's too: passing a policy raises.
+sites; the metrics and trace taps are live, the fault seam is inactive
+(ROADMAP A12b). The autoscaler (``scale_policy``, ``autoscale_beat``, the
+SLO-burn accounting and the scale-in verb ``retire_replica``) is A12b's
+too: passing a policy raises.
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ class ServeEngine:
         if scale_policy is not None:
             raise NotImplementedError(
                 "the serving autoscaler (ServeScalePolicy, autoscale_beat) is not "
-                "ported yet: ROADMAP A12"
+                "ported yet: ROADMAP A12b"
             )
         self.params = params
         self.decode_step = decode_step

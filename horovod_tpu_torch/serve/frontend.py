@@ -9,9 +9,10 @@ The counterpart of ``horovod_tpu/serve/frontend.py``: one threaded
   ``rejected`` (queue bound) 429, ``dropped`` (injected fault) 503, so a
   dropped request is still answered.
 - ``GET /healthz``: live replica count and queue depth.
-- ``GET /metrics``: 501. The metrics registry and its Prometheus
-  exposition are ROADMAP A12; until then the endpoint says so rather than
-  answering with an empty page.
+- ``GET /metrics``: the Prometheus exposition of this process's metrics
+  registry (``hvd_request_*``, ``hvd_serve_*`` and every other series;
+  empty unless ``HOROVOD_METRICS`` is set), as
+  ``horovod_tpu/serve/frontend.py:55-59`` serves it.
 """
 
 from __future__ import annotations
@@ -22,10 +23,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import urlparse
 
-METRICS_NOT_PORTED = (
-    "GET /metrics is not ported yet: the metrics registry and its Prometheus "
-    "exposition are ROADMAP A12"
-)
+from .. import metrics as _metrics
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -55,7 +53,12 @@ class _Handler(BaseHTTPRequestHandler):
             })
             return
         if path == "/metrics":
-            self._reply_json(501, {"error": METRICS_NOT_PORTED})
+            from ..metrics import export as _export
+
+            body = _export.aggregate_kv_snapshots(
+                {}, local_snapshot=_metrics.snapshot()
+            ).encode()
+            self._reply(200, body, ctype=_export.CONTENT_TYPE)
             return
         self._reply_json(404, {"error": f"no such endpoint {path!r}"})
 

@@ -54,12 +54,13 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from . import trace as _trace
 from .common import basics
 from .common import env as _env
 from .common.compression import Compression
 from .common.types import ReduceOp
 from .guard import nonfinite as _nf
-from .guard import resolve_policy
+from .guard import _count, resolve_policy
 from .ops import collectives, fusion
 from .ops.quantized import EFState, ef_like
 
@@ -213,24 +214,27 @@ def allreduce_gradients(
     if policy == "zero":
         grads = _nf.sanitize(list(grads))
     reduced = _fused(grads, op, group, fusion_threshold_bytes, compression, quantized,
-                     hierarchical)
+                     hierarchical, "posthoc")
     if policy == "warn":
         _warn_nonfinite(reduced, "reduce")
     return reduced
 
 
 def _fused(grads, op, group, threshold, compression, quantized,
-           hierarchical) -> List[torch.Tensor]:
-    """One fused allreduce through the reduce_fn the options select."""
+           hierarchical, label: str) -> List[torch.Tensor]:
+    """One fused allreduce through the reduce_fn the options select;
+    ``label`` names the fusion path in the taps."""
     compressed = [compression.compress(g) for g in grads]
     reduced = fusion.fused_allreduce([c for c, _ in compressed], op=op, threshold_bytes=threshold,
                                      group=group,
-                                     reduce_fn=_select_reduce_fn(op, hierarchical, quantized))
+                                     reduce_fn=_select_reduce_fn(op, hierarchical, quantized),
+                                     label=label, wire_dtype="int8" if quantized else "f32")
     return [compression.decompress(r, ctx) for r, (_, ctx) in zip(reduced, compressed)]
 
 
 def _warn_nonfinite(reduced, path: str) -> None:
     if float(_nf.local_flag(reduced)) > 0:
+        _count("hvd_guard_nonfinite_total", policy="warn", path=path)
         _logger.warning("non-finite guard: non-finite gradients detected in the %s path "
                         "(policy warn); the update proceeds", path)
 
@@ -361,6 +365,11 @@ class DistributedOptimizer:
         self._zero1 = zero1
         self._zero1_shards = zero1_shards
         self.backward_passes_per_step = backward_passes_per_step
+        if _trace.ACTIVE:
+            # Step-span correlation ids for every step this optimizer drives.
+            _trace.TAP.note_plan(optimizer="DistributedOptimizer",
+                                 wire_dtype="int8" if quantized else "f32",
+                                 overlap=bool(overlap), **({"zero1": True} if zero1 else {}))
         self._stream: Optional[fusion.StreamedReduction] = None
         self._named = named_parameters is not None
         self._bind(list(named_parameters) if named_parameters is not None else None)
@@ -463,16 +472,18 @@ class DistributedOptimizer:
                 ef = _nf.sanitize(ef)
             return fusion.fused_reduce_scatter(
                 grads, op=self._op, group=self._group, threshold_bytes=self._threshold,
-                quantized=self._quantized, ef=ef)
+                quantized=self._quantized, ef=ef, label=f"zero1:g{gi}")
         if self._use_ef:
             params = self._params if gi is None else self._groups[gi]
             ef = [self._residual_of(p) for p in params]
             if self._policy == "zero" and self._overlap:
                 ef = _nf.sanitize(ef)
-            return fusion.quantized_ef_allreduce(grads, ef, op=self._op, group=self._group,
-                                                 threshold_bytes=self._threshold)
+            return fusion.quantized_ef_allreduce(
+                grads, ef, op=self._op, group=self._group, threshold_bytes=self._threshold,
+                label="posthoc-ef" if gi is None else f"stream:g{gi}")
         return _fused(grads, self._op, self._group, self._threshold, self._compression,
-                      self._quantized, self._hierarchical), None
+                      self._quantized, self._hierarchical,
+                      "posthoc" if gi is None else f"stream:g{gi}"), None
 
     def synchronize(self) -> None:
         """Reduce every gradient: finish the streamed groups, or reduce post
@@ -521,7 +532,13 @@ class DistributedOptimizer:
         post = _nf.local_flag(reduced)
         pre = self._pending["pre"]
         flag = post if pre is None else torch.maximum(pre.to(post.device), post)
-        return float(_nf.agree_flag(flag.to(basics.device()), self._flag_group)) > 0
+        skip = float(_nf.agree_flag(flag.to(basics.device()), self._flag_group)) > 0
+        if skip:
+            _count("hvd_guard_nonfinite_total", policy=self._policy,
+                   path="zero1" if self._zero1 else "overlap" if self._overlap else "reduce")
+            if self._policy == "skip":
+                _count("hvd_guard_skipped_steps_total")
+        return skip
 
     def step(self, closure=None):
         if self._pending is None:
@@ -530,6 +547,9 @@ class DistributedOptimizer:
             skip = self._agreed_skip()
             if skip:
                 if self._policy == "abort":
+                    if _trace.ACTIVE:
+                        # Persist the last moments before the abort unwinds.
+                        _trace.TAP.flight_dump("guard-abort")
                     raise basics.HorovodInternalError(
                         "non-finite gradient guard (policy abort): a rank produced NaN/Inf "
                         "gradients this step; the update was not applied on any rank "
@@ -736,6 +756,13 @@ def make_train_step(
             return average(loss), _tree_map(average, aux)
         return average(loss)
 
+    # The step tap (the JAX step's ``_maybe_trace``): host-side step spans
+    # stamped with the step's options and the noted plan ids; with tracing
+    # off, ``step`` itself.
+    step = _trace.wrap_step(
+        step, overlap=dist_opt._overlap, quantized=dist_opt._quantized,
+        hierarchical=str(dist_opt._hierarchical),
+        wire_dtype="int8" if dist_opt._quantized else "f32")
     step.optimizer = dist_opt
     return step
 
@@ -760,7 +787,8 @@ def _average_buffers(module: torch.nn.Module) -> None:
     if not named:
         return
     buffers = [named[i][1] for i in fusion.tree_order([n for n, _ in named])]
-    torch._foreach_copy_(buffers, fusion.fused_allreduce(buffers, op=ReduceOp.AVERAGE))
+    torch._foreach_copy_(buffers, fusion.fused_allreduce(buffers, op=ReduceOp.AVERAGE,
+                                                         label=None))
 
 
 def _build_composed_train_step(
@@ -896,8 +924,8 @@ def _build_composed_train_step(
             # A model rank's NaN must skip the step on every rank of the mesh.
             levels = data_group if isinstance(data_group, tuple) else (data_group,)
             dist_opt._flag_group = (*levels, model_group)
-            built["opt"] = step.optimizer = dist_opt
-            step.sharding_specs = specs
+            built["opt"] = traced.optimizer = dist_opt
+            traced.sharding_specs = specs
         dist_opt = built["opt"]
         dist_opt.zero_grad(set_to_none=True)
         with _tp.mesh_scope(mesh), _tp.overlap_scope(tp_overlap):
@@ -909,9 +937,12 @@ def _build_composed_train_step(
             return average(loss), _tree_map(average, aux)
         return average(loss)
 
-    step.sharding_specs = None
-    step.optimizer = None
-    return step
+    traced = _trace.wrap_step(step, overlap=overlap, quantized=bool(quantized),
+                              hierarchical=str(hierarchical),
+                              wire_dtype="int8" if quantized else "f32")
+    traced.sharding_specs = None
+    traced.optimizer = None
+    return traced
 
 
 def _data_groups(mesh, dp_axes: Tuple[str, ...]):

@@ -332,9 +332,9 @@ def test_shutdown_resets_process_sets():
 # --- the runtime's choices and refusals ---
 
 
-def test_python_runtime_only_by_request(monkeypatch):
-    """HOROVOD_TPU_CORE=python runs the pure-Python runtime; its timeline
-    writer is not ported and says so."""
+def test_python_runtime_only_by_request(monkeypatch, tmp_path):
+    """HOROVOD_TPU_CORE=python runs the pure-Python runtime, which writes
+    the timeline (utils/timeline.py) since the timeline was ported."""
     from horovod_tpu_torch.core.runtime import Runtime
 
     monkeypatch.setenv("HOROVOD_TPU_CORE", "python")
@@ -345,8 +345,12 @@ def test_python_runtime_only_by_request(monkeypatch):
         np.testing.assert_array_equal(hvd.allreduce(x, op=hvd.Sum), x)
         outs = hvd.grouped_allreduce([x, x], average=True)
         assert all(np.array_equal(o, x) for o in outs)
-        with pytest.raises(NotImplementedError, match="A12"):
-            hvd.start_timeline("unused.json")
+        path = tmp_path / "timeline.json"
+        hvd.start_timeline(str(path))
+        hvd.allreduce(x, op=hvd.Sum, name="timed")
+        hvd.stop_timeline()
+        names = [e["name"] for e in json.loads(path.read_text())]
+        assert "NEGOTIATE_ALLREDUCE" in names and "XLA_ALLREDUCE" in names
     finally:
         hvd.shutdown()
 

@@ -106,6 +106,32 @@ def test_binding_modules_load_no_jax_and_torch_is_pytorch():
     assert os.path.dirname(path) == os.path.dirname(torch.__file__), path
     assert not path.startswith(PORT), path
 
+def test_launcher_and_observability_load_no_jax():
+    """The launcher, the metrics registry, the fleet trace, the Python
+    timeline and their tools, imported and the CLI's --check-build run,
+    leave jax, flax, optax and the JAX package out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch.run, horovod_tpu_torch.run.run, "
+        "horovod_tpu_torch.run.launcher, horovod_tpu_torch.run.http_server, "
+        "horovod_tpu_torch.run.config_parser, horovod_tpu_torch.run.disk_cache, "
+        "horovod_tpu_torch.run.safe_shell_exec, horovod_tpu_torch.run.task_runner, "
+        "horovod_tpu_torch.metrics, horovod_tpu_torch.metrics.export, "
+        "horovod_tpu_torch.metrics.registry, horovod_tpu_torch.trace, "
+        "horovod_tpu_torch.trace.merge, horovod_tpu_torch.trace.pusher, "
+        "horovod_tpu_torch.utils.timeline, horovod_tpu_torch.tools.run_parity, "
+        "horovod_tpu_torch.tools.metrics_dump, horovod_tpu_torch.tools.trace_merge\n"
+        "from horovod_tpu_torch.run.run import check_build\n"
+        "assert '[X] PyTorch' in check_build()\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_serve_modules_load_no_jax():
     """The serving stack, its parity tool and the demo's ``--help`` leave
     jax, flax, optax and the JAX package out of sys.modules."""

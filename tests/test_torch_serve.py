@@ -19,7 +19,7 @@ f32, on the CPU:
   replica killed mid-batch (every request answered once), the request
   refusals, the autoscaler's refusal (ROADMAP A12);
 - the HTTP frontend on port 0 (200 with the engine's tokens, /healthz, 400,
-  404, and /metrics 501 naming A12) and the ``python -m
+  404, and /metrics 200 with a Prometheus exposition) and the ``python -m
   horovod_tpu_torch.serve`` demo.
 """
 
@@ -531,10 +531,68 @@ def test_frontend(weights, reference):
         status, body = _http(port, "GET", "/healthz")
         assert status == 200 and json.loads(body) == {"replicas": 1, "queue_depth": 0}
         status, body = _http(port, "GET", "/metrics")
-        assert status == 501 and "ROADMAP A12" in json.loads(body)["error"]
+        # Served since the registry was ported; the tap is off here, so the
+        # exposition parses and carries nothing (tests/test_torch_metrics.py
+        # checks the hvd_serve_* series with the tap on).
+        from horovod_tpu_torch.metrics import export as port_export
+
+        assert status == 200 and port_export.parse_prometheus(body) == {}
         assert _http(port, "POST", "/v1/completions", {"max_tokens": 4})[0] == 400
         assert _http(port, "GET", "/nope")[0] == 404
         assert _http(port, "POST", "/v1/nope", {})[0] == 404
+
+
+def test_frontend_metrics_match_the_jax_engine(weights, reference):
+    """With both metrics taps on, the port's ``GET /metrics`` after the
+    same requests carries the ``hvd_request_*``/``hvd_serve_*`` families the
+    JAX engine records, with the same request count, tokens and latency
+    count (the gauges' values follow each engine's batching)."""
+    from horovod_tpu import metrics as jax_metrics
+    from horovod_tpu_torch import metrics as port_metrics
+    from horovod_tpu_torch.metrics import export as port_export
+
+    params, tparams = weights
+    prompts, want = reference
+    jax_metrics.install(True)
+    try:
+        ref_engine = ref_serve.ServeEngine(
+            params, ref_make_decode_step(n_heads=HEADS, dtype=jnp.float32), **ENGINE_KW,
+            cache_dtype=jnp.float32)
+        _complete(ref_engine, prompts)
+        jsnap = jax_metrics.snapshot()
+    finally:
+        jax_metrics.reset()
+    port_metrics.install(True)
+    try:
+        with port_serve.serve(tparams, n_heads=HEADS, device="cpu", http=True,
+                              config=_config(serve_port=0)) as handle:
+            for prompt, tokens in zip(prompts, want):
+                status, body = _http(handle.port, "POST", "/v1/completions",
+                                     {"prompt": prompt, "max_tokens": 4})
+                assert status == 200 and json.loads(body)["completion"] == tokens
+            status, text = _http(handle.port, "GET", "/metrics")
+    finally:
+        port_metrics.reset()
+    assert status == 200
+    parsed = port_export.parse_prometheus(text)
+    serving = {n for n in jsnap if n.startswith(("hvd_serve_", "hvd_request_"))}
+    assert serving and serving <= set(parsed), (serving, sorted(parsed))
+
+    def value(family, sample=None, **labels):
+        (v,) = [v for name, lab, v in parsed[family]["samples"] if name == (sample or family)
+                and {k: x for k, x in lab.items() if k != "role"} == labels]
+        return v
+
+    def jvalue(name, **labels):
+        (v,) = [x["value"] for x in jsnap[name]["series"] if x["labels"] == labels]
+        return v
+
+    n = len(prompts)
+    assert value("hvd_request_total", outcome="ok") == jvalue("hvd_request_total",
+                                                              outcome="ok") == n
+    assert value("hvd_serve_tokens_total") == jvalue("hvd_serve_tokens_total") == 4 * n
+    assert value("hvd_request_latency_seconds", "hvd_request_latency_seconds_count") == \
+        jsnap["hvd_request_latency_seconds"]["series"][0]["count"] == n
 
 
 def _config(**kw):

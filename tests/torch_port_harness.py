@@ -257,3 +257,26 @@ def assert_params_close(got: dict, want: dict, lr: float = GPT_LR, steps: int = 
     diffs = np.concatenate(diffs)
     assert diffs.max() <= 2 * lr * steps, diffs.max()
     assert np.mean(diffs > lr / 100) <= share, np.mean(diffs > lr / 100)
+
+
+# --- the JAX package's own tests, run against the port's modules ----------------
+
+
+def run_reference_test(module, name: str, swaps: dict, request) -> None:
+    """Call ``module.<name>`` (a test of the JAX package) with the module's
+    globals in ``swaps`` bound to the port's counterparts for the call, its
+    fixtures (``tmp_path``, ``monkeypatch``, ...) from ``request``. The
+    reference's assertions then hold the port's module to the same
+    behaviour."""
+    import inspect
+
+    fn = getattr(module, name)
+    saved = {k: getattr(module, k) for k in swaps}
+    kwargs = {p: request.getfixturevalue(p) for p in inspect.signature(fn).parameters}
+    for k, v in swaps.items():
+        setattr(module, k, v)
+    try:
+        fn(**kwargs)
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
