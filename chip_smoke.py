@@ -247,6 +247,23 @@ Phases, each printed as it ends:
    overhead (``run()`` called to the worker's ``init`` returning); the
    CLI's exit code on a passing and a failing one-rank command; and
    ``--check-build``'s lines (NCCL, nvcc and the card marked).
+19. ``[chaos]``: fault plans on the launched torch binding
+   (``horovod_tpu_torch/fault``, ``tools/chaos_parity.py`` at one rank).
+   ``python -m horovod_tpu_torch.run -np 1`` of the hook-driven binding's
+   GPT-2-small step (8 x 1024, bf16, AdamW 3e-4) with
+   ``HOROVOD_GUARD_NONFINITE=zero`` under a seeded plan of four faults, run
+   twice: a ``delay`` of 8 x 0.05 s at ``enqueue`` in step 3 (the step
+   must grow by at least half their sum), a ``nan`` at ``payload`` on one
+   named gradient at step 2 (the guard zeroes it, the loss stays finite,
+   the log holds ``nan`` then ``nonfinite-zero``), a ``corrupt`` at
+   ``output`` with its element and exponent bit pinned at step 4 (the
+   returned gradient differs from the rank's own in exactly that bit), a
+   ``kill`` at step 5 (the launcher returns 43); the two runs' event lines
+   equal; 12 + 12 B1 launches a step. Then a run under
+   ``HOROVOD_PROFILER_DIR`` (the chrome trace written at ``shutdown`` loads
+   and holds ``hvd_plan_`` ranges and B1's three kernels), the step with no
+   plan against a plan armed to fire nowhere (rank 99) in turns, 3 rounds
+   (the guard off), and the ring NIC probe over two local tasks, timed.
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -3574,6 +3591,50 @@ def phase_hvdrun(card, slice_first_loss: float):
     print(f"[hvdrun] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase_chaos(card):
+    """[chaos]: fault plans on the launched torch binding (the module
+    docstring, 19)."""
+    import tempfile
+
+    import torch
+    from horovod_tpu_torch.tools import chaos_parity as cp
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the workers share this card
+    with tempfile.TemporaryDirectory(prefix="chaos_") as work:
+        out = cp.rehearse(1, None, cp.GPT2_SMALL, cp.BATCH, cp.SEQ, "bf16", ab_rounds=3,
+                          profile=True, work=work)
+    check(out["ok"], f"[chaos] {out['failures']}")
+    layers = GPT2_SMALL["n_layers"]
+    for i, run in enumerate(out["chaos_runs"], 1):
+        check(all(l == [layers, layers] for l in run["launches"]),
+              f"[chaos] run {i}: B1 launches a step {run['launches']}")
+        check(run["delay_growth_ms"] >= 0.5 * run["delay_sum_ms"],
+              f"[chaos] run {i}: the delayed step grew {run['delay_growth_ms']:.1f} ms for "
+              f"{run['delay_sum_ms']:.0f} ms of delays")
+        print(f"[chaos] run {i} on {out['card']}: rc 43 in {run['job_s']:.1f} s, kill to end "
+              f"{run['kill_to_end_s']:.3f} s; step ms {[round(x, 2) for x in run['step_ms']]}; "
+              f"the delayed step {run['delayed_step_ms']:.2f} ms against "
+              f"{run['calm_step_ms_median']:.2f} (+{run['delay_growth_ms']:.2f} for "
+              f"{run['delay_sum_ms']:.0f} of delays); gradient bytes flipped "
+              f"{run['grad_diff']}; B1 launches a step {run['launches'][0]}", flush=True)
+    print("[chaos] event lines (both runs): " + "; ".join(
+        f"{e['site']}/{e['action']} {e['detail']}" for e in out["event_lines_by_rank"][0]),
+        flush=True)
+    prof, ab, probe = out["profile"], out["tap_ab"], out["probe"]
+    print(f"[chaos] profiler: {prof['traces']}, {prof['hvd_plan_ranges']} hvd_plan_ ranges, "
+          f"flash kernels {prof['flash_names']}", flush=True)
+    print(f"[chaos] the step with a plan armed to fire nowhere {ab['armed_median_ms']:.2f} ms "
+          f"against no plan {ab['none_median_ms']:.2f} (median of 6 each, in turns; armed "
+          f"{[round(x, 2) for x in ab['armed_ms']]}, none {[round(x, 2) for x in ab['none_ms']]}):"
+          f" {ab['rel']:+.2%} on {card}; host time inside the taps a step "
+          f"{statistics.median(ab['tap_host_ms']):.3f} ms ({ab['tap_calls'][0]} calls; all "
+          f"{[round(x, 3) for x in ab['tap_host_ms']]})", flush=True)
+    print(f"[chaos] ring NIC probe over {probe['tasks']} local tasks: {probe['interfaces']} in "
+          f"{probe['seconds']:.2f} s", flush=True)
+    print(f"[chaos] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -3691,6 +3752,7 @@ def main() -> int:
     phase_ep(card)
     phase_serve(card)
     phase_hvdrun(card, slice_first_loss)
+    phase_chaos(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -14,6 +14,13 @@ address in ``HOROVOD_ELASTIC_KV_ADDR``/``PORT``, ``init`` also starts the
 worker-side pushers of ``horovod_tpu/__init__.py:230-290``, which ship
 this rank's metrics snapshot and span window to that KV server; a pusher
 that cannot start is logged and the job goes on, as there.
+
+With ``HOROVOD_PROFILER_DIR`` set, ``init`` starts a ``torch.profiler``
+session (CPU and CUDA activities) once the runtime runs, and ``shutdown``
+stops it and writes this rank's chrome trace, ``<dir>/rank.<r>.pt.trace.json``
+(``horovod_tpu/__init__.py:203-223, 335-341``, where JAX writes an XLA
+profile). The eager plans carry their ``hvd_plan_<id>`` ranges, the names
+of the core's timeline. A session that cannot start is a warning.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ class _Runtime:
     store_dir: Optional[str]
     eager: Any = None       # core.native_runtime.NativeRuntime or core.runtime.Runtime
     pushers: tuple = ()     # metrics.export.MetricsPusher / trace.pusher.TracePusher
+    profiler: Any = None    # (torch.profiler.profile, its directory) under HOROVOD_PROFILER_DIR
 
 
 _runtime: Optional[_Runtime] = None
@@ -110,7 +118,43 @@ def init(device=None, *, init_method: Optional[str] = None, config=None) -> None
             shutil.rmtree(store_dir, ignore_errors=True)
         raise
     _runtime = _Runtime(topology=topo, device=dev, store_dir=store_dir, eager=rt,
-                        pushers=_start_pushers(topo))
+                        pushers=_start_pushers(topo),
+                        profiler=_start_profiler(rt.config.profiler_dir, dev))
+
+
+def _start_profiler(directory: str, dev: torch.device):
+    """The ``HOROVOD_PROFILER_DIR`` session (the module docstring), or None."""
+    if not directory:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        os.makedirs(directory, exist_ok=True)
+        # All threads: the plans run on the executor's thread, the hooks
+        # on autograd's, not only on the thread that called init.
+        from torch._C._profiler import _ExperimentalConfig
+
+        prof = profile(activities=activities,
+                       experimental_config=_ExperimentalConfig(profile_all_threads=True))
+        prof.start()
+    except Exception as exc:  # noqa: BLE001 - profiling is best-effort, as in the JAX package
+        logging.getLogger("horovod_tpu_torch").warning(
+            "could not start the torch.profiler session in %s: %s", directory, exc)
+        return None
+    return prof, directory
+
+
+def _stop_profiler(session, rank: int) -> None:
+    prof, directory = session
+    try:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(directory, f"rank.{rank}.pt.trace.json"))
+    except Exception as exc:  # noqa: BLE001 - shutdown goes on without the trace
+        logging.getLogger("horovod_tpu_torch").warning(
+            "could not write the torch.profiler trace in %s: %s", directory, exc)
 
 
 def _start_pushers(topo: Topology) -> tuple:
@@ -150,6 +194,8 @@ def shutdown() -> None:
 
     rt, _runtime = _runtime, None
     try:
+        if rt.profiler is not None:
+            _stop_profiler(rt.profiler, rt.topology.rank)
         rt.eager.shutdown()
         eager.reset()
         # Stopped after the runtime, so the final push carries the

@@ -27,7 +27,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from . import as_tensor, record_ready, to_caller
-from .. import fault as _fault
+from ..fault import injector as _fault
 from .. import guard as _guard
 from .. import metrics as _metrics
 from .. import trace as _trace
@@ -58,6 +58,12 @@ class PlanExecutor:
         """A joined rank's stand-in input for a plan it did not enqueue."""
         return torch.zeros(shape, dtype=dtype)
 
+    def then(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` after the plan just executed, where its outputs are
+        ready: on the card, on the plan's stream, with the done event
+        recorded after what ``fn`` queued."""
+        return fn()
+
     def thread_init(self) -> None:
         """Called once on the executor thread before its first plan."""
 
@@ -65,6 +71,15 @@ class PlanExecutor:
         """The event that marks the last plan's outputs on the card, or
         None when they are ready as returned."""
         return None
+
+
+def _output_faults(entries, outputs: Dict[str, Any]) -> Dict[str, Any]:
+    """``outputs`` through the fault plan's ``output`` tap, in entry order."""
+    for entry in entries:
+        if entry.name in outputs:
+            outputs[entry.name] = _fault.payload_fault("output", entry.name,
+                                                       outputs[entry.name])
+    return outputs
 
 
 class LocalPlanExecutor(PlanExecutor):
@@ -346,16 +361,16 @@ class NativeRuntime:
                 # plan's range in a torch.profiler trace.
                 with torch.profiler.record_function(f"hvd_plan_{plan['id']}"):
                     outputs = self.executor.execute(plan, entries, self.topology)
+                if _fault.ACTIVE:
+                    # The output tap: a scheduled corrupt flips a bit of THIS
+                    # rank's result, queued behind the collective on the
+                    # plan's stream and covered by its done event.
+                    outputs = self.executor.then(lambda: _output_faults(entries, outputs))
                 done = self.executor.done_event()
             except Exception as exc:  # noqa: BLE001 - reported through the handles
                 logger.exception("plan execution failed")
                 status_code = int(StatusType.UNKNOWN_ERROR)
                 error = f"{type(exc).__name__}: {exc}"
-        if _fault.ACTIVE and status_code == 0:
-            for entry in entries:
-                if entry.name in outputs:
-                    outputs[entry.name] = _fault.payload_fault("output", entry.name,
-                                                               outputs[entry.name])
         duration = time.perf_counter() - t0
         status = Status.OK() if status_code == 0 else Status(StatusType(status_code), error)
         nbytes = int(plan.get("total_bytes", 0) or 0)

@@ -106,6 +106,15 @@ class NcclPlanExecutor(PlanExecutor):
     def done_event(self):
         return self._done
 
+    def then(self, fn):
+        if not self._cuda:
+            return fn()
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            out = fn()
+            self._done = torch.cuda.Event()
+            self._done.record(self._stream)
+        return out
+
     @property
     def has_grid(self) -> bool:
         return self._grid is not None

@@ -12,7 +12,8 @@ process: a multi-process job runs on the native core.
 ``utils/timeline.py`` with the JAX runtime's events and names; the
 metrics (``hvd_op_*``, ``hvd_queue_depth``, ``hvd_cycle_seconds``, the
 stall counters) and the ``hvd_response`` spans sit at the JAX runtime's
-sites.
+sites, as do the fault plan's taps (``enqueue`` and ``payload`` at
+submission, ``response`` and ``output`` at execution).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import as_tensor, record_ready, to_caller
-from .. import fault as _fault
+from ..fault import injector as _fault
 from .. import guard as _guard
 from .. import metrics as _metrics
 from .. import trace as _trace
@@ -729,6 +730,11 @@ class Runtime:
         if self.timeline.initialized:
             for e in entries:
                 self.timeline.end(e.name, timeline_name)
+        if _fault.ACTIVE and status.ok():
+            # The output tap: a scheduled corrupt flips a bit of THIS rank's
+            # result only (the silent-divergence model).
+            for e in entries:
+                e.output = _fault.payload_fault("output", e.name, e.output)
         for entry in entries:
             if entry.callback is not None:
                 entry.callback(status, to_caller(entry.output, entry.context.get("host", False))

@@ -16,7 +16,10 @@ The policy comes from the caller, else ``HOROVOD_GUARD_NONFINITE``, else
 
 The sentinels themselves are in :mod:`.nonfinite`; the DP step counts
 its detections in ``hvd_guard_nonfinite_total`` and
-``hvd_guard_skipped_steps_total``. The digest agreement is ROADMAP A12c.
+``hvd_guard_skipped_steps_total``, and, while a fault plan or an event-log
+file is active, every detection (eager or DP step) is also a ``guard``
+line of the fault event log (:func:`record_guard_event`). The digest
+agreement is ROADMAP A12c.
 
 The eager runtimes call ``TAP.check_payload(name, tensor)`` on
 allreduce/Adasum submissions behind ``if guard.ACTIVE:``, the JAX
@@ -65,6 +68,27 @@ def _count(name: str, value: float = 1.0, **labels) -> None:
         _metrics.TAP.inc(name, value, **labels)
 
 
+_event_lock = threading.Lock()
+_guard_event_hits = 0
+
+
+def record_guard_event(action: str, detail: str = "") -> None:
+    """Append one guard detection to the deterministic fault event log
+    (site ``guard``; ``horovod_tpu/guard/__init__.py:105-123``), so seeded
+    chaos runs diff the guard's answers with the faults. Recorded only
+    while a fault plan or an event-log file is active: a long run with a
+    chatty policy must not grow the in-memory event list without bound."""
+    from ..fault import injector as _injector
+
+    if not (_injector.ACTIVE or os.environ.get(_injector.FAULT_EVENT_LOG_ENV, "")):
+        return
+    global _guard_event_hits
+    with _event_lock:
+        _guard_event_hits += 1
+        hit = _guard_event_hits
+    _injector.record_event("guard", hit, action, detail)
+
+
 class GuardTap:
     """The live tap: the eager payload sentinel and its counter."""
 
@@ -88,6 +112,7 @@ class GuardTap:
         if n_bad == 0:
             return tensor
         _count("hvd_guard_nonfinite_total", n_bad, policy=self.policy, path="eager")
+        record_guard_event(f"nonfinite-{self.policy}", f"{name} n={n_bad}")
         if self.policy == "abort":
             from .. import trace as _trace
             from ..common.basics import HorovodInternalError

@@ -1,7 +1,8 @@
 """The launcher: ``python -m horovod_tpu_torch.run`` and :func:`run`.
 
-The port of ``horovod_tpu/run``'s fixed path (``hvdrun``). The elastic
-driver and the NIC probe are ROADMAP A12b.
+The port of ``horovod_tpu/run``'s fixed path (``hvdrun``) with its ring NIC
+probe (:mod:`.network`, :mod:`.probe`). The elastic driver is ROADMAP
+A12b-ii.
 """
 
 from .run import check_build, main, parse_args, run, run_commandline  # noqa: F401

@@ -8,15 +8,14 @@ Prometheus exposition of this process's registry and every pushed worker
 snapshot) and ``GET /clock`` (the pushers' clock probe). The wire is the
 JAX package's: either package's client talks to the other's server.
 
-The client's bounded retry is a copy of the JAX package's backoff
-(``HOROVOD_RPC_RETRIES``, ``HOROVOD_RPC_BACKOFF_BASE_S``,
-``HOROVOD_RPC_BACKOFF_MAX_S``) without its seeded jitter and fault taps,
-which belong to the fault plans (ROADMAP A12b).
+The client's bounded retry is :mod:`..fault.backoff`'s
+(``HOROVOD_RPC_RETRIES``, ``HOROVOD_RPC_BACKOFF_*``, jitter seeded by
+``HOROVOD_FAULT_SEED``), and each attempt passes the fault plan's ``kv``
+tap first, so a ``drop`` burst there exercises the retry itself.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -24,6 +23,8 @@ from typing import Dict, Optional
 from urllib.parse import urlparse
 
 from .. import metrics as _metrics
+from ..fault import injector as _fault
+from ..fault.backoff import Backoff, retry_call
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -222,49 +223,6 @@ class KVUnavailableError(ConnectionError):
     not a bare timeout with a phase name."""
 
 
-def _env_float(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, "") or default)
-    except ValueError:
-        return default
-
-
-class Backoff:
-    """Retry budget: ``retries`` attempts after the first, sleeping
-    ``base_s * 2**i`` capped at ``max_s`` between them."""
-
-    def __init__(self, retries: int = 3, base_s: float = 0.05, max_s: float = 2.0):
-        self.retries, self.base_s, self.max_s = int(retries), float(base_s), float(max_s)
-
-    @staticmethod
-    def from_env() -> "Backoff":
-        return Backoff(int(_env_float("HOROVOD_RPC_RETRIES", 3)),
-                       _env_float("HOROVOD_RPC_BACKOFF_BASE_S", 0.05),
-                       _env_float("HOROVOD_RPC_BACKOFF_MAX_S", 2.0))
-
-    def delay(self, attempt: int) -> float:
-        return min(self.max_s, self.base_s * (2.0 ** attempt))
-
-
-def retry_call(fn, *, retryable, backoff: Backoff, describe: str, on_retry=None):
-    """``fn()`` with up to ``backoff.retries`` retries on ``retryable``;
-    re-raises the last error with the attempt count once the budget is
-    spent."""
-    last = None
-    for attempt in range(backoff.retries + 1):
-        try:
-            return fn()
-        except retryable as exc:  # noqa: PERF203 - retry loop
-            last = exc
-            if attempt >= backoff.retries:
-                break
-            d = backoff.delay(attempt)
-            if on_retry is not None:
-                on_retry(attempt, exc, d)
-            time.sleep(d)
-    raise type(last)(f"{last} [{describe}: gave up after {backoff.retries + 1} attempts]") from last
-
-
 class KVStoreClient:
     """Plain-TCP HTTP KV client built on ``http.client.HTTPConnection``.
 
@@ -303,6 +261,10 @@ class KVStoreClient:
             _metrics.TAP.inc("hvd_kv_requests_total", method=method)
 
         def once() -> bytes:
+            if _fault.ACTIVE:
+                # Chaos tap: 'drop' raises a ConnectionError before the
+                # request leaves, exercising this very retry loop.
+                _fault.fault_point("kv", f"{method} {path}")
             conn = http.client.HTTPConnection(
                 self._addr, self._port, timeout=30
             )

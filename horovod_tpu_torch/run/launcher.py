@@ -301,10 +301,13 @@ def launch_job(
     fan-out kill). The job's store lives in this process until every rank
     has ended."""
     base_env = dict(env if env is not None else os.environ)
+    # The ring probe's address for a remote rank 0 (run.py); popped, so a
+    # launch from inside a rank does not inherit the parent job's.
+    probed = base_env.pop("HOROVOD_PROBED_CONTROLLER_ADDR", "")
     if not _is_local(slots[0].hostname):
-        # Rank 0 hosts the core's controller: its host, with the port
-        # agreed through the store.
-        base_env["HOROVOD_CONTROLLER_ADDR"] = slots[0].hostname
+        # Rank 0 hosts the core's controller: its host (its probed address
+        # when the probe ran), with the port agreed through the store.
+        base_env["HOROVOD_CONTROLLER_ADDR"] = probed or slots[0].hostname
     master_addr = _store_addr(slots, base_env)
     store = host_store(master_addr)
 

@@ -8,10 +8,11 @@ knob as a flag, YAML ``--config-file`` with CLI-override precedence,
 gathers the results.
 
 It is a module, not a console script, so nothing shadows the JAX
-package's ``hvdrun``. What is not ported exits nonzero and says why: the
-elastic flags and the ring NIC probe that a job over several remote hosts
-needs are ROADMAP A12b, and ``--tpu-pod`` reads TPU slice metadata, which
-a GPU host does not have.
+package's ``hvdrun``. A job over more than one host with no
+``--network-interfaces`` runs the ring NIC probe (:mod:`.network`) and
+exports the routable interfaces as ``HOROVOD_IFACE``. What is not ported
+exits nonzero and says why: the elastic flags are ROADMAP A12b-ii, and
+``--tpu-pod`` reads TPU slice metadata, which a GPU host does not have.
 """
 
 from __future__ import annotations
@@ -26,21 +27,23 @@ from . import config_parser, launcher
 # The elastic flags (ElasticDriver, the journal and its supervisor).
 ELASTIC_NOT_PORTED = (
     "hvdrun: the elastic driver ({flags}) is not ported to horovod_tpu_torch yet "
-    "(ROADMAP A12b); run a fixed job with -np, or the JAX package's hvdrun")
-NIC_PROBE_NOT_PORTED = (
-    "hvdrun: a job over {n} remote hosts needs the ring NIC probe, which is not ported "
-    "to horovod_tpu_torch yet (ROADMAP A12b); pin the control plane's interface with "
-    "--network-interfaces")
+    "(ROADMAP A12b-ii); run a fixed job with -np, or the JAX package's hvdrun")
 TPU_POD_REFUSED = (
     "hvdrun: --tpu-pod derives the allocation from TPU slice metadata "
     "(TPU_WORKER_HOSTNAMES), which a GPU host does not have; use -np with -H or --hostfile")
 
 
-def _preflight(hostnames, args) -> None:
-    """SSH pre-flight (reference ``run/run.py:62-115``): an unreachable host
-    exits 4 before any rank starts. With more than one distinct remote host
-    and no pinned interface the JAX launcher ring-probes the NICs; here that
-    exits 2 naming ROADMAP A12b."""
+def _preflight_and_nic_probe(hostnames, controller_host, env, args) -> None:
+    """SSH pre-flight and ring NIC probe (``horovod_tpu/run/run.py:23-86``,
+    reference ``run/run.py:62-115,198-268``): an unreachable host exits 4
+    before any rank starts. With more than one host and no pinned
+    interface the NICs are probed ring-wise over the HMAC-authenticated
+    services and the routable intersection is exported as
+    ``HOROVOD_IFACE``; the launcher's store is served on this host's
+    address on the first of them (``launcher._store_addr``). A remote rank
+    0's probed address goes to ``HOROVOD_PROBED_CONTROLLER_ADDR`` (its
+    hostname may not resolve on the other hosts). The probe is
+    best-effort: a failed one prints and the launch goes on."""
     from .disk_cache import default_cache
 
     hostnames = sorted(dict.fromkeys(hostnames))
@@ -51,10 +54,27 @@ def _preflight(hostnames, args) -> None:
     except RuntimeError as e:
         print(str(e), file=sys.stderr)
         raise SystemExit(4)
-    remote = [h for h in hostnames if not launcher._is_local(h)]
-    if not args.network_interfaces and len(remote) > 1:
-        print(NIC_PROBE_NOT_PORTED.format(n=len(remote)), file=sys.stderr)
-        raise SystemExit(2)
+    if args.network_interfaces or len(hostnames) < 2:
+        return
+    from . import network
+
+    try:
+        common, host_addrs = network.discover_common_interfaces(
+            hostnames, ssh_port=args.ssh_port, return_addresses=True)
+    except Exception as e:  # noqa: BLE001 - the probe is best-effort
+        print(f"[hvdrun] NIC probe failed ({e}); continuing without", file=sys.stderr)
+        return
+    if not common:
+        return
+    env["HOROVOD_IFACE"] = ",".join(common)
+    if not launcher._is_local(controller_host):
+        addrs0 = host_addrs.get(controller_host, {})
+        for intf in common:
+            if addrs0.get(intf):
+                env["HOROVOD_PROBED_CONTROLLER_ADDR"] = addrs0[intf][0][0]
+                break
+    if args.verbose:
+        print(f"[hvdrun] routable interfaces: {common}")
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -102,13 +122,13 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--stall-shutdown-time-seconds", type=float, default=None)
     parser.add_argument("--log-level", default=None,
                         choices=["trace", "debug", "info", "warning", "error"])
-    # The JAX launcher's elastic flags: accepted, then refused (ROADMAP A12b).
+    # The JAX launcher's elastic flags: accepted, then refused (ROADMAP A12b-ii).
     for flag, kw in (("--min-np", dict(type=int)), ("--max-np", dict(type=int)),
                      ("--host-discovery-script", {}), ("--spares", dict(type=int)),
                      ("--blacklist-cooldown", dict(type=float))):
-        parser.add_argument(flag, default=None, help="Elastic (ROADMAP A12b): refused.", **kw)
+        parser.add_argument(flag, default=None, help="Elastic (ROADMAP A12b-ii): refused.", **kw)
     for flag in ("--resume", "--auto-resume"):
-        parser.add_argument(flag, action="store_true", help="Elastic (ROADMAP A12b): refused.")
+        parser.add_argument(flag, action="store_true", help="Elastic (ROADMAP A12b-ii): refused.")
     parser.add_argument("--network-interfaces", default=None,
                         help="Comma-separated NICs to use for the control plane.")
     parser.add_argument("--mesh-axes", default=None,
@@ -239,7 +259,7 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         print(f"hvdrun: {e}", file=sys.stderr)
         return 2
     try:
-        _preflight([s.hostname for s in slots], args)
+        _preflight_and_nic_probe([s.hostname for s in slots], slots[0].hostname, env, args)
     except SystemExit as e:
         return e.code
     return launcher.launch_job(command, slots, env=env, ssh_port=args.ssh_port,

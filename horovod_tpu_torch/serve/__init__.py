@@ -27,8 +27,9 @@ collectives of two replicas never interleave.
 The engine records its ``hvd_request_*``/``hvd_serve_*`` metrics and
 request spans through the live taps (``HOROVOD_METRICS``,
 ``HOROVOD_TRACE``); ``python -m horovod_tpu_torch.run --serve`` launches
-the demo. Fault plans and the autoscaler are ROADMAP A12b; the serving
-simulator is A13.
+the demo. A fault plan (``HOROVOD_FAULT_PLAN``) drives the ``request`` and
+``replica`` taps; the autoscaler is ROADMAP A12b-ii, the serving simulator
+A13.
 
 Entry points: :func:`serve` (in process), ``python -m
 horovod_tpu_torch.serve`` (the HTTP demo).
@@ -232,7 +233,7 @@ def serve(
 
     if scale_policy is not None:
         raise NotImplementedError(
-            "the serving autoscaler (ServeScalePolicy) is not ported yet: ROADMAP A12b"
+            "the serving autoscaler (ServeScalePolicy) is not ported yet: ROADMAP A12b-ii"
         )
     cfg = config if config is not None else Config.from_env()
     dtype = torch.float32 if dtype is None else dtype

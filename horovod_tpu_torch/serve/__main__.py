@@ -6,7 +6,7 @@ serves until interrupted; the counterpart of
 ``horovod_tpu/serve/__main__.py``. The geometry comes from the same ``HVD_SERVE_DEMO_*``
 variables (vocab 128, d_model 64, 4 heads, 2 layers, max_len 128, seed 0
 by default); every serving knob from the ``HOROVOD_SERVE_*`` environment.
-The autoscaler the reference runs beside it is ROADMAP A12b.
+The autoscaler the reference runs beside it is ROADMAP A12b-ii.
 
     python -m horovod_tpu_torch.serve                 # on the card
     python -m horovod_tpu_torch.serve --device cpu

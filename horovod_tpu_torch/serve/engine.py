@@ -27,11 +27,11 @@ stream. The step's inputs go up in one pinned, non-blocking copy; the one
 host synchronization a step is the read-back of the ``[B]`` next tokens.
 
 The metrics (``hvd_request_*``, ``hvd_serve_*``), trace (``hvd_request``
-spans) and fault (``request``, ``replica``) calls sit at the reference's
-sites; the metrics and trace taps are live, the fault seam is inactive
-(ROADMAP A12b). The autoscaler (``scale_policy``, ``autoscale_beat``, the
-SLO-burn accounting and the scale-in verb ``retire_replica``) is A12b's
-too: passing a policy raises.
+spans) and fault (``request``, ``replica``) taps sit at the reference's
+sites, each live when its knob is set (``HOROVOD_FAULT_PLAN`` for the
+fault plan). The autoscaler (``scale_policy``, ``autoscale_beat``, the
+SLO-burn accounting and the scale-in verb ``retire_replica``) is ROADMAP
+A12b-ii: passing a policy raises.
 """
 
 from __future__ import annotations
@@ -43,11 +43,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .. import fault as _fault
 from .. import metrics as _metrics
 from .. import trace as _trace
 from ..common.basics import resolve_device
-from ..fault import InjectedFault, ReplicaKilled
+from ..fault import injector as _fault
+from ..fault.injector import InjectedFault, ReplicaKilled
 from .batcher import ContinuousBatcher
 from .kvcache import PagePool, PagePoolExhausted, make_decode_state
 
@@ -121,7 +121,7 @@ class ServeEngine:
         if scale_policy is not None:
             raise NotImplementedError(
                 "the serving autoscaler (ServeScalePolicy, autoscale_beat) is not "
-                "ported yet: ROADMAP A12b"
+                "ported yet: ROADMAP A12b-ii"
             )
         self.params = params
         self.decode_step = decode_step

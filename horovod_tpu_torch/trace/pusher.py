@@ -5,7 +5,7 @@ their bounded span windows to the driver's KV rendezvous store (one
 small JSON PUT per interval, scope ``trace``, key ``rank.<rank>``); the
 driver never scrapes workers. The JAX package's elastic driver collects
 the windows (``ElasticDriver._trace_collect``; the port's is ROADMAP
-A12b), persists them for ``trace/merge.py``, and feeds the per-step end
+A12b-ii), persists them for ``trace/merge.py``, and feeds the per-step end
 timestamps into :class:`StepSkewTracker` — the seam behind
 ``hvd_step_skew_seconds`` and ``hvd_straggler_total{rank}``.
 
@@ -31,6 +31,10 @@ from . import KV_SCOPE, _count
 from . import tap as _tap
 
 logger = logging.getLogger("horovod_tpu_torch.trace")
+
+# Fault event-log lines shipped per window (the tail is enough to
+# correlate injections with spans; the full log lives on disk).
+EVENT_LOG_TAIL = 200
 
 CLOCK_PINGS = 5
 
@@ -115,10 +119,11 @@ class TracePusher:
         doc = _tap().window()
         if not doc:
             return
-        # The fault event-log tail rides here in the JAX package; the
-        # port's fault plans (and their log) are ROADMAP A12b, so the
-        # window ships an empty one in the same shape.
-        doc["event_log"] = []
+        # Ship the deterministic fault event-log tail beside the spans,
+        # so a merged trace shows injections inline with their steps.
+        from ..fault import injector as _fault
+
+        doc["event_log"] = _fault.events()[-EVENT_LOG_TAIL:]
         try:
             self._kv.put(
                 KV_SCOPE, f"rank.{self._rank}",

@@ -60,7 +60,7 @@ from .common import env as _env
 from .common.compression import Compression
 from .common.types import ReduceOp
 from .guard import nonfinite as _nf
-from .guard import _count, resolve_policy
+from .guard import _count, record_guard_event, resolve_policy
 from .ops import collectives, fusion
 from .ops.quantized import EFState, ef_like
 
@@ -235,6 +235,7 @@ def _fused(grads, op, group, threshold, compression, quantized,
 def _warn_nonfinite(reduced, path: str) -> None:
     if float(_nf.local_flag(reduced)) > 0:
         _count("hvd_guard_nonfinite_total", policy="warn", path=path)
+        record_guard_event("nonfinite-warn", path)
         _logger.warning("non-finite guard: non-finite gradients detected in the %s path "
                         "(policy warn); the update proceeds", path)
 
@@ -534,10 +535,11 @@ class DistributedOptimizer:
         flag = post if pre is None else torch.maximum(pre.to(post.device), post)
         skip = float(_nf.agree_flag(flag.to(basics.device()), self._flag_group)) > 0
         if skip:
-            _count("hvd_guard_nonfinite_total", policy=self._policy,
-                   path="zero1" if self._zero1 else "overlap" if self._overlap else "reduce")
+            path = "zero1" if self._zero1 else "overlap" if self._overlap else "reduce"
+            _count("hvd_guard_nonfinite_total", policy=self._policy, path=path)
             if self._policy == "skip":
                 _count("hvd_guard_skipped_steps_total")
+            record_guard_event(f"nonfinite-{self._policy}", path)
         return skip
 
     def step(self, closure=None):

@@ -132,6 +132,29 @@ def test_launcher_and_observability_load_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_fault_and_probe_modules_load_no_jax():
+    """The fault plans, the ring NIC probe and the chaos tool, imported and
+    a plan parsed and fired once, leave jax, flax, optax and the JAX
+    package out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch.fault, horovod_tpu_torch.fault.plan, "
+        "horovod_tpu_torch.fault.injector, horovod_tpu_torch.fault.backoff, "
+        "horovod_tpu_torch.fault.preemption, horovod_tpu_torch.run.network, "
+        "horovod_tpu_torch.run.probe, horovod_tpu_torch.tools.chaos_parity\n"
+        "from horovod_tpu_torch import fault\n"
+        "fault.install_plan(fault.FaultPlan.from_json('{\"faults\": [{\"kind\": \"delay\"}]}'))\n"
+        "fault.fault_point('enqueue', 'x')\n"
+        "assert [e['action'] for e in fault.events()] == ['delay']\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_serve_modules_load_no_jax():
     """The serving stack, its parity tool and the demo's ``--help`` leave
     jax, flax, optax and the JAX package out of sys.modules."""

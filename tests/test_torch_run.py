@@ -20,8 +20,9 @@
   failing rank ends the job with its code and stops its peer;
   ``run_parity --smoke`` (``run()`` returning both ranks' records); a
   ``localhost`` + fake ``hosta`` hostfile through an ssh PATH shim;
-- what is not ported refuses, naming its ROADMAP item, and ``init`` refuses
-  more local ranks than visible cards.
+- what is not ported refuses, naming its ROADMAP item, a job over two
+  remote hosts runs the ring NIC probe, and ``init`` refuses more local
+  ranks than visible cards.
 """
 
 import dataclasses
@@ -501,16 +502,46 @@ def test_hostfile_with_a_remote_host_through_an_ssh_shim(tmp_path):
                                    ["--blacklist-cooldown", "5"]])
 def test_elastic_flags_refuse_naming_a12b(flags, capsys):
     assert port_run.run_commandline(["-np", "2", *flags, "python", "x.py"]) == 2
-    assert "ROADMAP A12b" in capsys.readouterr().err
+    assert "ROADMAP A12b-ii" in capsys.readouterr().err
 
 
 def test_tpu_pod_and_nic_probe_refuse(monkeypatch, capsys):
+    """``--tpu-pod`` refuses; two remote hosts with no pinned interface run
+    the ring NIC probe (``run/network.py``, monkeypatched here) and launch
+    with its interfaces and rank 0's probed address; a failed probe prints
+    and the launch goes on, as in the JAX launcher."""
+    from horovod_tpu_torch.run import network
+
     assert port_run.run_commandline(["--tpu-pod", "python", "x.py"]) == 2
     assert "TPU slice metadata" in capsys.readouterr().err
-    # Two distinct remote hosts need the ring NIC probe: A12b.
     monkeypatch.setattr(port_launcher, "check_hosts_reachable", lambda *a, **k: None)
-    assert port_run.run_commandline(["-np", "2", "-H", "hosta:1,hostb:1", "python", "x"]) == 2
-    assert "ROADMAP A12b" in capsys.readouterr().err
+    probed, launched = [], []
+
+    def probe(hosts, **kw):
+        probed.append((list(hosts), kw))
+        return ["eth9", "lo"], {h: {"lo": [("127.0.0.1", 7)], "eth9": [(f"10.0.0.{i}", 7)]}
+                                for i, h in enumerate(hosts)}
+
+    monkeypatch.setattr(network, "discover_common_interfaces", probe)
+    monkeypatch.setattr(port_launcher, "launch_job",
+                        lambda cmd, slots, env=None, **kw: launched.append(env) or 0)
+    assert port_run.run_commandline(["-np", "2", "-H", "hosta:1,hostb:1", "python", "x"]) == 0
+    assert probed == [(["hosta", "hostb"], {"ssh_port": None, "return_addresses": True})]
+    assert launched[0]["HOROVOD_IFACE"] == "eth9,lo"
+    assert launched[0]["HOROVOD_PROBED_CONTROLLER_ADDR"] == "10.0.0.0"
+    # A pinned interface skips the probe; a failed probe prints and goes on.
+    assert port_run.run_commandline(["-np", "2", "-H", "hosta:1,hostb:1",
+                                     "--network-interfaces", "lo", "python", "x"]) == 0
+    assert len(probed) == 1 and launched[1]["HOROVOD_IFACE"] == "lo"
+
+    def broken(hosts, **kw):
+        raise TimeoutError("rendezvous phase 'initial-registration' timed out")
+
+    monkeypatch.setattr(network, "discover_common_interfaces", broken)
+    capsys.readouterr()
+    assert port_run.run_commandline(["-np", "2", "-H", "hosta:1,hostb:1", "python", "x"]) == 0
+    assert "NIC probe failed" in capsys.readouterr().err
+    assert "HOROVOD_IFACE" not in launched[2]
     assert port_run.run_commandline(["-np", "3", "-H", "localhost:1", "python", "x"]) == 2
     assert port_run.run_commandline(["python", "x"]) == 2
 

@@ -451,6 +451,31 @@ def test_replica_killed_mid_batch_answers_every_request_once(weights, reference)
     assert engine.live_replicas() == 0 and sum(r.alive for r in engine._replicas) == 0
 
 
+def test_fault_plan_drives_the_request_and_replica_sites(weights, reference):
+    """A plan installed after import arms the engine's taps: the first
+    request is dropped at the ``request`` site (answered ``dropped``), the
+    second batch dispatch kills its replica at the ``replica`` site (its
+    batch re-queued and answered once by the survivor)."""
+    from horovod_tpu_torch.fault import injector
+    from horovod_tpu_torch.fault.plan import FaultPlan
+
+    _, tparams = weights
+    prompts, want = reference
+    injector.install_plan(FaultPlan.from_json(json.dumps({"faults": [
+        {"kind": "drop", "site": "request", "at_step": 1},
+        {"kind": "kill_replica", "at_step": 2}]})))
+    try:
+        engine = _port_engine(tparams, replicas=2)
+        got = _complete(engine, prompts)
+        events = [(e["site"], e["action"]) for e in injector.events()]
+    finally:
+        injector.reset()
+    assert [c.outcome for c in got] == ["dropped"] + ["ok"] * (len(prompts) - 1)
+    assert [list(c.tokens) for c in got[1:]] == want[1:]
+    assert events == [("request", "drop"), ("replica", "kill_replica")]
+    assert engine.requeues >= 1 and engine.live_replicas() == 0
+
+
 def test_engine_refusals_match_the_reference(weights):
     params, tparams = weights
     engines = [ref_serve.ServeEngine(params, ref_make_decode_step(n_heads=HEADS), **ENGINE_KW,

@@ -167,7 +167,7 @@ def test_trace_pusher_ships_window(server_cls):
         doc = port_pusher.decode_window(srv.snapshot(port_trace.KV_SCOPE)["rank.3"])
         assert doc["clock"]["estimated"] is True and doc["rank"] == port_trace.TAP.rank
         assert any(e["name"] == "shipped" for e in doc["events"])
-        assert doc["event_log"] == []       # fault plans are ROADMAP A12b
+        assert doc["event_log"] == []       # no fault plan is installed
         # The JAX driver's decoder reads the port's window.
         assert jax_pusher.decode_window(srv.snapshot(port_trace.KV_SCOPE)["rank.3"]) == doc
         p.stop()
