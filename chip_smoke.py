@@ -264,6 +264,22 @@ Phases, each printed as it ends:
    and holds ``hvd_plan_`` ranges and B1's three kernels), the step with no
    plan against a plan armed to fire nowhere (rank 99) in turns, 3 rounds
    (the guard off), and the ring NIC probe over two local tasks, timed.
+20. ``[elastic]``: elastic state (``horovod_tpu_torch/elastic``,
+   ``tools/elastic_parity.py``'s ``one`` case). The scripted driver runs in
+   this process (a KV server, a TCPStore a generation) and one worker in a
+   subprocess: the hook-driven binding's GPT-2-small step (8 x 1024, bf16,
+   AdamW 3e-4) under ``@elastic.run`` with ``TorchState(model, optimizer,
+   step=0)`` and a commit every step, first 7 steps uninterrupted, then the
+   same 7 through two in-process NCCL re-formations: a ``preempt`` at commit
+   2 (``PreemptionInterrupt``: state kept, generation 2 through a fresh
+   TCPStore) and a ``nan`` at ``payload`` in step 4 under
+   ``HOROVOD_GUARD_NONFINITE=abort`` (``HorovodInternalError`` out of
+   ``backward()``: the handles reset, commit 3 restored, the group aborted,
+   generation 3). Every loss after a re-formation must equal the
+   uninterrupted run's bitwise; 12 + 12 B1 launches a step in all three
+   generations; each fault fires once; the committed snapshot on the card.
+   Prints the commit's cost (the step with and without a commit, in turns,
+   3 rounds), each re-formation's seconds and the phase's.
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -3635,6 +3651,39 @@ def phase_chaos(card):
     print(f"[chaos] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase_elastic(card):
+    """[elastic]: elastic state through two in-process re-formations (the
+    module docstring, 20)."""
+    import tempfile
+
+    import torch
+    from horovod_tpu_torch.tools import elastic_parity as ep
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the worker shares this card
+    with tempfile.TemporaryDirectory(prefix="elastic_") as work:
+        out = ep.run_case("one", 1, None, ep.GPT2_SMALL, ep.BATCH, ep.SEQ, "bf16", work,
+                          commit_ab=3)
+    check(out["ok"], f"[elastic] {out['failures']}")
+    check(out["gens"] == [1, 1, 1] and [r["kind"] for r in out["reformations"]]
+          == ["preempt", "rollback"], f"[elastic] re-formations {out['reformations']}")
+    check(out["snapshot_device"].startswith("cuda"),
+          f"[elastic] the snapshot is on {out['snapshot_device']}")
+    for r in out["reformations"]:
+        print(f"[elastic] {r['kind']} -> generation {r['gen']} after step {r['step_after']}: "
+              f"caught to init {r['caught_to_rejoined_s']:.3f} s, to the first step's end "
+              f"{r['caught_to_first_step_s']:.3f} s on {card}", flush=True)
+    print(f"[elastic] {out['losses_compared']} losses after the re-formations bitwise the "
+          f"uninterrupted run's; 12 + 12 B1 launches in every step; events {out['events']}; "
+          f"snapshot on {out['snapshot_device']}; job {out['job_s']:.1f} s", flush=True)
+    print(f"[elastic] the step with a commit {statistics.median(out['commit_on_ms']):.2f} ms "
+          f"against without {statistics.median(out['commit_off_ms']):.2f} (median of 6 each, in "
+          f"turns; on {[round(x, 2) for x in out['commit_on_ms']]}, off "
+          f"{[round(x, 2) for x in out['commit_off_ms']]}): {out['commit_cost_ms']:+.2f} ms; the "
+          f"commit alone {[round(x, 2) for x in out['commit_ms']]} ms on {card}", flush=True)
+    print(f"[elastic] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -3753,6 +3802,7 @@ def main() -> int:
     phase_serve(card)
     phase_hvdrun(card, slice_first_loss)
     phase_chaos(card)
+    phase_elastic(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -41,6 +41,7 @@ from .common.basics import (
     is_initialized,
     local_rank,
     local_size,
+    mesh,
     rank,
     shutdown,
     size,
@@ -110,7 +111,7 @@ from .train import (
     make_train_step,
 )
 
-from . import metrics, trace  # noqa: E402 - hvd.metrics() is the callable module
+from . import elastic, metrics, trace  # noqa: E402 - hvd.metrics() is the callable module
 
 
 def metrics_snapshot() -> dict:
@@ -138,5 +139,5 @@ __all__ = [
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "make_train_step", "make_decode_step", "GradientAccumulator",
     "allreduce_gradients", "error_feedback_state", "EFState", "HorovodInternalError",
-    "metrics", "metrics_snapshot",
+    "metrics", "metrics_snapshot", "elastic", "mesh",
 ]

@@ -31,6 +31,7 @@ import os
 import shutil
 import tempfile
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Any, Optional
 
 import torch
@@ -64,9 +65,30 @@ class _Runtime:
     eager: Any = None       # core.native_runtime.NativeRuntime or core.runtime.Runtime
     pushers: tuple = ()     # metrics.export.MetricsPusher / trace.pusher.TracePusher
     profiler: Any = None    # (torch.profiler.profile, its directory) under HOROVOD_PROFILER_DIR
+    mesh: Any = None        # mesh()'s DeviceMesh, built at first use
 
 
 _runtime: Optional[_Runtime] = None
+# The card this process was first bound to: an elastic re-formation keeps it.
+_bound_card: Optional[int] = None
+
+
+def _elastic() -> bool:
+    return os.environ.get("HOROVOD_ELASTIC") == "1"
+
+
+def elastic_timeout() -> timedelta:
+    """The process group's timeout in an elastic job: the stall shutdown
+    window, else the stall warning's (the module docstring)."""
+    for var, default in (("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+                         ("HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0)):
+        try:
+            seconds = float(os.environ.get(var, "") or default)
+        except ValueError:
+            seconds = default
+        if seconds > 0:
+            return timedelta(seconds=seconds)
+    return timedelta(seconds=60.0)
 
 
 def init(device=None, *, init_method: Optional[str] = None, config=None) -> None:
@@ -79,9 +101,13 @@ def init(device=None, *, init_method: Optional[str] = None, config=None) -> None
     directory (so a script needs no launcher), and a multi-process job uses
     ``env://`` (``MASTER_ADDR``/``MASTER_PORT``, as torchrun sets them).
     Calling ``init`` again while initialized does nothing."""
-    global _runtime
+    global _runtime, _bound_card
     if _runtime is not None:
         return
+    if os.environ.get("HOROVOD_ELASTIC_SPARE") == "1":
+        from ..elastic import maybe_wait_as_spare
+
+        maybe_wait_as_spare()
     dev = resolve_device(device)
     topo = detect()
     if dev.type == "cuda" and dev.index is None and topo.local_size > torch.cuda.device_count():
@@ -91,7 +117,8 @@ def init(device=None, *, init_method: Optional[str] = None, config=None) -> None
             "would share a card; start at most one rank per card")
     store_dir = None
     if init_method is None:
-        if topo.size == 1:
+        if topo.size == 1 and not (_elastic() and "MASTER_ADDR" in os.environ):
+            # An elastic generation names its own store, even at one rank.
             store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")
             init_method = "file://" + os.path.join(store_dir, "store")
         elif "MASTER_ADDR" in os.environ:
@@ -103,10 +130,20 @@ def init(device=None, *, init_method: Optional[str] = None, config=None) -> None
             )
     if dev.type == "cuda":
         dev = torch.device("cuda", topo.local_rank if dev.index is None else dev.index)
+        if _elastic() and _bound_card is not None and dev.index != _bound_card:
+            raise RuntimeError(
+                f"elastic: this process's state lives on cuda:{_bound_card}, but generation "
+                f"{os.environ.get('HOROVOD_ELASTIC_GEN', '?')} gives it local rank "
+                f"{topo.local_rank} (cuda:{dev.index}); a rank never moves to another card")
         torch.cuda.set_device(dev)
+        _bound_card = dev.index
+    kw = {}
+    if _elastic():
+        kw["timeout"] = elastic_timeout()
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
     dist.init_process_group(
         "nccl" if dev.type == "cuda" else "gloo",
-        init_method=init_method, rank=topo.rank, world_size=topo.size,
+        init_method=init_method, rank=topo.rank, world_size=topo.size, **kw,
     )
     from .. import eager
 
@@ -185,14 +222,30 @@ def _start_pushers(topo: Topology) -> tuple:
     return tuple(pushers)
 
 
-def shutdown() -> None:
-    """Stop the eager runtime, then the process group."""
+def _abort_group() -> None:
+    """Abort every process group without waiting on it; a backend that
+    cannot abort is destroyed instead."""
+    from torch.distributed import distributed_c10d as c10d
+
+    try:
+        c10d._abort_process_group()
+    except Exception as exc:  # noqa: BLE001 - gloo may not abort: destroy it
+        logging.getLogger("horovod_tpu_torch").info("abort of the process group: %s", exc)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def shutdown(abort: bool = False) -> None:
+    """Stop the eager runtime, then the process group. ``abort`` (a group a
+    failed peer broke) aborts the group first and never waits on it."""
     global _runtime
     if _runtime is None:
         return
     from .. import eager
 
     rt, _runtime = _runtime, None
+    if abort and dist.is_initialized():
+        _abort_group()
     try:
         if rt.profiler is not None:
             _stop_profiler(rt.profiler, rt.topology.rank)
@@ -206,7 +259,8 @@ def shutdown() -> None:
             except Exception:  # noqa: BLE001 - a dead KV server must not fail shutdown
                 pass
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
         if rt.store_dir is not None:
             shutil.rmtree(rt.store_dir, ignore_errors=True)
 
@@ -257,3 +311,15 @@ def is_homogeneous() -> bool:
 def device() -> torch.device:
     """The device ``init`` bound this process to."""
     return _require().device
+
+
+def mesh():
+    """The job's device mesh (``horovod_tpu/__init__.py:466-476``), built at
+    first use over the process group: one ``data`` axis over every rank, or
+    ``HOROVOD_TPU_MESH_AXES``'s axes. A re-formed world builds its own."""
+    rt = _require()
+    if rt.mesh is None:
+        from ..parallel import mesh as mesh_mod
+
+        rt.mesh = mesh_mod.build_mesh(mesh_mod.parse_axes(rt.eager.config.mesh_axes) or None)
+    return rt.mesh

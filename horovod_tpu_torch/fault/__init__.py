@@ -11,7 +11,8 @@ The port of ``horovod_tpu/fault`` (the same exports). Two halves:
   variable unset the check is the whole cost.
 - **Recovery** (:mod:`.backoff`, :mod:`.preemption`): bounded retry with
   exponential backoff and seeded jitter for control-plane requests, and
-  the preemption notice flag (the drain that consumes it is ROADMAP A12c).
+  the preemption notice flag, which ``elastic.run`` consumes: it installs
+  the SIGTERM handler, and the next ``State.commit`` drains and rejoins.
 """
 
 from .backoff import (  # noqa: F401

@@ -1,8 +1,9 @@
 """Graceful preemption: notice → commit → drain → rejoin.
 
 The port's copy of ``horovod_tpu/fault/preemption.py``. Nothing on the
-fixed launch path installs the SIGTERM handler; the elastic layer that
-drains and rejoins (steps 2 and 3 below) is ROADMAP A12c.
+fixed launch path installs the SIGTERM handler: ``elastic.run`` does
+(unless ``HOROVOD_PREEMPTION_GRACEFUL=0``), and its ``State.commit`` and
+rejoin are steps 2 and 3 below.
 
 A TPU maintenance event / spot preemption arrives as a notice (SIGTERM
 from the platform, or a simulated notice from the fault plan) some grace

@@ -18,8 +18,16 @@ The sentinels themselves are in :mod:`.nonfinite`; the DP step counts
 its detections in ``hvd_guard_nonfinite_total`` and
 ``hvd_guard_skipped_steps_total``, and, while a fault plan or an event-log
 file is active, every detection (eager or DP step) is also a ``guard``
-line of the fault event log (:func:`record_guard_event`). The digest
-agreement is ROADMAP A12c.
+line of the fault event log (:func:`record_guard_event`).
+
+The periodic parameter-digest agreement (``HOROVOD_GUARD_DIGEST_STEPS=N``,
+``horovod_tpu/guard/__init__.py:43-95``): every N elastic commits each rank
+hashes its tracked state (:mod:`.digest`), the digests are allgathered and
+compared, and a mismatch heals by a re-broadcast from the agreeing
+quorum's reference rank, or rolls back to the last commit where no
+quorum exists (``HOROVOD_GUARD_NO_QUORUM=rollback|root``). The agreement
+itself runs in ``elastic.State.commit``; a digest cadence alone arms the
+tap (``ACTIVE``) with the non-finite policy ``off``.
 
 The eager runtimes call ``TAP.check_payload(name, tensor)`` on
 allreduce/Adasum submissions behind ``if guard.ACTIVE:``, the JAX
@@ -38,9 +46,18 @@ import os
 import threading
 from typing import Any, Optional
 
-from ..common.env import HOROVOD_GUARD_NONFINITE
+from ..common.env import (
+    HOROVOD_GUARD_DIGEST_STEPS,
+    HOROVOD_GUARD_NO_QUORUM,
+    HOROVOD_GUARD_NONFINITE,
+)
+
+GUARD_NONFINITE_ENV = HOROVOD_GUARD_NONFINITE
+GUARD_DIGEST_STEPS_ENV = HOROVOD_GUARD_DIGEST_STEPS
+GUARD_NO_QUORUM_ENV = HOROVOD_GUARD_NO_QUORUM
 
 NONFINITE_POLICIES = ("off", "warn", "zero", "skip", "abort")
+NO_QUORUM_ACTIONS = ("rollback", "root")
 
 
 def resolve_policy(explicit: Optional[str] = None) -> str:
@@ -59,6 +76,30 @@ def resolve_policy(explicit: Optional[str] = None) -> str:
 
 
 logger = logging.getLogger("horovod_tpu_torch.guard")
+
+
+def digest_steps() -> int:
+    """Digest-agreement cadence in commits (0 = disabled)."""
+    v = os.environ.get(GUARD_DIGEST_STEPS_ENV, "").strip()
+    if not v:
+        return 0
+    try:
+        return max(int(v), 0)
+    except ValueError:
+        logger.warning("%s=%r is not an integer; digest agreement disabled",
+                       GUARD_DIGEST_STEPS_ENV, v)
+        return 0
+
+
+def no_quorum_action() -> str:
+    """What a digest mismatch with no agreeing majority does: ``rollback``
+    (default: restore the last elastic commit) or ``root`` (trust the sync
+    root's replica and re-broadcast from it, the only heal at 2 ranks)."""
+    name = (os.environ.get(GUARD_NO_QUORUM_ENV, "") or "rollback").strip().lower()
+    if name not in NO_QUORUM_ACTIONS:
+        logger.warning("unknown %s %r; using 'rollback'", GUARD_NO_QUORUM_ENV, name)
+        return "rollback"
+    return name
 
 
 def _count(name: str, value: float = 1.0, **labels) -> None:
@@ -147,22 +188,37 @@ TAP: Any = NULL_TAP
 _lock = threading.Lock()
 
 
-def install(policy: Optional[str] = None) -> None:
-    """(De)activate the eager sentinel: ``off`` installs the no-op tap."""
+def install(policy: Optional[str] = None, digest: Optional[int] = None) -> None:
+    """(De)activate the guard: with the policy ``off`` and the digest
+    cadence 0 the no-op tap is installed."""
     global ACTIVE, TAP
     pol = resolve_policy(policy)
+    steps = digest_steps() if digest is None else max(int(digest), 0)
     with _lock:
-        TAP, ACTIVE = (NULL_TAP, False) if pol == "off" else (GuardTap(pol), True)
+        if pol == "off" and steps <= 0:
+            TAP, ACTIVE = NULL_TAP, False
+        else:
+            TAP, ACTIVE = GuardTap(pol), True
+
+
+def activate_from_env() -> bool:
+    """(Re)load the guard configuration from the environment."""
+    install()
+    return ACTIVE
 
 
 def reset() -> None:
-    install("off")
+    global _guard_event_hits
+    install("off", digest=0)
+    with _event_lock:
+        _guard_event_hits = 0
 
 
-# Armed at import, as in the JAX package: a worker started with the knob in
+# Armed at import, as in the JAX package: a worker started with the knobs in
 # its environment is guarded without code changes.
-if os.environ.get(HOROVOD_GUARD_NONFINITE, "").strip():
+if (os.environ.get(HOROVOD_GUARD_NONFINITE, "").strip()
+        or os.environ.get(HOROVOD_GUARD_DIGEST_STEPS, "").strip()):
     try:
-        install()
+        activate_from_env()
     except Exception:  # noqa: BLE001 - a malformed knob must not take down import
         logger.exception("could not arm the data-plane guard from the environment")

@@ -29,7 +29,7 @@ older whole-vector form: one shard of the flat parameter vector.
 from __future__ import annotations
 
 import inspect
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -41,6 +41,7 @@ __all__ = [
     "Zero1State",
     "init_zero1_state",
     "init_zero1_stream_state",
+    "init_zero1_stream_states",
     "make_zero1_train_step",
     "zero1_posthoc_reduce",
     "zero1_stream_update",
@@ -110,11 +111,33 @@ def init_zero1_stream_state(
     stateful optimizers start exactly as they would on the whole vector).
     Non-float and empty buckets carry no state. ``error_feedback`` (default:
     on for the int8 wire) adds zero sharded residuals."""
+    if error_feedback and not quantized:
+        raise ValueError("error_feedback=True requires quantized=True")
+    _hyperparameters(optimizer)
+    n, rank = _shards_of(group, n_shards)
+    return _stream_state(optimizer, params, n, rank, threshold_bytes, first_bucket_bytes,
+                         quantized, error_feedback)
+
+
+def init_zero1_stream_states(optimizer: torch.optim.Optimizer, params: Any, n_shards: int, *,
+                             threshold_bytes: Optional[int] = None,
+                             first_bucket_bytes: Optional[int] = None,
+                             quantized: bool = False,
+                             error_feedback: Optional[bool] = None) -> List[Zero1State]:
+    """Every rank's :class:`Zero1State` at ``n_shards`` ranks, built in one
+    process with no process group (what :func:`init_zero1_stream_state`
+    gives each rank): a checkpoint's restore target, a reshard's test."""
+    return [_stream_state(optimizer, params, int(n_shards), r, threshold_bytes,
+                          first_bucket_bytes, quantized, error_feedback)
+            for r in range(int(n_shards))]
+
+
+def _stream_state(optimizer, params, n: int, rank: int, threshold_bytes, first_bucket_bytes,
+                  quantized: bool, error_feedback) -> Zero1State:
     use_ef = bool(quantized) if error_feedback is None else bool(error_feedback)
     if use_ef and not quantized:
         raise ValueError("error_feedback=True requires quantized=True")
     hyper = _hyperparameters(optimizer)
-    n, rank = _shards_of(group, n_shards)
     shards: Dict[str, Dict[str, torch.Tensor]] = {}
     ef: Dict[str, Dict[str, torch.Tensor]] = {}
     for label, leaves, buckets in F.zero1_group_layout(params, threshold_bytes,

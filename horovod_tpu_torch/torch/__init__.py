@@ -15,8 +15,8 @@ caller's: it records the gradient's ready event on the stream autograd
 produced it on, and the optimizer's bookkeeping is shared under a lock.
 ``step()`` writes each reduced gradient back into ``p.grad`` on the
 caller's stream, ordered after the plan; the host does not wait on the
-card. The elastic state (``horovod_tpu/torch/elastic.py``) is not part of
-this binding yet.
+card. The elastic state and ``ElasticSampler`` are :mod:`.elastic`
+(``horovod_tpu/torch/elastic.py``).
 
 Run a script that imports this module with ``python -m`` or from the
 repository root: run by path from inside ``horovod_tpu_torch/``, Python

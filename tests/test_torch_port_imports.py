@@ -77,6 +77,28 @@ def test_eager_modules_load_no_jax():
 
 
 
+def test_elastic_modules_load_no_jax():
+    """The elastic state, the digest, the reshard planner and the
+    checkpoints, imported and used once on the CPU, leave jax, flax, optax
+    and the JAX package out of sys.modules."""
+    code = (
+        "import sys, torch\n"
+        "import horovod_tpu_torch as hvd, horovod_tpu_torch.elastic as el, "
+        "horovod_tpu_torch.guard.digest as dg, horovod_tpu_torch.parallel.reshard as R, "
+        "horovod_tpu_torch.utils.checkpoint as ck, horovod_tpu_torch.torch.elastic, "
+        "horovod_tpu_torch.tools.elastic_parity, horovod_tpu_torch.examples.pytorch_mnist_elastic, "
+        "horovod_tpu_torch.examples.elastic_train\n"
+        "s = el.TensorState(w=torch.ones(2), step=1); s.commit(); dg.state_digest(s)\n"
+        "assert R.shard_len(100, 3) == 34 and hvd.elastic is el\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_binding_modules_load_no_jax_and_torch_is_pytorch():
     """The torch binding (a subpackage named ``torch``), its micro-benchmark
     and its parity tool, imported and driven once on the CPU, leave jax,

@@ -280,3 +280,24 @@ def run_reference_test(module, name: str, swaps: dict, request) -> None:
     finally:
         for k, v in saved.items():
             setattr(module, k, v)
+
+
+# --- a port tool run as a script ---------------------------------------------
+
+
+def run_tool(module: str, args, timeout: float = 300.0) -> dict:
+    """``python -m <module> <args>`` from the repository root; returns the
+    JSON object its last stdout line prints. Fails with its output when it
+    exits non-zero."""
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    env["OMP_NUM_THREADS"] = "2"
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"{module} {args} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-6000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
