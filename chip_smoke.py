@@ -281,6 +281,29 @@ Phases, each printed as it ends:
    Prints the commit's cost (the step with and without a commit, in turns,
    3 rounds), each re-formation's seconds and the phase's.
 
+21. ``[elastic-driver]``: the elastic driver (``horovod_tpu_torch/run/
+   elastic_driver.py``, ``tools/driver_parity.py``'s one-card cases), each
+   job ``python -m horovod_tpu_torch.run`` with one slot on this card and
+   ``tools/elastic_parity``'s worker (the binding's GPT-2-small step, 8 x
+   1024, bf16, AdamW 3e-4, weight decay 1e-4, a commit every step):
+   ``respawn`` (``HOROVOD_ELASTIC_REJOIN_MODE=respawn``, a seeded
+   preemption at commit 3: the worker persists its commit and exits 79, the
+   driver respawns the slot into the next generation, which resumes from
+   the snapshot on disk at step 4, every later loss bitwise the uninterrupted
+   run's) and ``driver1`` (``--auto-resume`` and a seeded ``kill_driver``:
+   the supervisor resumes the driver at epoch 2, the parked worker re-forms
+   through a fresh generation and ends on the uninterrupted run's
+   parameters bitwise); 12 + 12 B1 launches a step in every generation,
+   counted in the worker; the two jobs run side by side on the card. Then
+   the serving autoscaler: ``ServeEngine`` at
+   GPT-2-small (max_len 1024, f32) with a ``ServeScalePolicy``, a burst
+   held behind the first batch scales 1 -> 2 replicas and quiet beats back
+   to 1, the tokens the one-at-a-time full recompute's, ``serve-promote``
+   and ``serve-retire`` on the event ledger. Prints the kill to the first
+   step after the respawn, the driver kill to the first step after the
+   re-formation, and the scale-out decision to the new replica's first
+   token, each on the card named above.
+
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -3684,6 +3707,129 @@ def phase_elastic(card):
     print(f"[elastic] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# [elastic-driver]'s serving autoscale: GPT-2-small in f32 at max_len 1024,
+# page size 16, 4 slots; a burst of prompts held behind the first batch.
+AUTOSCALE_PROMPTS, AUTOSCALE_PROMPT_LEN, AUTOSCALE_NEW = 10, 4, 6
+
+
+def _autoscale_serve(card):
+    """The serving autoscaler at GPT-2-small on the card: 1 -> 2 -> 1
+    replicas, the tokens the full recompute's."""
+    import threading
+
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.fault import injector
+    from horovod_tpu_torch.fault.plan import FaultPlan
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.run.selfdrive import ServeScalePolicy
+    from horovod_tpu_torch.serve import ServeEngine
+    from horovod_tpu_torch.train import make_decode_step
+    from horovod_tpu_torch.utils.convert import param_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = dict(GPT2_SMALL, max_len=SEQ)
+    heads = dims["n_heads"]
+    model = TransformerLM(**dims, dtype=torch.float32, device="cuda", seed=0)
+    params = param_tree(model)
+    prompts = np.random.RandomState(1).randint(
+        0, dims["vocab_size"], (AUTOSCALE_PROMPTS, AUTOSCALE_PROMPT_LEN)).tolist()
+    ref = [_greedy_full(params, p, AUTOSCALE_NEW, heads) for p in prompts]
+    inner = make_decode_step(n_heads=heads, dtype=torch.float32)
+    hold, entered, first, returns = threading.Event(), threading.Event(), {}, []
+
+    def step(*a):
+        if threading.current_thread() is first.get("thread"):
+            entered.set()
+            hold.wait(120)      # replica 0's first batch, until replica 1 answered
+        out = inner(*a)
+        returns.append((threading.current_thread(), time.perf_counter()))
+        return out
+
+    policy = ServeScalePolicy(scale_out_depth=2.0, scale_in_depth=0.5, window=1, cooldown=0,
+                              min_replicas=1, max_replicas=2)
+    engine = ServeEngine(params, step, n_layers=dims["n_layers"], n_heads=heads,
+                         head_dim=dims["d_model"] // heads, num_pages=4 * SEQ // 16 + 1,
+                         page_size=16, max_batch_size=4, max_wait_us=500, max_context=SEQ,
+                         replicas=1, slo_ms=60_000.0, scale_policy=policy,
+                         cache_dtype=torch.float32, device="cuda")
+    injector.install_plan(FaultPlan.from_json('{"seed": 1, "faults": []}'))
+    try:
+        with engine:
+            first["thread"] = engine._replicas[0].thread
+            rids = [engine.submit(p, max_tokens=AUTOSCALE_NEW) for p in prompts]
+            deadline = time.monotonic() + 60
+            check(entered.wait(60), "[elastic-driver] replica 0 took no batch")
+            depth = engine._batcher.depth()
+            t_decide = time.perf_counter()
+            out = engine.autoscale_beat()
+            check(out is not None and out.action == "scale-out",
+                  f"[elastic-driver] the burst (depth {depth}) did not scale out: {out}")
+            new = engine._replicas[1].thread
+            while not any(th is new for th, _ in returns) and time.monotonic() < deadline:
+                time.sleep(0.001)
+            first_token = [t for th, t in returns if th is new]
+            hold.set()
+            check(bool(first_token), "[elastic-driver] the new replica answered nothing")
+            scale_out_s = first_token[0] - t_decide
+            live_out = engine.live_replicas()
+            engine.drain(timeout=300.0)
+            got = [list(engine.result(r).tokens) for r in rids]
+            back = engine.autoscale_beat()
+            live_in = engine.live_replicas()
+        events = [(e["site"], e["action"]) for e in injector.events()]
+    finally:
+        hold.set()
+        injector.install_plan(None)
+    check(got == ref, f"[elastic-driver] autoscaled tokens {got} != the full recompute {ref}")
+    check(live_out == 2 and back is not None and back.action == "scale-in" and live_in == 1,
+          f"[elastic-driver] replicas {live_out} after the burst, {live_in} after {back}")
+    check(events == [("replica", "serve-promote"), ("replica", "serve-retire")],
+          f"[elastic-driver] serving events {events}")
+    by_replica = {}
+    for th, _ in returns:
+        by_replica[th.name] = by_replica.get(th.name, 0) + 1
+    print(f"[elastic-driver] serve autoscale at GPT-2-small (f32, max_len {SEQ}): a burst of "
+          f"{AUTOSCALE_PROMPTS} prompts, depth {depth} behind the first batch -> scale-out to 2 "
+          f"replicas, quiet -> scale-in to 1; {AUTOSCALE_PROMPTS} x {AUTOSCALE_NEW} tokens the "
+          f"full recompute's; events {events}; steps by replica {sorted(by_replica.values())}",
+          flush=True)
+    print(f"[elastic-driver] scale-out decision to the new replica's first token "
+          f"{scale_out_s:.3f} s on {card}", flush=True)
+
+
+def phase_elastic_driver(card):
+    """[elastic-driver]: the elastic driver's one-card cases and the
+    serving autoscaler (the module docstring, 21)."""
+    import tempfile
+
+    import torch
+    from horovod_tpu_torch.tools import driver_parity as dp
+    from horovod_tpu_torch.tools import elastic_parity as ep
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the workers share this card
+    with tempfile.TemporaryDirectory(prefix="driver_") as work:
+        # The two jobs side by side on this card (each ~10 GB): the phase
+        # is mostly process starts (the package import), not card time.
+        out = dp.rehearse(1, None, ep.GPT2_SMALL, ep.BATCH, ep.SEQ, "bf16", work, parallel=True)
+    check(out["ok"], f"[elastic-driver] {out['failures']}")
+    respawn, driver = out["cases"]["respawn"], out["cases"]["driver1"]
+    print(f"[elastic-driver] respawn: generations {respawn['generations']}, starts "
+          f"(gen, had snapshot) {respawn['starts']}, {respawn['losses_compared']} losses after "
+          f"the respawn bitwise the uninterrupted run's, final parameters bitwise; 12 + 12 B1 "
+          f"launches in every step; job {respawn['job_s']:.1f} s", flush=True)
+    print(f"[elastic-driver] driver kill: generations {driver['generations']}, "
+          f"{driver['losses_compared']} losses after the re-formation bitwise the uninterrupted "
+          f"run's, final parameters bitwise; events {driver['events']}; job "
+          f"{driver['job_s']:.1f} s", flush=True)
+    print(f"[elastic-driver] kill (preemption, respawn mode) to the first step after the respawn "
+          f"{respawn['kill_to_first_step_s']:.3f} s; driver kill to the first step after the "
+          f"re-formation {driver['driver_kill_to_first_step_s']:.3f} s; on {card}", flush=True)
+    _autoscale_serve(card)
+    print(f"[elastic-driver] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -3771,6 +3917,14 @@ def main() -> int:
         return 2
     import horovod_tpu_torch  # noqa: F401 - fails where the repo is missing
 
+    if sys.argv[1:2] == ["--phase"]:
+        # Development: the card, the build and the named phases only; no
+        # result lines.
+        card = phase_card()
+        phase_build()
+        for name in sys.argv[2:]:
+            globals()["phase_" + name.replace("-", "_")](card)
+        return 0
     card = phase_card()
     phase_build()
     phase_kernels_f32()
@@ -3803,6 +3957,7 @@ def main() -> int:
     phase_hvdrun(card, slice_first_loss)
     phase_chaos(card)
     phase_elastic(card)
+    phase_elastic_driver(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -8,8 +8,7 @@ re-forming the world with the workers that are left or new.
 
 Generation-based re-formation, as in the JAX package:
 
-- The elastic driver (ROADMAP A12b-ii; ``tools/elastic_parity`` scripts one)
-  publishes each world GENERATION in its HTTP KV store (``elastic/world``):
+- The elastic driver (``run/elastic_driver.py``) publishes each world GENERATION in its HTTP KV store (``elastic/world``):
   the membership, each worker's ranks, and a FRESH ``torch.distributed``
   rendezvous, the generation's ``TCPStore`` as ``master_addr`` and
   ``master_port`` (the JAX package's document carries its coordinator as
@@ -546,12 +545,32 @@ def maybe_wait_as_spare() -> bool:
 
 
 def apply_serve_scale(engine, decision):
-    """Apply a serving autoscale verdict with the elastic verbs. Refused:
-    the autoscaler and the elastic driver that owns the verbs are ROADMAP
-    A12b-ii."""
-    raise NotImplementedError(
-        "apply_serve_scale needs the serving autoscaler and the elastic driver, which are "
-        "not ported yet (ROADMAP A12b-ii)")
+    """Apply a serving autoscale verdict with the elastic verbs: scale-out
+    is the spare-promotion verb (a fresh DP serving replica joins) and
+    scale-in the quarantine-shrink verb (the newest replica drains its
+    batch and retires). Event-logged through the fault injector's ledger
+    like every other membership change (``replica`` site, actions
+    ``serve-promote``/``serve-retire``). Returns the replica index added or
+    retired, or None when the engine refused (retiring the last replica)."""
+    if decision is None:
+        return None
+    if decision.action == "scale-out":
+        idx = engine.add_replica()
+        verb = "serve-promote"
+    else:
+        idx = engine.retire_replica()
+        verb = "serve-retire"
+    if idx is None:
+        return None
+    if _fault_injector.ACTIVE:
+        _fault_injector.record_event(
+            "replica", idx, verb,
+            f"reason={decision.reason} depth={decision.depth:.1f} "
+            f"burn={decision.slo_burn:.3f}")
+    logger.warning("elastic: serving %s replica %s (%s: depth=%.1f burn=%.3f)",
+                   "scale-out to" if verb == "serve-promote" else "scale-in of", idx,
+                   decision.reason, decision.depth, decision.slo_burn)
+    return idx
 
 
 # ------------------------------------------------- rejoin-mode selection

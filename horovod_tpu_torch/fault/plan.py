@@ -29,8 +29,8 @@ plan — including the first decisions of every probabilistic stream — to
 canonical bytes, which an elastic driver writes to its event log so two
 runs with the same seed can be diffed byte-for-byte. The driver-side kinds
 (``kill_driver``, ``restart_driver``, a ``preempt`` with ``after_s``) parse
-and appear in the schedule here; only an elastic driver fires them, and the
-port's is ROADMAP A12b-ii.
+and appear in the schedule here; only the elastic driver
+(``run/elastic_driver.py``) fires them.
 
 Action fields
 -------------

@@ -5,14 +5,16 @@ reference ``horovodrun``): ``-np``, ``-H``/``--hostfile``, every runtime
 knob as a flag, YAML ``--config-file`` with CLI-override precedence,
 ``--check-build``, ``--version``, ``--output-dir``, ``--serve``, and a
 ``run()`` Python API that ships a pickled function to every rank and
-gathers the results.
+gathers the results. Any elastic flag (``--min-np``, ``--max-np``,
+``--host-discovery-script``, ``--resume``) routes the job to the elastic
+driver (:mod:`.elastic_driver`); ``--auto-resume`` supervises that driver
+in a child process and resumes it from its journal when it dies.
 
 It is a module, not a console script, so nothing shadows the JAX
 package's ``hvdrun``. A job over more than one host with no
 ``--network-interfaces`` runs the ring NIC probe (:mod:`.network`) and
-exports the routable interfaces as ``HOROVOD_IFACE``. What is not ported
-exits nonzero and says why: the elastic flags are ROADMAP A12b-ii, and
-``--tpu-pod`` reads TPU slice metadata, which a GPU host does not have.
+exports the routable interfaces as ``HOROVOD_IFACE``. ``--tpu-pod`` reads
+TPU slice metadata, which a GPU host does not have: it exits 2 saying so.
 """
 
 from __future__ import annotations
@@ -24,19 +26,19 @@ from typing import Any, Callable, List, Optional
 
 from . import config_parser, launcher
 
-# The elastic flags (ElasticDriver, the journal and its supervisor).
-ELASTIC_NOT_PORTED = (
-    "hvdrun: the elastic driver ({flags}) is not ported to horovod_tpu_torch yet "
-    "(ROADMAP A12b-ii); run a fixed job with -np, or the JAX package's hvdrun")
 TPU_POD_REFUSED = (
     "hvdrun: --tpu-pod derives the allocation from TPU slice metadata "
     "(TPU_WORKER_HOSTNAMES), which a GPU host does not have; use -np with -H or --hostfile")
 
 
-def _preflight_and_nic_probe(hostnames, controller_host, env, args) -> None:
+def _preflight_and_nic_probe(hostnames, controller_host, env, args, fatal=True):
     """SSH pre-flight and ring NIC probe (``horovod_tpu/run/run.py:23-86``,
-    reference ``run/run.py:62-115,198-268``): an unreachable host exits 4
-    before any rank starts. With more than one host and no pinned
+    reference ``run/run.py:62-115,198-268``); returns the hosts that
+    answered. With ``fatal`` (the fixed path) an unreachable host exits 4
+    before any rank starts; without (the elastic path, where an
+    unreachable host is a state the driver handles by blacklisting) the
+    per-host error is printed and only the reachable hosts are returned.
+    With more than one host and no pinned
     interface the NICs are probed ring-wise over the HMAC-authenticated
     services and the routable intersection is exported as
     ``HOROVOD_IFACE``; the launcher's store is served on this host's
@@ -47,25 +49,31 @@ def _preflight_and_nic_probe(hostnames, controller_host, env, args) -> None:
     from .disk_cache import default_cache
 
     hostnames = sorted(dict.fromkeys(hostnames))
+    reachable = list(hostnames)
     try:
         launcher.check_hosts_reachable(
             hostnames, ssh_port=args.ssh_port,
             cache=None if args.disable_cache else default_cache())
     except RuntimeError as e:
-        print(str(e), file=sys.stderr)
-        raise SystemExit(4)
-    if args.network_interfaces or len(hostnames) < 2:
-        return
+        if fatal:
+            print(str(e), file=sys.stderr)
+            raise SystemExit(4)
+        print(f"[hvdrun] elastic pre-flight: {e}\n[hvdrun] continuing with the reachable "
+              f"subset; the driver will retry/blacklist the rest", file=sys.stderr)
+        bad = set(getattr(e, "failed_hosts", ()))
+        reachable = [h for h in hostnames if h not in bad]
+    if args.network_interfaces or len(reachable) < 2:
+        return reachable
     from . import network
 
     try:
         common, host_addrs = network.discover_common_interfaces(
-            hostnames, ssh_port=args.ssh_port, return_addresses=True)
+            reachable, ssh_port=args.ssh_port, return_addresses=True)
     except Exception as e:  # noqa: BLE001 - the probe is best-effort
         print(f"[hvdrun] NIC probe failed ({e}); continuing without", file=sys.stderr)
-        return
+        return reachable
     if not common:
-        return
+        return reachable
     env["HOROVOD_IFACE"] = ",".join(common)
     if not launcher._is_local(controller_host):
         addrs0 = host_addrs.get(controller_host, {})
@@ -75,6 +83,7 @@ def _preflight_and_nic_probe(hostnames, controller_host, env, args) -> None:
                 break
     if args.verbose:
         print(f"[hvdrun] routable interfaces: {common}")
+    return reachable
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -122,13 +131,41 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--stall-shutdown-time-seconds", type=float, default=None)
     parser.add_argument("--log-level", default=None,
                         choices=["trace", "debug", "info", "warning", "error"])
-    # The JAX launcher's elastic flags: accepted, then refused (ROADMAP A12b-ii).
-    for flag, kw in (("--min-np", dict(type=int)), ("--max-np", dict(type=int)),
-                     ("--host-discovery-script", {}), ("--spares", dict(type=int)),
-                     ("--blacklist-cooldown", dict(type=float))):
-        parser.add_argument(flag, default=None, help="Elastic (ROADMAP A12b-ii): refused.", **kw)
-    for flag in ("--resume", "--auto-resume"):
-        parser.add_argument(flag, action="store_true", help="Elastic (ROADMAP A12b-ii): refused.")
+    # elastic mode (the JAX launcher's flags, horovod_tpu/run/run.py:144-190)
+    parser.add_argument("--min-np", type=int, default=None,
+                        help="Elastic: minimum processes to keep running (job fails below "
+                             "this).")
+    parser.add_argument("--max-np", type=int, default=None,
+                        help="Elastic: cap on processes even when discovery offers more "
+                             "slots.")
+    parser.add_argument("--host-discovery-script", default=None,
+                        help='Elastic: executable printing one "host:slots" line per '
+                             "available host; polled for membership changes.")
+    parser.add_argument("--elastic-discovery-interval", type=float, default=1.0,
+                        help="Elastic: seconds between discovery polls.")
+    parser.add_argument("--blacklist-threshold", type=int, default=3,
+                        help="Elastic: worker failures before a host is blacklisted.")
+    parser.add_argument("--blacklist-cooldown", type=float, default=None,
+                        help="Elastic: seconds a blacklisted host stays quarantined before "
+                             "being re-admitted (doubles per relapse; 0 = forever; default "
+                             "HOROVOD_BLACKLIST_COOLDOWN_S or 300).")
+    parser.add_argument("--elastic-timeout", type=float, default=600.0,
+                        help="Elastic: seconds a worker waits for a usable world generation "
+                             "before giving up.")
+    parser.add_argument("--spares", type=int, default=None,
+                        help="Elastic: hot-spare workers kept spawned beyond the world, "
+                             "parked before init; a quarantine or death promotes one in the "
+                             "same generation bump instead of a respawn (default "
+                             "HOROVOD_SPARES or 0).")
+    parser.add_argument("--resume", action="store_true",
+                        help="Elastic: resume a crashed driver from its journal (needs the "
+                             "original --output-dir or HOROVOD_DRIVER_JOURNAL) and adopt the "
+                             "surviving workers instead of respawning them.")
+    parser.add_argument("--auto-resume", action="store_true",
+                        help="Elastic: supervise the driver in a child process and re-launch "
+                             "it with --resume when it dies abnormally, up to "
+                             "HOROVOD_DRIVER_MAX_RESTARTS (default 3) times. Needs "
+                             "--output-dir for the journal.")
     parser.add_argument("--network-interfaces", default=None,
                         help="Comma-separated NICs to use for the control plane.")
     parser.add_argument("--mesh-axes", default=None,
@@ -201,6 +238,119 @@ def check_build() -> str:
     return "\n".join(lines)
 
 
+# The exit code of an UNHANDLED exception in the elastic driver (sysexits
+# EX_SOFTWARE): a traceback must not exit 1, the driver's deliberate "job
+# failed", or --auto-resume would refuse to resume the very crash the
+# journal exists to recover from.
+DRIVER_CRASH_RC = 70
+
+
+def _supervise_driver(argv: List[str], call=None) -> int:
+    """``--auto-resume``: run the elastic driver as a child process and
+    re-launch it with ``--resume`` whenever it dies abnormally. "Abnormal"
+    is any exit the driver does not use for deliberate outcomes (0
+    success, 1 job failure, 2 usage, 3 config, 4 unreachable hosts):
+    signals, unhandled driver exceptions (``DRIVER_CRASH_RC``) and
+    injected driver-kill codes resume. ``HOROVOD_DRIVER_MAX_RESTARTS``
+    (default 3) bounds a crash loop."""
+    import subprocess
+
+    call = call or (lambda a: subprocess.call(
+        [sys.executable, "-m", "horovod_tpu_torch.run", *a]))
+    child_args = [a for a in argv if a != "--auto-resume"]
+    try:
+        max_restarts = int(os.environ.get("HOROVOD_DRIVER_MAX_RESTARTS", "") or 3)
+    except ValueError:
+        max_restarts = 3
+    deliberate = (0, 1, 2, 3, 4)
+    restarts = 0
+    while True:
+        rc = call(child_args)
+        if rc in deliberate:
+            return rc
+        if restarts >= max_restarts:
+            print(f"[hvdrun supervisor] driver died abnormally (exit {rc}) and the restart "
+                  f"budget ({max_restarts}) is spent", file=sys.stderr)
+            return rc
+        restarts += 1
+        print(f"[hvdrun supervisor] driver died abnormally (exit {rc}); resuming from the "
+              f"journal (restart {restarts}/{max_restarts})", file=sys.stderr)
+        if "--resume" not in child_args:
+            # Before the training command: argparse hands everything after
+            # the command's first word to the command (REMAINDER).
+            child_args = ["--resume"] + child_args
+
+
+def _run_elastic(args, command: List[str], env: dict, argv: Optional[List[str]]) -> int:
+    """The elastic path (``horovod_tpu/run/run.py:342-420``): the initial
+    host set is pre-flighted without being fatal (unreachable hosts are
+    dropped; the driver may bring them back), then :class:`ElasticDriver`
+    supervises the job."""
+    if args.auto_resume:
+        return _supervise_driver(argv if argv is not None else sys.argv[1:])
+    if args.hostfile:
+        hosts = launcher.parse_hostfile(args.hostfile)
+    elif args.hosts:
+        hosts = launcher.parse_hosts(args.hosts)
+    elif args.host_discovery_script:
+        hosts = None  # the discovery script is the sole source
+    elif args.num_proc:
+        hosts = [("localhost", args.num_proc)]
+    else:
+        print("hvdrun: elastic mode needs -np, -H/--hostfile, or --host-discovery-script",
+              file=sys.stderr)
+        return 2
+    probed_hostset = None
+    if hosts:
+        reachable = _preflight_and_nic_probe([h for h, _ in hosts], hosts[0][0], env, args,
+                                             fatal=False)
+        hosts = [(h, c) for h, c in hosts if h in reachable]
+        probed_hostset = reachable
+        if not hosts:
+            print("hvdrun: no initial host is reachable", file=sys.stderr)
+            return 4
+        # The probed address maps the INITIAL hosts[0]; the driver
+        # re-elects rank 0 every generation, so a pin would go stale. The
+        # interfaces stay: they are host-set-wide, and the driver re-probes
+        # when discovery changes the set.
+        env.pop("HOROVOD_PROBED_CONTROLLER_ADDR", None)
+
+    from .elastic_driver import ElasticDriver
+
+    try:
+        driver = ElasticDriver(
+            command,
+            min_np=args.min_np or args.num_proc or 1,
+            max_np=args.max_np or args.num_proc or (1 << 30),
+            hosts=hosts,
+            discovery_script=args.host_discovery_script,
+            discovery_interval=args.elastic_discovery_interval,
+            env=env,
+            output_dir=args.output_dir,
+            verbose=args.verbose,
+            host_failure_threshold=args.blacklist_threshold,
+            ssh_port=args.ssh_port,
+            elastic_timeout=args.elastic_timeout,
+            nic_pinned=bool(args.network_interfaces),
+            probed_hostset=probed_hostset,
+            blacklist_cooldown=args.blacklist_cooldown,
+            resume=args.resume,
+            spares=args.spares,
+        )
+    except (NotImplementedError, ValueError) as e:
+        print(f"hvdrun: {e}", file=sys.stderr)
+        return 2
+    try:
+        return driver.run()
+    except SystemExit:
+        raise
+    except Exception:  # noqa: BLE001 - a crash the supervisor resumes
+        import traceback
+
+        traceback.print_exc()
+        return DRIVER_CRASH_RC
+
+
 def run_commandline(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     if args.version:
@@ -211,15 +361,6 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     if args.check_build:
         print(check_build())
         return 0
-    elastic = [f for f, v in (("--min-np", args.min_np), ("--max-np", args.max_np),
-                              ("--host-discovery-script", args.host_discovery_script),
-                              ("--spares", args.spares),
-                              ("--blacklist-cooldown", args.blacklist_cooldown),
-                              ("--resume", args.resume), ("--auto-resume", args.auto_resume))
-               if v not in (None, False)]
-    if elastic:
-        print(ELASTIC_NOT_PORTED.format(flags=", ".join(elastic)), file=sys.stderr)
-        return 2
     if args.tpu_pod:
         print(TPU_POD_REFUSED, file=sys.stderr)
         return 2
@@ -232,10 +373,8 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     if not command:
         print("hvdrun: no training command given", file=sys.stderr)
         return 2
-    if args.num_proc is None:
-        print("hvdrun: -np is required", file=sys.stderr)
-        return 2
 
+    # The runtime knobs' environment, shared by the elastic and fixed paths.
     if args.disable_cache:
         args.cache_capacity = 0
     env = dict(os.environ)
@@ -246,6 +385,14 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         from ..common import env as _env_names
 
         env[_env_names.HOROVOD_SERVE] = "1"
+
+    # Any elastic flag routes supervision to the ElasticDriver
+    # (generation-based re-rendezvous) instead of the fixed fan-out.
+    if args.host_discovery_script or args.min_np or args.max_np or args.resume:
+        return _run_elastic(args, command, env, argv)
+    if args.num_proc is None:
+        print("hvdrun: -np is required", file=sys.stderr)
+        return 2
 
     if args.hostfile:
         hosts = launcher.parse_hostfile(args.hostfile)

@@ -28,8 +28,9 @@ The engine records its ``hvd_request_*``/``hvd_serve_*`` metrics and
 request spans through the live taps (``HOROVOD_METRICS``,
 ``HOROVOD_TRACE``); ``python -m horovod_tpu_torch.run --serve`` launches
 the demo. A fault plan (``HOROVOD_FAULT_PLAN``) drives the ``request`` and
-``replica`` taps; the autoscaler is ROADMAP A12b-ii, the serving simulator
-A13.
+``replica`` taps. A ``scale_policy`` (``run/selfdrive.ServeScalePolicy``)
+drives :meth:`ServeEngine.autoscale_beat`; the serving simulator is
+ROADMAP A13.
 
 Entry points: :func:`serve` (in process), ``python -m
 horovod_tpu_torch.serve`` (the HTTP demo).
@@ -231,10 +232,6 @@ def serve(
     from ..parallel.tp import MODEL_AXIS
     from ..train import make_decode_step
 
-    if scale_policy is not None:
-        raise NotImplementedError(
-            "the serving autoscaler (ServeScalePolicy) is not ported yet: ROADMAP A12b-ii"
-        )
     cfg = config if config is not None else Config.from_env()
     dtype = torch.float32 if dtype is None else dtype
     device = resolve_device(device)
@@ -292,6 +289,8 @@ def serve(
         queue_bound=cfg.serve_queue_bound,
         max_context=max_context,
         replicas=cfg.serve_replicas,
+        slo_ms=cfg.serve_slo_ms,
+        scale_policy=scale_policy,
         cache_dtype=dtype,
         device=device,
     )

@@ -5,8 +5,9 @@ its HTTP frontend on ``HOROVOD_SERVE_PORT`` (0 picks a free port) and
 serves until interrupted; the counterpart of
 ``horovod_tpu/serve/__main__.py``. The geometry comes from the same ``HVD_SERVE_DEMO_*``
 variables (vocab 128, d_model 64, 4 heads, 2 layers, max_len 128, seed 0
-by default); every serving knob from the ``HOROVOD_SERVE_*`` environment.
-The autoscaler the reference runs beside it is ROADMAP A12b-ii.
+by default); every serving knob from the ``HOROVOD_SERVE_*`` environment,
+the autoscaler's (``ServeScalePolicy.from_env``) too, with one autoscale
+beat a second.
 
     python -m horovod_tpu_torch.serve                 # on the card
     python -m horovod_tpu_torch.serve --device cpu
@@ -29,6 +30,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..models.transformer import TransformerLM
+    from ..run.selfdrive import ServeScalePolicy
     from ..utils.convert import param_tree
     from . import serve
 
@@ -41,7 +43,8 @@ def main(argv=None) -> int:
 
     model = TransformerLM(vocab, d_model=d_model, n_heads=n_heads, n_layers=n_layers,
                           max_len=max_len, dtype=torch.float32, device=args.device, seed=seed)
-    handle = serve(param_tree(model), n_heads=n_heads, http=True, device=args.device)
+    handle = serve(param_tree(model), n_heads=n_heads, http=True, device=args.device,
+                   scale_policy=ServeScalePolicy.from_env())
     print(
         f"hvd.serve: listening on :{handle.port} "
         f"(replicas={handle.engine.live_replicas()}, "
@@ -52,6 +55,7 @@ def main(argv=None) -> int:
     try:
         while True:
             time.sleep(1.0)
+            handle.engine.autoscale_beat()
     except KeyboardInterrupt:
         pass
     finally:

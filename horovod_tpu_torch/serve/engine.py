@@ -29,9 +29,15 @@ host synchronization a step is the read-back of the ``[B]`` next tokens.
 The metrics (``hvd_request_*``, ``hvd_serve_*``), trace (``hvd_request``
 spans) and fault (``request``, ``replica``) taps sit at the reference's
 sites, each live when its knob is set (``HOROVOD_FAULT_PLAN`` for the
-fault plan). The autoscaler (``scale_policy``, ``autoscale_beat``, the
-SLO-burn accounting and the scale-in verb ``retire_replica``) is ROADMAP
-A12b-ii: passing a policy raises.
+fault plan).
+
+The autoscaler: every completion is held to ``slo_ms``, and
+:meth:`ServeEngine.autoscale_beat` feeds the queue depth and the SLO
+violations since the last beat to a ``run/selfdrive.ServeScalePolicy``,
+then applies its verdict through ``elastic.apply_serve_scale``: scale-out
+adds a replica (:meth:`add_replica`, a cache and a CUDA stream of its own),
+scale-in retires the newest (:meth:`retire_replica`: it finishes its batch,
+then leaves).
 """
 
 from __future__ import annotations
@@ -87,7 +93,7 @@ class _Replica:
         self.stream = stream
         self.pages: Dict[str, List[int]] = {}
         self.thread: Optional[threading.Thread] = None
-        self.retired = False  # set when the replica is killed
+        self.retired = False  # killed, or retired by a scale-in
         self.alive = True
 
 
@@ -114,15 +120,11 @@ class ServeEngine:
         queue_bound: int = 1024,
         max_context: int = 128,
         replicas: int = 1,
+        slo_ms: float = 500.0,
         scale_policy: Any = None,
         cache_dtype: Any = None,
         device=None,
     ):
-        if scale_policy is not None:
-            raise NotImplementedError(
-                "the serving autoscaler (ServeScalePolicy, autoscale_beat) is not "
-                "ported yet: ROADMAP A12b-ii"
-            )
         self.params = params
         self.decode_step = decode_step
         self.device = resolve_device(device)
@@ -137,6 +139,8 @@ class ServeEngine:
         self.num_pages = int(num_pages)
         self.max_batch_size = int(max_batch_size)
         self.max_context = int(max_context)
+        self.slo_s = float(slo_ms) / 1000.0
+        self.scale_policy = scale_policy
         # The width of a batch's page table (the step's input).
         self.table_width = max(
             1, -(-self.max_context // self.page_size)
@@ -154,6 +158,9 @@ class ServeEngine:
         self._next_id = 0
         self._stopping = False
         self._t0 = time.monotonic()
+        # Autoscale beat accumulators (drained by autoscale_beat()).
+        self._slo_violations_since = 0
+        self._completions_since = 0
         # Chaos observability: requests re-queued by a dead replica.
         self.requeues = 0
         # Occupancy accounting (bench --serve reports the mean) and the
@@ -203,6 +210,19 @@ class ServeEngine:
         rep.thread.start()
         self._set_replica_gauge()
         return idx
+
+    def retire_replica(self) -> Optional[int]:
+        """Gracefully retire the newest live replica (the autoscaler's
+        scale-in verb): it finishes its current batch, then exits.
+        Refuses to retire the last replica."""
+        with self._cond:
+            live = [r for r in self._replicas if r.alive and not r.retired]
+            if len(live) <= 1:
+                return None
+            rep = live[-1]
+            rep.retired = True
+            self._cond.notify_all()
+            return rep.idx
 
     def replica_caches(self) -> List[Any]:
         """Each replica's decode state, by replica index."""
@@ -451,6 +471,10 @@ class ServeEngine:
                 replica=None if rep is None else rep.idx,
             )
             self._done[req.id] = comp
+            if outcome == "ok":
+                self._completions_since += 1
+                if latency > self.slo_s:
+                    self._slo_violations_since += 1
             self._cond.notify_all()
         if _metrics.ACTIVE:
             _metrics.TAP.observe("hvd_request_latency_seconds", latency)
@@ -479,3 +503,31 @@ class ServeEngine:
     def _gauge(self, name: str, value: float) -> None:
         if _metrics.ACTIVE:
             _metrics.TAP.set(name, value)
+
+    # --------------------------------------------------------- autoscale
+    def autoscale_beat(self) -> Optional[Any]:
+        """Feed one beat to the ``ServeScalePolicy`` (queue depth, SLO
+        burn since the last beat) and APPLY its verdict: scale-out adds a
+        replica, scale-in retires one. Returns the decision (None without
+        a policy or a verdict)."""
+        if self.scale_policy is None:
+            return None
+        with self._cond:
+            depth = self._batcher.depth()
+            viol, comps = self._slo_violations_since, self._completions_since
+            self._slo_violations_since = 0
+            self._completions_since = 0
+        self.scale_policy.observe(depth, viol, comps)
+        decision = self.scale_policy.decide(self.live_replicas())
+        if decision is None:
+            return None
+        if _metrics.ACTIVE:
+            _metrics.TAP.inc(
+                "hvd_serve_scale_decisions_total", action=decision.action
+            )
+        # Applied through the elastic verbs, so serving resizes land in the
+        # same event ledger as training membership changes.
+        from .. import elastic as _elastic
+
+        _elastic.apply_serve_scale(self, decision)
+        return decision

@@ -4,8 +4,9 @@
     python -m horovod_tpu_torch.tools.elastic_parity --ranks 1      # one card (chip_smoke [elastic])
     python -m horovod_tpu_torch.tools.elastic_parity --smoke        # gloo ranks on the CPU
 
-The tool stands in for the elastic driver (ROADMAP A12b-ii) with a FIXED
-script of generations. In its own process it hosts the port's
+The tool stands in for the elastic driver (``run/elastic_driver.py``,
+held by ``tools/driver_parity``) with a FIXED script of generations: the
+check of the worker's half alone. In its own process it hosts the port's
 ``KVStoreServer`` and, for each generation, a ``TCPStore`` on a port the
 OS picks; it spawns one worker a slot with the elastic environment
 (``HOROVOD_ELASTIC=1``, ``HOROVOD_ELASTIC_WORKER_ID``,

@@ -8,8 +8,8 @@ Usage::
     python -m horovod_tpu_torch.tools.trace_merge <trace-dir> --postmortem [--window 10]
 
 ``<trace-dir>`` holds the ranks' windows (``trace.TAP.window()``, written
-by the job, e.g. ``tools/run_parity.py``; the elastic driver that collects
-them over the KV plane is ROADMAP A12b-ii) and the flight-recorder dumps
+by the job, e.g. ``tools/run_parity.py``, or collected over the KV plane
+by the elastic driver) and the flight-recorder dumps
 (``HOROVOD_TRACE_DIR``):
 ``rank.<r>.json`` windows + ``driver.json`` for the live view,
 ``flight.rank<r>.json`` / ``postmortem.json`` dumps for ``--postmortem``

@@ -3,9 +3,8 @@
 Same transport pattern as ``metrics/export.MetricsPusher``: workers PUSH
 their bounded span windows to the driver's KV rendezvous store (one
 small JSON PUT per interval, scope ``trace``, key ``rank.<rank>``); the
-driver never scrapes workers. The JAX package's elastic driver collects
-the windows (``ElasticDriver._trace_collect``; the port's is ROADMAP
-A12b-ii), persists them for ``trace/merge.py``, and feeds the per-step end
+driver never scrapes workers. The elastic driver collects the windows
+(``run/elastic_driver.ElasticDriver._trace_collect``), persists them for ``trace/merge.py``, and feeds the per-step end
 timestamps into :class:`StepSkewTracker` — the seam behind
 ``hvd_step_skew_seconds`` and ``hvd_straggler_total{rank}``.
 

@@ -15,7 +15,8 @@
   before the save, the quarantined and the readable snapshot.
 - The worker's view of the rendezvous: park and reattach against a KV
   server whose driver document changes epoch; a SIGTERM reaching
-  ``PreemptionInterrupt``; the failure filter; the refusals (A12b-ii, A13).
+  ``PreemptionInterrupt``; the failure filter; ``apply_serve_scale``'s verbs
+  and event lines against the JAX package's; the refusal (A13).
 """
 
 import copy
@@ -590,8 +591,46 @@ def test_rejoin_mode_and_refusals(monkeypatch):
     monkeypatch.setattr(elastic, "_rejoin_mode", None)
     assert elastic.rejoin_mode() == "respawn"
     monkeypatch.setattr(elastic, "_rejoin_mode", None)
-    with pytest.raises(NotImplementedError, match="A12b-ii"):
-        elastic.apply_serve_scale(None, types.SimpleNamespace(action="scale-out"))
+    # apply_serve_scale: scale-out adds a replica, scale-in retires one,
+    # each with the JAX package's event line; a refused retire is None.
+    import horovod_tpu.elastic as jelastic
+    from horovod_tpu.fault import injector as jinjector
+    from horovod_tpu.fault.plan import FaultPlan as JFaultPlan
+    from horovod_tpu_torch.fault import injector as pinjector
+    from horovod_tpu_torch.fault.plan import FaultPlan
+
+    class Engine:
+        def __init__(self):
+            self.live, self.calls = 1, []
+
+        def add_replica(self):
+            self.calls.append("add")
+            self.live += 1
+            return self.live - 1
+
+        def retire_replica(self):
+            self.calls.append("retire")
+            if self.live <= 1:
+                return None
+            self.live -= 1
+            return self.live
+
+    out = types.SimpleNamespace(action="scale-out", reason="queue-depth", depth=20.0,
+                                slo_burn=0.0)
+    back = types.SimpleNamespace(action="scale-in", reason="idle", depth=0.0, slo_burn=0.0)
+    lines = []
+    for mod, inj, plan in ((elastic, pinjector, FaultPlan), (jelastic, jinjector, JFaultPlan)):
+        inj.install_plan(plan.from_json('{"seed": 1, "faults": []}'))
+        try:
+            eng = Engine()
+            got = [mod.apply_serve_scale(eng, d) for d in (out, back, back, None)]
+            assert got == [1, 1, None, None] and eng.calls == ["add", "retire", "retire"]
+            lines.append([(e["site"], e["hit"], e["action"], e["detail"]) for e in inj.events()])
+        finally:
+            inj.install_plan(None)
+    assert lines[0] == lines[1] == [
+        ("replica", 1, "serve-promote", "reason=queue-depth depth=20.0 burn=0.000"),
+        ("replica", 1, "serve-retire", "reason=idle depth=0.0 burn=0.000")]
     assert elastic.adopted_step_kwargs() is None
     monkeypatch.setattr(elastic, "_adopted_replan", {"id": 1, "config": {}})
     with pytest.raises(NotImplementedError, match="A13"):
@@ -625,11 +664,14 @@ def _apply_and_promote(kv, world, monkeypatch):
             os.environ["TORCHELASTIC_USE_AGENT_STORE"]) == ("4321", "1", "True")
     assert ctx.gen == 1
     assert not ctx.apply(dict(world, assignments={}))
-    monkeypatch.setenv("HOROVOD_ELASTIC_SPARE", "1")
+    # Written directly, as apply() writes: the caller restores os.environ
+    # whole (a monkeypatch.setenv here would note apply's value and put it
+    # back after that restore, leaking HOROVOD_RANK into later tests).
+    os.environ["HOROVOD_ELASTIC_SPARE"] = "1"
     monkeypatch.setattr(elastic, "SPARE_POLL_S", 0.02)
     _put(kv, "driver", {"epoch": 1, "gen": 2})
     _put(kv, "world", world)
-    monkeypatch.setenv("HOROVOD_RANK", "9")
+    os.environ["HOROVOD_RANK"] = "9"
 
     def promote():
         time.sleep(0.2)

@@ -154,6 +154,40 @@ def test_launcher_and_observability_load_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_elastic_driver_modules_and_cli_load_no_jax():
+    """The elastic driver, its journal and the self-driving policies, and
+    a ``python -m horovod_tpu_torch.run --min-np 1 ...`` process that runs
+    a job under the driver, leave jax, flax, optax and the JAX package out
+    of sys.modules."""
+    code = (
+        "import runpy, sys\n"
+        "import horovod_tpu_torch.run.elastic_driver, horovod_tpu_torch.run.journal, "
+        "horovod_tpu_torch.run.selfdrive, horovod_tpu_torch.tools.driver_parity, "
+        "horovod_tpu_torch.tools.serve_smoke\n"
+        "sys.argv = ['hvdrun', '-np', '1', '--min-np', '1', '--max-np', '1', 'true']\n"
+        "try:\n"
+        "    runpy.run_module('horovod_tpu_torch.run', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "assert 'horovod_tpu_torch.run.elastic_driver' in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "generation 1: size 1" in proc.stderr, proc.stderr
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_reference():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|horovod_tpu)\b|horovod_tpu\.",
+                         re.MULTILINE)
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        text = f.read()
+    assert "import jax" not in text and not pattern.search(text)
+
+
 def test_fault_and_probe_modules_load_no_jax():
     """The fault plans, the ring NIC probe and the chaos tool, imported and
     a plan parsed and fired once, leave jax, flax, optax and the JAX

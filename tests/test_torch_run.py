@@ -20,9 +20,10 @@
   failing rank ends the job with its code and stops its peer;
   ``run_parity --smoke`` (``run()`` returning both ranks' records); a
   ``localhost`` + fake ``hosta`` hostfile through an ssh PATH shim;
-- what is not ported refuses, naming its ROADMAP item, a job over two
-  remote hosts runs the ring NIC probe, and ``init`` refuses more local
-  ranks than visible cards.
+- each elastic flag reaches the ``ElasticDriver`` with the arguments the
+  JAX CLI routes it with (``--auto-resume`` through the supervisor);
+  ``--tpu-pod`` refuses, a job over two remote hosts runs the ring NIC
+  probe, and ``init`` refuses more local ranks than visible cards.
 """
 
 import dataclasses
@@ -496,13 +497,71 @@ def test_hostfile_with_a_remote_host_through_an_ssh_shim(tmp_path):
 # --- refusals ----------------------------------------------------------------------
 
 
+def _capture_elastic_routing(monkeypatch, run_mod, driver_mod):
+    """Replace ``driver_mod.ElasticDriver`` with a recorder of its keyword
+    arguments; the first recorded driver's ``run()`` exits 67 (a driver
+    crash, which the supervisor resumes), every later one 0."""
+    seen = []
+
+    class Recorder:
+        def __init__(self, command, **kw):
+            seen.append(dict(kw, command=list(command)))
+
+        def run(self):
+            return 67 if len(seen) == 1 else 0
+
+    monkeypatch.setattr(driver_mod, "ElasticDriver", Recorder)
+    real = run_mod._supervise_driver
+    monkeypatch.setattr(run_mod, "_supervise_driver",
+                        lambda argv: real(argv, call=run_mod.run_commandline))
+    return seen
+
+
+# Each elastic flag, with --min-np where the flag alone does not route the
+# job to the driver (the JAX routing: a discovery script, --min-np,
+# --max-np or --resume).
 @pytest.mark.parametrize("flags", [["--min-np", "2"], ["--max-np", "4"],
-                                   ["--host-discovery-script", "d.sh"], ["--spares", "1"],
-                                   ["--resume"], ["--auto-resume"],
-                                   ["--blacklist-cooldown", "5"]])
-def test_elastic_flags_refuse_naming_a12b(flags, capsys):
-    assert port_run.run_commandline(["-np", "2", *flags, "python", "x.py"]) == 2
-    assert "ROADMAP A12b-ii" in capsys.readouterr().err
+                                   ["--host-discovery-script", "d.sh"],
+                                   ["--min-np", "1", "--spares", "1"],
+                                   ["--resume"], ["--min-np", "2", "--auto-resume"],
+                                   ["--min-np", "2", "--blacklist-cooldown", "5"]])
+def test_elastic_flags_refuse_naming_a12b(flags, monkeypatch):
+    """Each elastic flag reaches ``ElasticDriver`` with the arguments the
+    JAX CLI routes it with (the elastic driver was refused before it was
+    ported; the test keeps its name). ``--auto-resume`` runs the driver
+    under the supervisor, which resumes the crashed driver with
+    ``--resume`` placed before the training command (the JAX supervisor
+    appends it after, where the command swallows it)."""
+    import horovod_tpu.run.elastic_driver as jax_ed
+
+    import horovod_tpu_torch.run.elastic_driver as port_ed
+
+    argv = ["-np", "2", "--elastic-timeout", "30", *flags, "python", "x.py"]
+    port_seen = _capture_elastic_routing(monkeypatch, port_run, port_ed)
+    jax_seen = _capture_elastic_routing(monkeypatch, jax_run, jax_ed)
+    # The recorded driver crashes (67); under --auto-resume the supervisor
+    # resumes it and the job ends 0.
+    rc = 0 if "--auto-resume" in flags else 67
+    assert port_run.run_commandline(list(argv)) == rc
+    assert jax_run.run_commandline(list(argv)) == rc
+    for kw in port_seen + jax_seen:
+        kw.pop("env")
+    assert port_seen[0] == jax_seen[0]
+    assert port_seen[0]["command"] == ["python", "x.py"]
+    assert port_seen[0]["elastic_timeout"] == 30.0
+    given = {"--min-np": ("min_np", int), "--max-np": ("max_np", int),
+             "--host-discovery-script": ("discovery_script", str), "--spares": ("spares", int),
+             "--blacklist-cooldown": ("blacklist_cooldown", float)}
+    for flag, value in zip(flags, flags[1:]):
+        if flag in given:
+            key, cast = given[flag]
+            assert port_seen[0][key] == cast(value), (flag, port_seen[0])
+    assert port_seen[0]["resume"] is ("--resume" in flags)
+    if "--auto-resume" in flags:
+        # The supervisor's second driver resumes the first's journal.
+        assert [kw["resume"] for kw in port_seen] == [False, True]
+        assert port_seen[1]["command"] == ["python", "x.py"]
+        assert jax_seen[1]["command"] == ["python", "x.py", "--resume"]
 
 
 def test_tpu_pod_and_nic_probe_refuse(monkeypatch, capsys):

@@ -17,7 +17,9 @@ f32, on the CPU:
   against the reference's one-request-at-a-time full recompute
   (``_reference_greedy`` of tests/test_serve.py), page back-pressure, a
   replica killed mid-batch (every request answered once), the request
-  refusals, the autoscaler's refusal (ROADMAP A12);
+  refusals; the autoscale beat on live traffic (1 -> 2 -> 1 replicas, the
+  reference's tokens) and the same beats into the JAX engine and the
+  port's (the same verdicts and event lines);
 - the HTTP frontend on port 0 (200 with the engine's tokens, /healthz, 400,
   404, and /metrics 200 with a Prometheus exposition) and the ``python -m
   horovod_tpu_torch.serve`` demo.
@@ -499,17 +501,100 @@ def test_engine_refusals_match_the_reference(weights):
     assert messages[1][0] == "empty prompt" and "duplicate request id" in messages[1][3]
 
 
-def test_autoscaler_and_card_default_refuse(weights, monkeypatch):
+def test_autoscaler_and_card_default_refuse(weights, reference, monkeypatch):
+    """The autoscale beat on live traffic (the autoscaler refused before it
+    was ported; the test keeps its name): a burst held behind the first
+    batch scales 1 -> 2 replicas, the tokens stay the reference's, and
+    quiet beats scale back to 1, each verb on the event ledger. The
+    entry points still refuse a machine without a card."""
+    import threading
+
+    from horovod_tpu_torch.fault import injector as pinjector
+    from horovod_tpu_torch.fault.plan import FaultPlan
+    from horovod_tpu_torch.run.selfdrive import ServeScalePolicy
+
     _, tparams = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _port_engine(tparams, scale_policy=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        port_serve.serve(tparams, n_heads=HEADS, scale_policy=object(), device="cpu")
+    prompts, want = reference
+    inner = hvd.make_decode_step(n_heads=HEADS, dtype=torch.float32)
+    gate = threading.Event()
+
+    def held(*a):
+        gate.wait(60)
+        return inner(*a)
+
+    policy = ServeScalePolicy(scale_out_depth=2.0, scale_in_depth=0.5, window=1, cooldown=0,
+                              max_replicas=2)
+    engine = _port_engine(tparams, step=held, scale_policy=policy, slo_ms=60_000.0)
+    pinjector.install_plan(FaultPlan.from_json('{"seed": 1, "faults": []}'))
+    try:
+        with engine:
+            rids = [engine.submit(p, max_tokens=4) for p in prompts]
+            decision = engine.autoscale_beat()  # the first batch holds the rest
+            assert decision.action == "scale-out" and decision.reason == "queue-depth"
+            assert engine.live_replicas() == 2
+            gate.set()
+            engine.drain(timeout=120.0)
+            got = [engine.result(r) for r in rids]
+            decision = engine.autoscale_beat()
+            assert decision.action == "scale-in" and decision.reason == "idle"
+            assert engine.live_replicas() == 1
+            assert engine.autoscale_beat() is None  # at min_replicas
+        events = [(e["site"], e["action"]) for e in pinjector.events()]
+    finally:
+        pinjector.install_plan(None)
+    assert [list(c.tokens) for c in got] == want
+    assert events == [("replica", "serve-promote"), ("replica", "serve-retire")]
+    assert engine._completions_since == 0  # drained by the beat
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_serve.serve(tparams, n_heads=HEADS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_serve.ServeEngine(tparams, None, **ENGINE_KW)
+
+
+def test_autoscale_beats_match_the_jax_engine(weights):
+    """The same beats (queue depth, SLO violations, completions) into the
+    JAX engine and the port's, each with its own ServeScalePolicy: the same
+    verdicts, the same replica counts after each, and the same event
+    lines."""
+    from horovod_tpu.fault import injector as jinjector
+    from horovod_tpu.fault.plan import FaultPlan as JFaultPlan
+    from horovod_tpu.run.selfdrive import ServeScalePolicy as JPolicy
+    from horovod_tpu_torch.fault import injector as pinjector
+    from horovod_tpu_torch.fault.plan import FaultPlan
+    from horovod_tpu_torch.run.selfdrive import ServeScalePolicy
+
+    params, tparams = weights
+    beats = [(0, 0, 0), (9, 0, 2), (12, 1, 4), (9, 0, 3), (3, 6, 10), (1, 0, 8), (0, 0, 5),
+             (0, 0, 6), (0, 0, 0), (0, 0, 1), (0, 0, 0), (0, 0, 0)]
+    kw = dict(scale_out_depth=8.0, scale_in_depth=1.0, slo_burn=0.25, window=2, cooldown=1,
+              max_replicas=3)
+    runs = []
+    for engine, inj, plan in (
+            (ref_serve.ServeEngine(params, ref_make_decode_step(n_heads=HEADS, dtype=jnp.float32),
+                                   **ENGINE_KW, cache_dtype=jnp.float32,
+                                   scale_policy=JPolicy(**kw)), jinjector, JFaultPlan),
+            (_port_engine(tparams, scale_policy=ServeScalePolicy(**kw)), pinjector, FaultPlan)):
+        inj.install_plan(plan.from_json('{"seed": 1, "faults": []}'))
+        trail = []
+        try:
+            with engine:
+                for depth, viol, done in beats:
+                    engine._batcher.depth = lambda d=depth: d
+                    with engine._cond:
+                        engine._slo_violations_since = viol
+                        engine._completions_since = done
+                    d = engine.autoscale_beat()
+                    trail.append(None if d is None else (d.action, d.reason, round(d.depth, 6),
+                                                         round(d.slo_burn, 6)))
+                    trail.append(engine.live_replicas())
+            runs.append((trail, [(e["site"], e["hit"], e["action"], e["detail"])
+                                 for e in inj.events()]))
+        finally:
+            inj.install_plan(None)
+    assert runs[0] == runs[1]
+    actions = [t[0] for t in runs[1][0] if isinstance(t, tuple)]
+    assert actions == ["scale-out", "scale-out", "scale-in", "scale-in"], runs[1]
 
 
 def test_serve_reads_geometry_and_env(weights, reference, monkeypatch):

@@ -301,3 +301,88 @@ def run_tool(module: str, args, timeout: float = 300.0) -> dict:
         raise AssertionError(f"{module} {args} exited {proc.returncode}:\n"
                              f"{proc.stdout[-6000:]}\n{proc.stderr[-4000:]}")
     return json.loads(lines[-1])
+
+
+# --- jobs under the port's elastic driver ------------------------------------------
+
+# A worker of an elastic job on the CPU: a 4-float state, one Sum allreduce
+# of ones a step (so w == step * size while every generation has the same
+# size), a commit a step. Each record goes to <TEST_OUT>/<worker id>.jsonl.
+# TEST_STEPS steps (default 6), TEST_STEP_S seconds of sleep a step;
+# TEST_FLAG_AT=<step> writes <TEST_OUT>/flag when rank 0 reaches that step
+# in generation 1 (a discovery script can read it).
+ELASTIC_WORKER = '''
+import json, os, sys, time
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import elastic
+
+out = os.environ["TEST_OUT"]
+wid = os.environ["HOROVOD_ELASTIC_WORKER_ID"]
+steps = int(os.environ.get("TEST_STEPS", "6"))
+pause = float(os.environ.get("TEST_STEP_S", "0"))
+flag_at = int(os.environ.get("TEST_FLAG_AT", "0"))
+hvd.init(device="cpu")
+state = elastic.TensorState(w=torch.zeros(4), step=0)
+
+
+def log(**rec):
+    rec.update(wid=wid, pid=os.getpid(), gen=int(os.environ.get("HOROVOD_ELASTIC_GEN", "0")),
+               rank=hvd.rank(), size=hvd.size(), t=time.time())
+    with open(os.path.join(out, wid.replace(":", "_") + ".jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\\n")
+
+
+log(event="start")
+
+
+@elastic.run
+def train(state):
+    while state.step < steps:
+        g = hvd.allreduce(torch.ones(4), op=hvd.Sum, name="g")
+        state.w += g
+        state.step += 1
+        log(event="step", step=state.step, w=float(state.w[0]))
+        if flag_at and state.step == flag_at and hvd.rank() == 0:
+            open(os.path.join(out, "flag"), "w").close()
+        time.sleep(pause)
+        state.commit()
+    return state.step
+
+
+train(state)
+log(event="end", w=float(state.w[0]), step=state.step)
+hvd.shutdown()
+'''
+
+
+def run_port_elastic(args, workdir, env=None, timeout: float = 120.0, script: str = None):
+    """``python -m horovod_tpu_torch.run <args> --output-dir <workdir>/od
+    python <worker>`` from the repository root, the worker being
+    :data:`ELASTIC_WORKER` unless ``script`` is given. Returns the completed
+    process and each worker id's records."""
+    import json
+
+    workdir = str(workdir)
+    out = os.path.join(workdir, "out")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(workdir, "worker.py")
+    with open(path, "w") as f:
+        f.write(script or ELASTIC_WORKER)
+    full = dict(os.environ)
+    for k in [k for k in full if k.startswith(("HOROVOD_", "MASTER_", "TORCHELASTIC_"))]:
+        full.pop(k)
+    full["PYTHONPATH"] = os.pathsep.join([REPO, full.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    full.update({"OMP_NUM_THREADS": "1", "TEST_OUT": out,
+                 "HOROVOD_FAULT_EVENT_LOG": os.path.join(workdir, "events.jsonl")})
+    full.update(env or {})
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", *args, "--output-dir",
+         os.path.join(workdir, "od"), sys.executable, path],
+        env=full, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    recs = {}
+    for fn in sorted(os.listdir(out)):
+        if fn.endswith(".jsonl"):
+            with open(os.path.join(out, fn)) as f:
+                recs[fn[:-len(".jsonl")].replace("_", ":", 1)] = [json.loads(l) for l in f]
+    return proc, recs
