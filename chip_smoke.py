@@ -121,7 +121,18 @@ Phases, each printed as it ends:
    zero1, quantized and nonfinite="skip", in turns with the plain steps, 6
    steps each: finite, falling losses, B1 launched for every step, every
    streamed group launched in the backward, the poisoned step's
-   parameters bitwise unchanged.
+   parameters bitwise unchanged; and the DP step with
+   ``hierarchical="auto"`` (``dp-auto``, and streamed, ``dp-auto-overlap``),
+   every bucket's plan selected on the one-card model (all ``flat``), the
+   losses within 1e-6 of ``dp-plain``'s (as ``dp-hierarchical``'s).
+   Then ``[topo]``: the interconnect model (``h100`` detected), the plans
+   ``collective_plan`` and the (cross 2, local 2) grid's model select at 1
+   KiB, 1 MiB and 64 MiB, and the ``ring``, ``recursive-halving``,
+   ``split`` and ``two-level`` allreduce schedules on [hier]'s virtual grid
+   at GPT-2-small's first and last f32 buckets, f32 and bf16, SUM, AVERAGE,
+   MIN and MAX: ranks bitwise the same, MIN/MAX bitwise the flat result,
+   sums within n roundings of a float64 sum, each schedule's bytes a level
+   beside its plan's ``bytes_per_hop``.
 
 11. ``[cnn]``: the image-classification path, which reaches no TPU kernel
    (cuDNN convolutions and BatchNorm, cuBLAS for the head): a narrow f32
@@ -1647,13 +1658,15 @@ class VirtualRing:
     device copy of what the neighbour sent (the same stream for all ranks,
     so the copy follows the kernel that made the data)."""
 
-    def __init__(self, rank, n, mailbox, barrier, hops=None):
+    def __init__(self, rank, n, mailbox, barrier, hops=None, sent=None):
         self.rank, self.n, self.mailbox, self.barrier = rank, n, mailbox, barrier
-        self.hops = hops
+        self.hops, self.sent = hops, sent
 
     def post(self, sends):
         if self.hops is not None:
             self.hops[0] += 1
+        if self.sent is not None:
+            self.sent[0] += sum(t.numel() * t.element_size() for t, _ in sends)
         self.mailbox[self.rank] = sends
         self.barrier.wait()
         recvs = []
@@ -1706,10 +1719,20 @@ class VirtualHop:
     theirs with device ops on the one stream all threads share, so a read
     follows the kernel that made the data. ``hops[0]`` counts the
     primitives (the int8 ring's posts too) its grid rank ran: the rank's
-    virtual hops."""
+    virtual hops. ``sent[0]``, where given, counts the bytes this rank's
+    primitives put on the level: what a ring of the level moves a rank for
+    a collective (2(n-1)/n of an allreduce's payload, (n-1)/n of a
+    reduce-scatter's and an all-to-all's, n-1 times an all-gather's shard,
+    a broadcast's payload) and the exact bytes of a point-to-point
+    exchange or ring post."""
 
-    def __init__(self, rank, n, board, hops):
+    def __init__(self, rank, n, board, hops, sent=None):
         self.rank, self.n, self.board, self.hops = rank, n, board, hops
+        self.sent = sent
+
+    def _count(self, x, share):
+        if self.sent is not None:
+            self.sent[0] += int(x.numel() * x.element_size() * share)
 
     def _all(self, x):
         self.hops[0] += 1
@@ -1724,6 +1747,7 @@ class VirtualHop:
         import torch
         from horovod_tpu_torch.common.types import ReduceOp
 
+        self._count(x, 2 * (self.n - 1) / self.n)
         got = torch.stack(self._all(x))
         op = ReduceOp.SUM if op is None else op
         return got.sum(0) if op == ReduceOp.SUM else got.amin(0) if op == ReduceOp.MIN \
@@ -1732,38 +1756,47 @@ class VirtualHop:
     def reduce_scatter(self, x):
         import torch
 
+        self._count(x, (self.n - 1) / self.n)
         return torch.stack(self._all(x)).sum(0).chunk(self.n)[self.rank].clone()
 
     def all_gather(self, x):
         import torch
 
+        self._count(x, self.n - 1)
         return torch.cat(self._all(x))
 
     def broadcast(self, x, root):
+        self._count(x, 1)
         return self._all(x)[root].clone()
 
     def all_to_all(self, x):
         import torch
 
+        self._count(x, (self.n - 1) / self.n)
         return torch.cat([g.chunk(self.n)[self.rank] for g in self._all(x)])
 
     def exchange(self, x, peer):
+        self._count(x, 1)
         return self._all(x)[peer].clone()
 
     @property
     def ring(self):
         return VirtualRing(self.rank, self.n, self.board["ring"], self.board["ring_barrier"],
-                           self.hops)
+                           self.hops, self.sent)
 
 
-def play_grid(cross, local, fn):
+def play_grid(cross, local, fn, sent=None):
     """Run ``fn(levels)`` for the cross * local virtual ranks of a (cross,
     local) grid in threads, rank = c * local + l; ``levels`` has ``rank``,
-    ``cross`` and ``local`` (the rank's hops) and ``flat`` (one hop over all
-    ranks). Returns (results by rank, virtual hops a rank ran)."""
+    ``cross`` and ``local`` (the rank's hops), ``flat`` (one hop over all
+    ranks) and ``grid`` (the (cross, local) pair with ``flat`` as its
+    flattened level, the compositor's ``AxisGroups``). Returns (results by
+    rank, virtual hops a rank ran); a dict ``sent`` gets rank 0's bytes on
+    each level (``VirtualHop``)."""
     import threading
 
     import torch
+    from horovod_tpu_torch.ops.collectives import AxisGroups
 
     n = cross * local
     boards = []
@@ -1778,14 +1811,16 @@ def play_grid(cross, local, fn):
     local_boards = [board(local) for _ in range(cross)]
     flat_board = board(n)
     hops = [[0] for _ in range(n)]
+    bytes_on = [{k: [0] for k in ("cross", "local", "flat")} for _ in range(n)]
     results, errors = [None] * n, []
 
     def body(r):
         c, l = divmod(r, local)
         levels = types.SimpleNamespace(
-            rank=r, cross=VirtualHop(c, cross, cross_boards[l], hops[r]),
-            local=VirtualHop(l, local, local_boards[c], hops[r]),
-            flat=VirtualHop(r, n, flat_board, hops[r]))
+            rank=r, cross=VirtualHop(c, cross, cross_boards[l], hops[r], bytes_on[r]["cross"]),
+            local=VirtualHop(l, local, local_boards[c], hops[r], bytes_on[r]["local"]),
+            flat=VirtualHop(r, n, flat_board, hops[r], bytes_on[r]["flat"]))
+        levels.grid = AxisGroups((levels.cross, levels.local), flat=levels.flat)
         try:
             results[r] = fn(levels)
         except BaseException as e:      # noqa: BLE001 - reported below
@@ -1802,6 +1837,8 @@ def play_grid(cross, local, fn):
     if errors:
         raise errors[0]
     torch.cuda.synchronize()
+    if sent is not None:
+        sent.update({k: v[0] for k, v in bytes_on[0].items()})
     return results, hops[0][0]
 
 
@@ -1811,6 +1848,8 @@ HIER_SKIP_AT = 2                 # the step the skip variant's batch is made non
 HIER_MODELS = {                  # name: (composed, make_train_step options)
     "dp-plain": (False, {}),
     "dp-hierarchical": (False, dict(hierarchical=True)),
+    "dp-auto": (False, dict(hierarchical="auto")),
+    "dp-auto-overlap": (False, dict(hierarchical="auto", overlap=True)),
     "tp-plain": (True, {}),
     "tp-overlap": (True, dict(overlap=True)),
     "tp-zero1": (True, dict(zero1=True)),
@@ -2011,7 +2050,21 @@ def phase_hier(card):
         check(launches == {"fwd": want, "bwd": want}, f"[hier] flash launches {launches}")
         check(runs["dp-hierarchical"]["step"].optimizer._hierarchical,
               "dp-hierarchical: the step does not reduce two-level")
-        for base, names in (("dp-plain", ["dp-hierarchical"]),
+        for name in ("dp-hierarchical", "dp-auto", "dp-auto-overlap"):
+            # One card: every level has one rank, so the reductions are
+            # copies and the losses are dp-plain's.
+            rel = max(abs(a - b) / abs(b) for a, b in zip(runs[name]["losses"],
+                                                          runs["dp-plain"]["losses"]))
+            check(rel <= 1e-6, f"{name}: losses {rel:.3e} from dp-plain's (> 1e-6)")
+            opt = runs[name]["step"].optimizer
+            print(f"[hier] {name}: losses within {rel:.3e} of dp-plain's; "
+                  f"{'plan selection' if opt._hierarchical == 'planned' else 'two-level'}"
+                  + (f", the algorithm selected a bucket (bytes: algorithm) {opt.selected_plans}"
+                     if opt._hierarchical == "planned" else ""), flush=True)
+            if opt._hierarchical == "planned":
+                check(opt.selected_plans and set(opt.selected_plans.values()) == {"flat"},
+                      f"{name}: one card's plans {opt.selected_plans} are not all flat")
+        for base, names in (("dp-plain", ["dp-hierarchical", "dp-auto", "dp-auto-overlap"]),
                             ("tp-plain", ["tp-overlap", "tp-zero1", "tp-quantized", "tp-skip"])):
             plain = statistics.median(runs[base]["times"][1:])
             for name in [base] + names:
@@ -2031,6 +2084,107 @@ def phase_hier(card):
         hvd.shutdown()
     del runs
     torch.cuda.empty_cache()
+
+
+TOPO_PLAN_BYTES = (1 << 10, 1 << 20, 64 << 20)   # [topo]'s collective_plan payloads
+TOPO_ALGORITHMS = ("ring", "recursive-halving", "split", "two-level")
+
+
+def phase_topo(card):
+    """[topo]: the interconnect model and plan selection on the card. The
+    detected generation must be ``h100``; ``collective_plan`` for allreduce
+    at 1 KiB, 1 MiB and 64 MiB, and the plans of the (cross 2, local 2)
+    grid's model at the same payloads, are printed. Then ``ring``,
+    ``recursive-halving`` (both over the grid's flattened level), ``split``
+    and ``two-level`` ``lower_allreduce`` play on [hier]'s virtual grid at
+    GPT-2-small's first and last f32 gradient buckets, in f32 and bf16,
+    with SUM, AVERAGE, MIN and MAX: every rank's result bitwise the same,
+    MIN/MAX bitwise the flat result, sums within n roundings of the dtype
+    times sum_r |x_r|. Each schedule's virtual hops and the bytes it put on
+    each level (rank 0) are printed beside the ``bytes_per_hop`` of its
+    plan: the selected plan on the grid's model for split and two-level,
+    the flat model's candidate for the single-level schedules."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.types import ReduceOp
+    from horovod_tpu_torch.topo import compositor as C
+    from horovod_tpu_torch.topo import model as M
+
+    t_phase = time.perf_counter()
+    gen = M.detect_generation()
+    check(gen == "h100", f"[topo] detected generation {gen!r} on {card}, not 'h100'")
+    for nb in TOPO_PLAN_BYTES:
+        plan = hvd.collective_plan("allreduce", nb)
+        print(f"[topo] collective_plan(allreduce, {nb} B) on this one-card job: "
+              f"{plan['algorithm']}, model {plan['model']['generation']} "
+              f"{[(h['name'], h['size']) for h in plan['model']['hops']]}", flush=True)
+    grid_model = M.synthetic_model(HIER_LOCAL, cross=HIER_CROSS, generation=gen)
+    flat_model = M.synthetic_model(HIER_CROSS * HIER_LOCAL, generation=gen)
+    print(f"[topo] the grid's model: {grid_model.to_dict()}", flush=True)
+    for nb in TOPO_PLAN_BYTES:
+        plan = C.select_plan(grid_model, "allreduce", nb)
+        print(f"[topo] grid plan, allreduce {nb} B: {plan.algorithm}, {plan.cost_us:.2f} us "
+              f"modelled, bytes_per_hop {plan.bytes_per_hop}, split_bytes "
+              f"{list(plan.split_bytes)}", flush=True)
+
+    n = HIER_CROSS * HIER_LOCAL
+    sizes = _ring_buckets()
+    gen_rng = torch.Generator(device="cuda").manual_seed(13)
+    worst = {}
+    for i in (0, len(sizes) - 1):
+        base = torch.randn(n, sizes[i], device="cuda", generator=gen_rng) * 1e-2
+        nbytes = sizes[i] * 4
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            xs = base.to(dtype)
+            unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+            bound = n * unit * xs.double().abs().sum(0)
+            exact = xs.double().sum(0)
+            grid_plan = C.select_plan(grid_model, "allreduce", nbytes)
+            frac = grid_plan.split_bytes[0] / grid_plan.nbytes if grid_plan.split_bytes else \
+                C.split_fractions(grid_model)[0]
+            for algo in TOPO_ALGORITHMS:
+                for op in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.MIN, ReduceOp.MAX):
+                    sent = {}
+                    t0 = time.perf_counter()
+                    out, hops = play_grid(HIER_CROSS, HIER_LOCAL, lambda lv: C.lower_allreduce(
+                        xs[lv.rank], lv.grid, op=op, algorithm=algo,
+                        split_fraction=frac if algo == "split" else None), sent=sent)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    for r in range(n):
+                        check(out[r].dtype == dtype and torch.equal(out[r], out[0]),
+                              f"[topo] {algo} {op.name} {tag}: rank {r} differs from rank 0")
+                    if op in (ReduceOp.MIN, ReduceOp.MAX):
+                        want = xs.amin(0) if op == ReduceOp.MIN else xs.amax(0)
+                        check(torch.equal(out[0], want),
+                              f"[topo] {algo} {op.name} {tag}: not bitwise the flat result")
+                        continue
+                    scale = n if op == ReduceOp.AVERAGE else 1
+                    err = (out[0].double() * scale - exact).abs()
+                    check(bool((err <= bound).all()),
+                          f"[topo] {tag} bucket {i} {algo} {op.name}: "
+                          f"{int((err > bound).sum())} elements past n roundings")
+                    key = f"{tag} {algo}"
+                    worst[key] = max(worst.get(key, 0.0),
+                                     float((err / bound.clamp_min(1e-30)).max()))
+                    if op != ReduceOp.SUM or dtype != torch.float32:
+                        continue
+                    model = grid_model if algo in ("split", "two-level") else flat_model
+                    plan = C.candidate_plans(model, "allreduce", nbytes).get(algo)
+                    print(f"[topo] bucket {i} ({nbytes} B) {algo}: {hops} virtual hops a rank, "
+                          f"{ms:.2f} ms for the {n} ranks; bytes put on each level by rank 0 "
+                          f"{ {k: v for k, v in sent.items() if v} }; the plan's bytes_per_hop "
+                          f"{None if plan is None else plan.bytes_per_hop}"
+                          + (" (the grid's selected plan)" if plan is not None
+                             and plan.algorithm == grid_plan.algorithm
+                             and model is grid_model else ""), flush=True)
+            del xs
+        del base
+        torch.cuda.empty_cache()
+    print(f"[topo] every schedule held on {card}: ranks bitwise the same, MIN/MAX bitwise the "
+          f"flat result; worst share of the n-rounding bound: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def phase_tp_ring():
@@ -3947,6 +4101,7 @@ def main() -> int:
     tp_launches = phase_tp_ring()
     phase_tp_train()
     phase_hier(card)
+    phase_topo(card)
     phase_cnn()
     phase_bench(slice_tokens_per_s)
     phase_eager(card)

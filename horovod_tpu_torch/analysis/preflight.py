@@ -13,7 +13,7 @@ The eager half of ``horovod_tpu/analysis/preflight.py`` (``:40-63,
 Error-severity findings raise :class:`CollectiveSafetyError`; warnings are
 logged. The knob is read once and cached: set it before the first
 collective. The compiled-mode half (the gradient tree's bucket plan at
-trace time, sharding rules) is ROADMAP A13.
+trace time, sharding rules) is ROADMAP A13c.
 """
 
 from __future__ import annotations

@@ -123,7 +123,7 @@ UNPORTED = {
     "tp": "A6, the bench's composed DP x TP mode (the A9 step is timed by "
           "horovod_tpu_torch.tools.tp_parity --bench)",
     "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
-    "tuned": "A13 (tune/)",
+    "tuned": "A13b (tune/)",
 }
 # bench.py:1361-1364: the serving benchmark's smoke geometry.
 SERVE_SMOKE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=1, max_len=64)

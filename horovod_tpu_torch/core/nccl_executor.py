@@ -23,6 +23,16 @@ Semantics kept from the reference executor:
    or the autotuner's flags a plan carries) run the two-level schedules of
    ``topo/compositor.py`` when the job is a homogeneous grid with
    ``rank = cross_rank * local_size + local_rank``;
+ - the topology compositor's verdict: on such a grid every SUM/AVERAGE
+   allreduce of the job's own set consults the planner
+   (``_consult_planner``, recorded with ``where="eager"``) when
+   ``HOROVOD_TOPOLOGY_PLAN=auto`` or the metrics tap is on. Under ``auto``
+   a ``two-level`` or ``split`` verdict turns the hierarchical lowering on,
+   and a hierarchical allreduce runs the verdict's flavour (``split``
+   through the compositor, at the plan's bucket share). A planner error
+   raises under ``auto`` (the JAX executor swallows it, which would quietly
+   run another algorithm); when only the metrics tap asks, the planner
+   stays advisory, as in the JAX package;
  - allgather with uneven dim 0 pads to the largest rank's rows and
    compacts; reducescatter gives rank r ``d0 // n + (r < d0 % n)`` rows;
  - a process set's plans run on the set's own group, broadcast roots are
@@ -33,8 +43,7 @@ input's ready event (recorded on the caller's stream at enqueue), marks
 the inputs as used on its stream (``record_stream``) and records a done
 event after the unpack, on which ``synchronize`` orders the caller's
 stream. CPU inputs and numpy arrays travel to the card and come back on
-the CPU. The planner's choices (``HOROVOD_TOPOLOGY_PLAN=auto``, the split
-algorithm) are ROADMAP A13: ``eager.start_runtime`` refuses them.
+the CPU.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from .. import metrics as _metrics
 from ..common.topology import Topology
 from ..common.types import ReduceOp, ResponseType
 from ..ops.collectives import _TORCH_OPS, _maybe_scale
@@ -91,6 +101,19 @@ class NcclPlanExecutor(PlanExecutor):
             cross_group, _ = dist.new_subgroups_by_enumeration(
                 [[c * ls + j for c in range(cs)] for j in range(ls)])
             self._grid = (cross_group, local_group)
+        # The interconnect model the planner prices eager allreduces on,
+        # built once (selection a plan is pure Python). Under
+        # topology_plan="auto" the planner's verdict turns the hierarchical
+        # lowering on; otherwise it is advisory and only recorded.
+        from ..topo.model import apply_override, model_from_topology
+
+        self._topo_auto = getattr(config, "topology_plan", "off") == "auto" if config else False
+        try:
+            self._topo_model = apply_override(model_from_topology(topology))
+        except Exception:  # noqa: BLE001 - advisory unless the verdict decides
+            if self._topo_auto:
+                raise
+            self._topo_model = None
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._done = None
 
@@ -200,6 +223,25 @@ class NcclPlanExecutor(PlanExecutor):
     def _size_of(self, ctx: Optional[_SetContext]) -> int:
         return ctx.size if ctx is not None else self._topo.size
 
+    def _consult_planner(self, collective: str, nbytes: int, op=None):
+        """Select and record the compositor's plan for one eager collective
+        (``where="eager"``). Under ``HOROVOD_TOPOLOGY_PLAN=auto`` its
+        verdict decides the lowering, so an error raises; when only the
+        metrics tap asks, an error leaves the plan unconsulted (None)."""
+        from ..topo import compositor
+
+        if self._topo_model is None:
+            return None
+        try:
+            return compositor.record_plan(
+                compositor.select_plan(self._topo_model, collective, nbytes,
+                                       op=op if op is not None else ReduceOp.SUM),
+                where="eager")
+        except Exception:  # noqa: BLE001 - advisory unless the verdict decides
+            if self._topo_auto:
+                raise
+            return None
+
     # --- allreduce / Adasum: pack -> one collective -> unpack ---
     def _allreduce(self, plan, entries, adasum: bool, ctx) -> Dict[str, Any]:
         op = ReduceOp(plan.get("op", int(ReduceOp.SUM)))
@@ -207,13 +249,27 @@ class NcclPlanExecutor(PlanExecutor):
         post = float(plan.get("postscale", 1.0))
         participants = max(int(plan.get("participants", self._size_of(ctx))), 1)
         adasum = adasum or op == ReduceOp.ADASUM
+        tensors = [self._stage(e.tensor) for e in entries]
+        # The compositor's verdict for this payload (recorded either way,
+        # deciding under HOROVOD_TOPOLOGY_PLAN=auto).
+        tplan = None
+        if (ctx is None and self._grid is not None and not adasum
+                and op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+                and (self._topo_auto or _metrics.ACTIVE)):
+            tplan = self._consult_planner(
+                "allreduce", sum(t.numel() * t.element_size() for t in tensors), op)
         # Process sets run flat on their group; MIN/MAX/PRODUCT stay flat
         # (the reference's hierarchy covers sums); Adasum on a grid is
         # always hierarchical, as the reference's CUDA variant is.
         hier = ctx is None and self._grid is not None and (
             adasum or (op in (ReduceOp.SUM, ReduceOp.AVERAGE)
-                       and self._plan_knob(plan, "hierarchical_allreduce", 1)))
-        tensors = [self._stage(e.tensor) for e in entries]
+                       and self._plan_knob(plan, "hierarchical_allreduce", 1))
+            or (self._topo_auto and tplan is not None
+                and tplan.algorithm in ("two-level", "split")))
+        algorithm, split_fraction = "two-level", None
+        if hier and not adasum and tplan is not None and tplan.algorithm == "split" \
+                and tplan.nbytes:
+            algorithm, split_fraction = "split", tplan.split_bytes[0] / tplan.nbytes
         shapes = [tuple(t.shape) for t in tensors]
         flat = torch.cat([t.reshape(-1) for t in tensors])
         r = _maybe_scale(flat, pre)
@@ -232,8 +288,8 @@ class NcclPlanExecutor(PlanExecutor):
         elif hier:
             from ..topo import compositor
 
-            r = compositor.lower_allreduce(r, self._grid, op=ReduceOp.SUM,
-                                           algorithm="two-level")
+            r = compositor.lower_allreduce(r, self._grid, op=ReduceOp.SUM, algorithm=algorithm,
+                                           split_fraction=split_fraction)
             if op == ReduceOp.AVERAGE:
                 r = _divide(r, participants)
         else:

@@ -16,8 +16,10 @@ the host.
 Differences from the JAX package: PRODUCT computes the product (the JAX
 eager path sums); a broadcast root outside the job or the set raises
 ``ValueError`` at the call; a process set's group is created once every
-rank agreed on the registration; the planner's entry points
-(``collective_plan``) are ROADMAP A13.
+rank agreed on the registration. ``collective_plan`` reports the topology
+compositor's plan for one collective, and ``HOROVOD_TOPOLOGY_PLAN=auto``
+lets its verdict choose each eager allreduce's hierarchical lowering
+(``core/nccl_executor.py``).
 """
 
 from __future__ import annotations
@@ -135,10 +137,6 @@ def start_runtime(cfg: Optional[Config], topo, device: torch.device):
         return rt
     if kind != "native":
         raise ValueError(f"HOROVOD_TPU_CORE={kind!r}: choose 'native' or 'python'")
-    if cfg.topology_plan == "auto":
-        raise NotImplementedError(
-            "HOROVOD_TOPOLOGY_PLAN=auto selects each eager collective's lowering through the "
-            "topology compositor's planner, which is not ported yet (ROADMAP A13)")
     executor = None
     if topo.size > 1 or device.type == "cuda":
         from .core.nccl_executor import NcclPlanExecutor
@@ -157,10 +155,28 @@ def reset() -> None:
         _ps_barrier_seq = 0
 
 
-def collective_plan(*args: Any, **kwargs: Any) -> dict:
-    raise NotImplementedError(
-        "collective_plan reports the topology compositor's plan selection, which is not "
-        "ported yet (ROADMAP A13)")
+def collective_plan(collective: str = "allreduce", nbytes: int = 4 * 1024 * 1024,
+                    op: Optional[ReduceOp] = None, wire_dtype: str = "f32") -> dict:
+    """The topology compositor's selected plan for one collective at one
+    payload size on this deployment's interconnect model: the algorithm
+    (flat, ring, recursive-halving, two-level, split, ...), the bytes on
+    each hop, the stages and the alpha-beta cost estimate, with the model
+    under ``"model"``. ``wire_dtype="int8"`` prices the int8 wire
+    (allreduce and reduce-scatter, SUM/AVERAGE). It uses the running job's
+    topology after ``init`` and fresh detection before it, with the
+    ``HOROVOD_TOPOLOGY_MODEL`` override; it touches no device
+    (``tools/topo_plan`` is the offline twin)."""
+    from .common import topology as _topology
+    from .topo import resolve_model, select_plan
+
+    rt = _basics._runtime.eager if _basics._runtime is not None else None
+    topo = rt.topology if rt is not None and rt.running else _topology.detect()
+    model = resolve_model(topo)
+    plan = select_plan(model, collective, int(nbytes),
+                       op=op if op is not None else ReduceOp.SUM, wire_dtype=wire_dtype)
+    out = plan.to_dict()
+    out["model"] = model.to_dict()
+    return out
 
 
 # Build probes (reference operations.cc:683-769): the port's data plane is

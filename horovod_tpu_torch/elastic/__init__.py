@@ -459,12 +459,12 @@ def adopted_replan() -> Optional[Dict[str, Any]]:
 def adopted_step_kwargs() -> Optional[Dict[str, Any]]:
     """The step knobs of the adopted re-plan. None before any adoption;
     after one it raises: the translation (``tune.tuned_step_kwargs``) is
-    ROADMAP A13, not ported yet."""
+    ROADMAP A13b, not ported yet."""
     if _adopted_replan is None:
         return None
     raise NotImplementedError(
         "adopted_step_kwargs maps a re-plan onto make_train_step knobs through "
-        "tune.tuned_step_kwargs, which is not ported yet (ROADMAP A13)")
+        "tune.tuned_step_kwargs, which is not ported yet (ROADMAP A13b)")
 
 
 # --------------------------------------------------------- hot spares

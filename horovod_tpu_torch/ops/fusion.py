@@ -10,7 +10,11 @@ reduce-scatter) and ``quantized_ef_allreduce`` (the int8 wire with error
 feedback) reduce the same buckets. A tuple of groups, the JAX package's axis
 tuple, reduces flat over its flattened group, or two-level through a
 ``reduce_fn`` (:func:`_hier_reduce_fn`) and, for ZeRO-1's reduce-scatter,
-the compositor's two-level schedule.
+the compositor's two-level schedule. Under plan selection
+(``hierarchical="planned"``, the JAX ``StreamConfig.planned``) the
+``reduce_fn`` is ``topo/compositor.auto_reduce_fn``: each bucket, post hoc
+or streamed, is priced on ``model_for_axes`` of the groups it reduces over
+and lowered as its selected plan says.
 
 The streamed half (``reduce_in_backward``, ``stream_param_groups``): the
 JAX package wraps parameter subtrees in a ``custom_vjp`` identity whose

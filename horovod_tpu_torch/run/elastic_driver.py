@@ -29,8 +29,8 @@ supervises an elastic job instead of the fixed fan-out of
 - The control plane is journaled (:mod:`.journal`); ``--resume`` replays
   it and adopts the surviving fleet (:meth:`ElasticDriver._enter_adoption`).
 - The live re-plan (``HOROVOD_REPLAN_DIVERGENCE``, ``HOROVOD_REPLAN_SKEW_S``)
-  needs the tuner and the interconnect model of ROADMAP A13: the driver
-  refuses to start with either above 0.
+  needs the tuner of ROADMAP A13b: the driver refuses to start with either
+  above 0.
 """
 
 from __future__ import annotations
@@ -200,8 +200,7 @@ class ElasticDriver:
             if _selfdrive._env_float(self._env, knob, 0.0) > 0:
                 raise NotImplementedError(
                     f"{knob} asks for the live re-plan, which prices configurations on the "
-                    "tuner, the plan verifier and the interconnect model: not ported yet "
-                    "(ROADMAP A13); unset it")
+                    "tuner: not ported yet (ROADMAP A13b); unset it")
 
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
@@ -387,7 +386,7 @@ class ElasticDriver:
         # straggler charges and the hot-spare pool. Both are opt-in
         # (HOROVOD_QUARANTINE_STRIKES unset and --spares 0 keep the driver
         # exactly as before). A re-plan notice is never made here (ROADMAP
-        # A13); one journaled by the JAX package's driver is carried and
+        # A13b); one journaled by the JAX package's driver is carried and
         # re-stamped as it would be there.
         self._policy = _selfdrive.StragglerPolicy.from_env(self._env)
         self._replan_doc: Optional[Dict] = None

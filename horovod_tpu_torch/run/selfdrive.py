@@ -20,10 +20,11 @@ engine act on, with no clock, no thread and no torch.
 
 The live re-plan's planning half (:func:`candidate_configs`,
 :func:`propose_replan`, :func:`verify_replan`, :func:`spec_from_windows`,
-:func:`model_for_world`) prices configurations on the tuner, the
-simulator, the plan verifier and the interconnect model, none of which
-the port has yet: each raises ``NotImplementedError`` naming ROADMAP A13,
-and so does :func:`price_resize` when it is given a model.
+:func:`model_for_world`) prices configurations on the tuner, which the
+port does not have yet: each raises ``NotImplementedError`` naming ROADMAP
+A13b, and so does :func:`price_resize` when it is given a model. (The
+simulator, the plan verifier and the interconnect model it builds on are
+``sim/``, ``analysis/plan_verify.py`` and ``topo/``.)
 """
 
 from __future__ import annotations
@@ -359,9 +360,8 @@ def replay_divergence(report: Dict) -> Dict[str, float]:
     return out
 
 
-_A13 = ("is the live re-plan's planning half, which prices configurations on the tuner, "
-        "the simulator, the plan verifier and the interconnect model: not ported yet "
-        "(ROADMAP A13)")
+_A13 = ("is the live re-plan's planning half, which prices configurations on the tuner: "
+        "not ported yet (ROADMAP A13b)")
 
 
 def _needs_a13(name: str):
@@ -404,8 +404,8 @@ def price_resize(param_bytes: int, n_old: int, n_new: int, model=None, *,
     momentum 1, plus the EF residual on the int8 wire) is sharded 1/N and
     re-partitions when N changes (``parallel/reshard`` executes the move
     this prices). The bytes only: a ``model`` turns them into a modeled
-    time over its outermost hop, which needs the interconnect model of
-    ROADMAP A13."""
+    time over its outermost hop, which comes with the re-plan's pricing,
+    ROADMAP A13b."""
     from ..parallel.reshard import resize_redistribution
 
     if model is not None:

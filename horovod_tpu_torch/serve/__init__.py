@@ -30,7 +30,8 @@ request spans through the live taps (``HOROVOD_METRICS``,
 the demo. A fault plan (``HOROVOD_FAULT_PLAN``) drives the ``request`` and
 ``replica`` taps. A ``scale_policy`` (``run/selfdrive.ServeScalePolicy``)
 drives :meth:`ServeEngine.autoscale_beat`; the serving simulator is
-ROADMAP A13.
+``sim.simulate_serve`` (``python -m horovod_tpu_torch.tools.fleet_sim
+--serve``), which plays this batcher under a virtual clock.
 
 Entry points: :func:`serve` (in process), ``python -m
 horovod_tpu_torch.serve`` (the HTTP demo).

@@ -29,11 +29,17 @@ The reduction, as the options select it:
   ``topo/compositor.py``), with the options above: the int8 wire on the
   cross level only, ZeRO-1's reduce-scatter and all-gather two-level,
   Adasum between node sums. ``make_train_step(mesh=..., hierarchical=True)``
-  takes the groups from a ``build_hierarchical_mesh`` mesh.
+  takes the groups from a ``build_hierarchical_mesh`` mesh;
+- ``hierarchical="auto"`` on a mesh with a (pod,) cross, local hierarchy,
+  or ``"planned"``: plan selection, each bucket priced on the
+  interconnect model of the groups it reduces over
+  (``topo/compositor.auto_reduce_fn``) and lowered flat, two-level or
+  split (with ``quantized``: int8 on every level or on the outermost
+  only); ``topo_algorithm`` pins one lowering. ``"auto"`` on a flat mesh
+  is flat.
 
-Plan selection (``hierarchical="auto"`` on a mesh with a (cross, local)
-grid, ``"planned"``) and pinned tunings (``tuned``) are ROADMAP A13; asking
-for them raises ``NotImplementedError``.
+Pinned tunings (``tuned``) are ROADMAP A13b; asking for them raises
+``NotImplementedError``.
 
 ``make_train_step(rules=..., mesh=...)`` builds the composed DP×TP step
 (``_build_composed_train_step`` of the JAX package): the parameters are this
@@ -119,55 +125,82 @@ def _resolve_error_feedback(error_feedback: Optional[bool], quantized: bool,
     return True if error_feedback is None else bool(error_feedback)
 
 
-def _resolve_hierarchical(hierarchical: Any, mesh=None) -> bool:
-    """The ``hierarchical`` knob: True/False pass through; ``"auto"`` on a
-    mesh with no (cross, local) grid is False. Plan selection
-    (``"planned"``, and ``"auto"`` anywhere else, where the JAX package
-    selects a plan per bucket from the topology model) is ROADMAP A13."""
-    if hierarchical == "auto" and mesh is not None:
-        from .parallel.mesh import hierarchy_axes
+def _resolve_hierarchical(hierarchical: Any, mesh=None) -> Tuple[Any, Optional[Tuple[str, ...]]]:
+    """The tri-state ``hierarchical`` knob, as the JAX package resolves it:
+    ``(mode, axes)`` with mode False, True (the forced two-level lowering)
+    or ``"planned"`` (per-bucket plan selection), and ``axes`` the mesh's
+    hierarchy axis tuple in planned mode when it decided (else None).
+    ``"auto"`` with a mesh: its (pod,) cross, local axes make it planned, a
+    flat mesh keeps it flat; without a mesh, the detected process
+    topology's homogeneity-gated model decides (``topo.resolve_model``)."""
+    if hierarchical == "auto":
+        if mesh is not None:
+            from .parallel.mesh import hierarchy_axes
 
-        if not hierarchy_axes(mesh):
-            return False
-    if hierarchical in ("auto", "planned"):
-        raise NotImplementedError(
-            f"hierarchical={hierarchical!r} selects a plan per bucket through the topology "
-            "compositor's plan selection, which is not ported yet (ROADMAP A13)")
-    return bool(hierarchical)
+            axes = hierarchy_axes(mesh)
+            return ("planned", axes) if axes else (False, None)
+        from .parallel.mesh import CROSS_AXIS, LOCAL_AXIS
+        from .topo import resolve_model
+
+        if resolve_model().eligible:
+            return "planned", (CROSS_AXIS, LOCAL_AXIS)
+        return False, None
+    if hierarchical == "planned":
+        return "planned", None
+    return bool(hierarchical), None
 
 
-def _check_hierarchy_group(group: Any) -> None:
+def _check_hierarchy_group(group: Any, hierarchical: Any = True) -> None:
     """``hierarchical=True`` reduces over a ``(cross, local)`` pair of
-    groups, the JAX package's axis tuple."""
-    if not (isinstance(group, tuple) and len(group) == 2):
+    groups, the JAX package's axis tuple; planned mode over a tuple of two
+    or more levels, outermost first."""
+    planned = hierarchical == "planned"
+    if not (isinstance(group, tuple) and (len(group) >= 2 if planned else len(group) == 2)):
         raise ValueError(
-            f"hierarchical=True needs a (cross, local) axis tuple, got {group!r}: pass "
-            "group=parallel.mesh.axis_groups(mesh, ('cross', 'local')), or "
-            "make_train_step(..., mesh=build_hierarchical_mesh(local_size), hierarchical=True)")
+            f"hierarchical={hierarchical!r} needs a (cross, local) axis tuple, got {group!r}: "
+            "pass group=parallel.mesh.axis_groups(mesh, ('cross', 'local')), or "
+            "make_train_step(..., mesh=build_hierarchical_mesh(local_size), "
+            f"hierarchical={hierarchical!r})")
 
 
 def _check_tuned(tuned: Any) -> None:
-    """Pinned offline tunings are ROADMAP A13."""
+    """Pinned offline tunings are ROADMAP A13b."""
     if tuned is None:
         tuned = os.environ.get(_env.HOROVOD_TUNED_FILE, "") or None
     if tuned not in (None, False):
         raise NotImplementedError("tuned= (pinned offline tunings) is not ported yet "
-                                  "(ROADMAP A13)")
+                                  "(ROADMAP A13b, the tuner)")
 
 
-def _select_reduce_fn(op: ReduceOp, hierarchical: bool, quantized: bool):
+def _select_reduce_fn(op: ReduceOp, hierarchical: Any, quantized: bool,
+                      topo_algorithm: Optional[str] = None):
     """A bucket's reduction, post hoc and streamed alike: Adasum (between
-    node sums over a (cross, local) pair), the int8 wire (on the cross level
-    only when hierarchical), the two-level allreduce, or None, the flat
-    allreduce."""
+    node sums over a (cross, local) pair), the compositor's per-bucket plan
+    (planned mode; ``topo_algorithm`` pins one), the int8 wire (on the
+    cross level only when hierarchical), the two-level allreduce, or None,
+    the flat allreduce."""
     from .ops.adasum import adasum_reduce_fn
     from .ops.quantized import quantized_reduce_fn
 
     if op == ReduceOp.ADASUM:
         return adasum_reduce_fn
+    if hierarchical == "planned":
+        from .topo import compositor
+
+        return compositor.auto_reduce_fn(quantized=quantized, algorithm=topo_algorithm)
     if quantized:
         return quantized_reduce_fn("two-level" if hierarchical else "flat")
     return fusion._hier_reduce_fn if hierarchical else None
+
+
+def collective_plan(collective: str = "allreduce", nbytes: int = 4 * 1024 * 1024,
+                    op: Optional[ReduceOp] = None, wire_dtype: str = "f32") -> dict:
+    """The training API's alias of :func:`horovod_tpu_torch.collective_plan`:
+    the compositor's selected plan for one collective at one payload size
+    (``wire_dtype="int8"``: the int8 wire's price)."""
+    from .eager import collective_plan as _collective_plan
+
+    return _collective_plan(collective, nbytes, op, wire_dtype=wire_dtype)
 
 
 def error_feedback_state(opt_state: Any, params: Any) -> EFState:
@@ -188,6 +221,7 @@ def allreduce_gradients(
     hierarchical: Any = False,
     quantized: Optional[bool] = None,
     nonfinite: Optional[str] = None,
+    topo_algorithm: Optional[str] = None,
 ) -> List[torch.Tensor]:
     """Fusion-bucketed allreduce of a list of gradients (in the order that
     sets their buckets); returns the reduced list, the inputs unchanged.
@@ -198,10 +232,12 @@ def allreduce_gradients(
     ``skip`` and ``abort`` act at the step (``DistributedOptimizer``).
     ``hierarchical=True`` reduces two-level over ``group``, a ``(cross,
     local)`` pair of groups (with ``quantized``: int8 on the cross level
-    only)."""
-    hierarchical = _resolve_hierarchical(hierarchical)
+    only); ``"planned"`` (or ``"auto"`` on an eligible detected topology)
+    selects a plan per bucket over ``group``, and ``topo_algorithm`` pins
+    one."""
+    hierarchical, _ = _resolve_hierarchical(hierarchical)
     if hierarchical:
-        _check_hierarchy_group(group)
+        _check_hierarchy_group(group, hierarchical)
     quantized = _resolve_quantized(quantized)
     policy = resolve_policy(nonfinite)
     if quantized:
@@ -213,22 +249,29 @@ def allreduce_gradients(
                 "compression would add loss for no bandwidth win")
     if policy == "zero":
         grads = _nf.sanitize(list(grads))
-    reduced = _fused(grads, op, group, fusion_threshold_bytes, compression, quantized,
-                     hierarchical, "posthoc")
+    reduced = _fused(grads, op, group, fusion_threshold_bytes, compression,
+                     _select_reduce_fn(op, hierarchical, quantized, topo_algorithm), "posthoc",
+                     _wire_label(quantized, hierarchical))
     if policy == "warn":
         _warn_nonfinite(reduced, "reduce")
     return reduced
 
 
-def _fused(grads, op, group, threshold, compression, quantized,
-           hierarchical, label: str) -> List[torch.Tensor]:
-    """One fused allreduce through the reduce_fn the options select;
-    ``label`` names the fusion path in the taps."""
+def _wire_label(quantized: bool, hierarchical: Any) -> str:
+    """The wire dtype the fusion layer prices a reduction at: a planned
+    reduction records its own int8 wire, as the JAX package's does."""
+    return "int8" if quantized and hierarchical != "planned" else "f32"
+
+
+def _fused(grads, op, group, threshold, compression, reduce_fn, label: str,
+           wire_dtype: str) -> List[torch.Tensor]:
+    """One fused allreduce through ``reduce_fn`` (``_select_reduce_fn``'s);
+    ``label`` names the fusion path in the taps, ``wire_dtype`` prices its
+    bytes."""
     compressed = [compression.compress(g) for g in grads]
     reduced = fusion.fused_allreduce([c for c, _ in compressed], op=op, threshold_bytes=threshold,
-                                     group=group,
-                                     reduce_fn=_select_reduce_fn(op, hierarchical, quantized),
-                                     label=label, wire_dtype="int8" if quantized else "f32")
+                                     group=group, reduce_fn=reduce_fn, label=label,
+                                     wire_dtype=wire_dtype)
     return [compression.decompress(r, ctx) for r, (_, ctx) in zip(reduced, compressed)]
 
 
@@ -287,14 +330,21 @@ class DistributedOptimizer:
       every bucket two-level, post hoc or streamed; with ``quantized`` the
       int8 wire runs on the cross level only and error feedback is off; with
       Adasum the node sums combine across nodes.
+    - ``hierarchical="planned"`` (``group`` a tuple of levels, outermost
+      first; ``"auto"`` resolves to it where the detected topology is an
+      eligible grid) selects each bucket's plan on the interconnect model
+      of ``group`` (flat, two-level or split; with ``quantized`` the int8
+      ring or int8 on the outermost level only, error feedback off);
+      ``topo_algorithm`` pins one lowering where the planner offers it.
+      :attr:`selected_plans` reads what was selected.
 
     The combinations the JAX builders refuse raise ``ValueError`` here too,
     ``zero1`` with ``hierarchical`` among them: a two-level ZeRO-1 is
     ``make_train_step(zero1=True, hierarchical=True, mesh=...)``, or a
     tuple ``group`` here. Unlike the JAX optax wrapper, ``zero1`` takes
     error feedback and skip/abort: the step here owns the state the JAX
-    wrapper could not reach. ``hierarchical="auto"``/``"planned"`` and
-    ``tuned`` raise ``NotImplementedError`` (ROADMAP A13)."""
+    wrapper could not reach. ``tuned`` raises ``NotImplementedError``
+    (ROADMAP A13b)."""
 
     def __init__(
         self,
@@ -315,8 +365,9 @@ class DistributedOptimizer:
         zero1_shards: Optional[int] = None,
         hierarchical: Any = False,
         tuned: Any = None,
+        topo_algorithm: Optional[str] = None,
     ):
-        hierarchical = _resolve_hierarchical(hierarchical)
+        hierarchical, _ = _resolve_hierarchical(hierarchical)
         _check_tuned(tuned)
         quantized = _resolve_quantized(quantized)
         _check_overlap_rejections(overlap, quantized, op)
@@ -344,7 +395,7 @@ class DistributedOptimizer:
                     "hierarchical (DCN-only) compression is not defined for the RS+AG "
                     "decomposition — drop hierarchical or quantized")
         if hierarchical:
-            _check_hierarchy_group(group)
+            _check_hierarchy_group(group, hierarchical)
         self._opt = optimizer
         self._compression = compression
         self._op = op
@@ -356,7 +407,8 @@ class DistributedOptimizer:
         self._flag_group = group
         self._hierarchical = hierarchical
         self._quantized = quantized
-        self._use_ef = _resolve_error_feedback(error_feedback, quantized, hierarchical)
+        self._reduce_fn = _select_reduce_fn(op, hierarchical, quantized, topo_algorithm)
+        self._use_ef = _resolve_error_feedback(error_feedback, quantized, bool(hierarchical))
         self._overlap = overlap
         self._policy = resolve_policy(nonfinite)
         if zero1:
@@ -437,6 +489,12 @@ class DistributedOptimizer:
         return self._zero1_state
 
     @property
+    def selected_plans(self) -> Dict[int, str]:
+        """Planned mode: bucket bytes -> the allreduce algorithm the
+        compositor selected for it, over the steps so far; {} otherwise."""
+        return dict(getattr(self._reduce_fn, "selected", {}))
+
+    @property
     def residual(self) -> List[torch.Tensor]:
         """The error-feedback residual of each parameter, in the reduction
         order (zeros until the first quantized step)."""
@@ -483,8 +541,8 @@ class DistributedOptimizer:
                 grads, ef, op=self._op, group=self._group, threshold_bytes=self._threshold,
                 label="posthoc-ef" if gi is None else f"stream:g{gi}")
         return _fused(grads, self._op, self._group, self._threshold, self._compression,
-                      self._quantized, self._hierarchical,
-                      "posthoc" if gi is None else f"stream:g{gi}"), None
+                      self._reduce_fn, "posthoc" if gi is None else f"stream:g{gi}",
+                      _wire_label(self._quantized, self._hierarchical)), None
 
     def synchronize(self) -> None:
         """Reduce every gradient: finish the streamed groups, or reduce post
@@ -679,12 +737,16 @@ def make_train_step(
     ``hierarchical=True`` takes the ``(cross, local)`` groups from ``mesh``
     (``parallel.mesh.build_hierarchical_mesh``) and reduces every bucket
     two-level over them; with ``zero1`` the reduce-scatter and the
-    all-gather run two-level. ``hierarchical="auto"`` on a mesh with no
-    (cross, local) grid is flat; plan selection (``"auto"`` elsewhere,
-    ``"planned"``) and ``tuned`` raise ``NotImplementedError`` (ROADMAP
-    A13). ``topo_algorithm`` pins a plan only under plan selection and is
-    otherwise moot, as in the JAX package, except ``"split"`` with ``zero1``
-    (no reduce-scatter form), a ``ValueError``.
+    all-gather run two-level. ``hierarchical="auto"`` on a mesh with a
+    (pod,) cross, local hierarchy (``parallel.mesh.hierarchy_axes``), or
+    ``"planned"`` (over (cross, local)), selects each bucket's plan on the
+    interconnect model of those groups (:class:`DistributedOptimizer`);
+    ``"auto"`` on a flat mesh is flat. With ``zero1`` the hierarchy is the
+    reduce-scatter's and the all-gather's, two-level. ``topo_algorithm``
+    pins a plan only under plan selection and is otherwise moot, as in the
+    JAX package, except ``"split"`` with ``zero1`` (no reduce-scatter form),
+    a ``ValueError``. ``tuned`` raises ``NotImplementedError`` (ROADMAP
+    A13b).
 
     ``rules`` (a rule table or a shipped name, ``"gpt"``; see
     ``parallel/rules.py``) switches to the composed DP×TP step on ``mesh``
@@ -714,7 +776,10 @@ def make_train_step(
         raise ValueError(
             "topo_algorithm='split' has no reduce-scatter decomposition; zero1 lowers flat "
             "or two-level by the mesh shape")
-    hierarchical = _resolve_hierarchical(hierarchical, mesh)
+    hierarchical, hier_axes = _resolve_hierarchical(hierarchical, mesh)
+    # A pinned compositor algorithm reaches the lowering in planned mode
+    # only; anywhere else it is moot.
+    pin_algorithm = topo_algorithm if hierarchical == "planned" else None
     if isinstance(optimizer, DistributedOptimizer):
         if (op is not None or compression is not None or fusion_threshold_bytes is not None
                 or nonfinite not in (None, "off") or quantized is not None or zero1 or overlap
@@ -732,10 +797,10 @@ def make_train_step(
             compression=compression or Compression.none,
             op=ReduceOp.AVERAGE if op is None else op,
             fusion_threshold_bytes=fusion_threshold_bytes,
-            group=_hierarchy_groups(mesh) if hierarchical else None,
+            group=_hierarchy_groups(mesh, hier_axes) if hierarchical else None,
             quantized=quantized, error_feedback=error_feedback, overlap=overlap,
             first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite, zero1=zero1,
-            hierarchical=hierarchical and not zero1,
+            hierarchical=False if zero1 else hierarchical, topo_algorithm=pin_algorithm,
         )
     # The loss is averaged over the reduction's ranks (every rank, unless
     # the optimizer reduces over the flattened group of an axis tuple).
@@ -769,9 +834,10 @@ def make_train_step(
     return step
 
 
-def _hierarchy_groups(mesh):
-    """The ``(cross, local)`` groups of a hierarchical mesh, with their
-    flattened group: the axis tuple ``hierarchical=True`` reduces over."""
+def _hierarchy_groups(mesh, axes: Optional[Tuple[str, ...]] = None):
+    """The groups of a hierarchical mesh's ``axes`` (default ``(cross,
+    local)``), with their flattened group: the axis tuple a hierarchical or
+    planned reduction runs over."""
     from .parallel.mesh import CROSS_AXIS, LOCAL_AXIS, axis_groups
 
     names = () if mesh is None else tuple(mesh.mesh_dim_names)
@@ -779,7 +845,7 @@ def _hierarchy_groups(mesh):
         raise ValueError(
             "hierarchical=True needs a (cross, local) axis tuple: pass "
             f"mesh=build_hierarchical_mesh(local_size) (mesh axes: {names or None})")
-    return axis_groups(mesh, (CROSS_AXIS, LOCAL_AXIS))
+    return axis_groups(mesh, axes or (CROSS_AXIS, LOCAL_AXIS))
 
 
 def _average_buffers(module: torch.nn.Module) -> None:

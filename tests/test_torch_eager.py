@@ -12,9 +12,11 @@
   reductions at rtol 1e-5; half-precision sums of 2 ranks are one rounding,
   so bitwise too. PRODUCT is held to JAX's compiled op: the JAX eager path
   computes a sum for it (ROADMAP queue C).
-- The (cross 2, local 2) grid with the hierarchical knobs, and the runtime's
-  refusals: no silent fallback to the Python runtime, the planner's
-  entry points name A13.
+- The (cross 2, local 2) grid with the hierarchical knobs, and with
+  ``HOROVOD_TOPOLOGY_PLAN=auto``'s verdicts (two-level for a small payload,
+  split for a large one, recorded with ``where="eager"``); the runtime's
+  refusals (no silent fallback to the Python runtime); ``collective_plan``
+  against JAX's.
 """
 
 import json
@@ -376,12 +378,31 @@ def test_unknown_core_kind_raises(monkeypatch):
 
 
 def test_planner_entry_points_name_a13(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A13"):
-        hvd.collective_plan("allreduce", 1 << 20)
+    """The planner's entry points (they refused, naming ROADMAP A13, until
+    ported): ``collective_plan`` gives JAX's dict before ``init`` and after
+    it, and ``HOROVOD_TOPOLOGY_PLAN=auto`` starts the runtime."""
+    from horovod_tpu_torch import train
+
+    cases = [("allreduce", 1 << 20, None, "f32"), ("allreduce", 64 << 20, hvd.Average, "int8"),
+             ("allgather", 4096, None, "bf16"), ("reducescatter", 1 << 22, hvd.Sum, "int8"),
+             ("broadcast", 12345, None, "f32"), ("alltoall", 1 << 26, None, "f32")]
+
+    def want(coll, nb, op, wire):
+        return jhvd.collective_plan(coll, nb, None if op is None else JOp[op.name],
+                                    wire_dtype=wire)
+
+    for case in cases:
+        assert hvd.collective_plan(*case[:3], wire_dtype=case[3]) == want(*case)
+        assert train.collective_plan(*case[:3], wire_dtype=case[3]) == want(*case)
     monkeypatch.setenv("HOROVOD_TOPOLOGY_PLAN", "auto")
-    with pytest.raises(NotImplementedError, match="A13"):
-        hvd.init(device="cpu")
-    assert not hvd.is_initialized()
+    hvd.init(device="cpu")
+    try:
+        assert hvd.is_initialized()
+        assert hvd.collective_plan("allreduce", 1 << 20) == want("allreduce", 1 << 20, None,
+                                                                 "f32")
+        np.testing.assert_array_equal(hvd.allreduce(np.ones(3, np.float32)), np.ones(3))
+    finally:
+        hvd.shutdown()
 
 
 def test_missing_card_raises():
@@ -548,6 +569,20 @@ if cfg["cases"] == "grid":
     keep("hier:gather", hvd.allgather(T(X["even"])))
     keep("hier:gather_uneven", hvd.allgather(T(X["even"][:r + 1])))
     keep("hier:adasum", hvd.allreduce(T(X["ada"]), op=hvd.Adasum))
+    # The planner's verdict decides the hierarchical flavour: a small
+    # payload two-level, a large one split (generic model: past ~10 MB).
+    ex._topo_auto = True
+    hvd.metrics.install(True)
+    big = (np.arange(1 << 22, dtype=np.float32) % 97) * (r + 1)
+    keep("auto:small", hvd.allreduce(T(X["f32"]), op=hvd.Sum, name="auto.small"))
+    keep("auto:big", hvd.allreduce(big, op=hvd.Sum, name="auto.big")[:4096])
+    info["auto_exact"] = bool(np.array_equal(
+        hvd.allreduce(big, op=hvd.Average, name="auto.big.avg"),
+        (np.arange(1 << 22, dtype=np.float32) % 97) * 2.5))
+    snap = hvd.metrics.snapshot()
+    info["auto_plans"] = sorted(sorted(x["labels"].items())
+                                for x in snap["hvd_topo_plan_info"]["series"])
+    hvd.metrics.reset()
 
 np.savez(f"{d}/rank{r}.npz", **out)
 json.dump(info, open(f"{d}/info{r}.json", "w"))
@@ -777,6 +812,21 @@ def test_allreduce_four_ranks(sets4, op):
     want = _jax_allreduce("f32", op, sets4.inputs["f32"], 4)
     for r in range(4):
         np.testing.assert_allclose(sets4.port[r][f"ar:f32:{op}"], want[r], rtol=1e-5)
+
+
+def test_topology_plan_auto_on_the_grid(grid4):
+    """Under HOROVOD_TOPOLOGY_PLAN=auto each eager allreduce's plan is the
+    planner's (recorded ``where="eager"``): two-level for 60 bytes, split
+    for 16 MiB, each the flat sum (exact on small integers)."""
+    x = grid4.inputs["f32"]
+    for r in range(4):
+        np.testing.assert_allclose(grid4.port[r]["auto:small"], x.sum(0), rtol=1e-5)
+        np.testing.assert_array_equal(grid4.port[r]["auto:big"],
+                                      (np.arange(4096, dtype=np.float32) % 97) * 10)
+        assert grid4.info[r]["auto_exact"]
+        labels = [dict(lb) for lb in grid4.info[r]["auto_plans"]]
+        assert {(lb["algorithm"], lb["where"], lb["collective"]) for lb in labels} == \
+            {("two-level", "eager", "allreduce"), ("split", "eager", "allreduce")}
 
 
 def test_hierarchical_knobs_on_the_grid(grid4):

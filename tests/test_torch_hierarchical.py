@@ -29,7 +29,17 @@ JAX package.
   within f32 rounding.
 - The JAX builders' ``ValueError``s: error feedback with hierarchical,
   quantized zero1 with hierarchical, the optimizer form's zero1 with
-  hierarchical; plan selection raises ``NotImplementedError`` naming A13.
+  hierarchical.
+- Plan selection: the explicit ``ring`` and ``recursive-halving``
+  schedules over the local level (4 ranks of (cross 2, local 4), 2 of
+  (cross 2, local 2)) bitwise JAX's for f32 SUM, MIN, MAX and integer SUM;
+  ``split`` and the two-level integer SUM against JAX's (rtol 1e-6,
+  bitwise); ``select_plan``/``candidate_plans`` on ``model_for_axes`` of
+  the groups equal to JAX's on the same axis sizes; ``auto_reduce_fn`` and
+  a pinned ``planned_reduce_fn`` against JAX's (rtol 1e-6); and the DP
+  step with ``hierarchical="auto"`` (post hoc and streamed) against JAX's
+  at the ``hierarchical=True`` tolerances, its ``hvd_topo_plan_info`` and
+  ``hvd_topo_bytes_per_hop`` labels JAX's.
 """
 
 import json
@@ -53,6 +63,7 @@ from horovod_tpu.ops import quantized as jq
 from horovod_tpu.parallel.mesh import build_hierarchical_mesh as jax_hier_mesh
 from horovod_tpu.parallel.mesh import build_mesh as jax_mesh
 from horovod_tpu.topo import compositor as jcomp
+from horovod_tpu.topo import model as jmodel
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.ops import adasum as tada
@@ -81,6 +92,7 @@ def _inputs():
         ragged=rng.randn(8, 7, 3).astype(np.float32),
         z=(rng.randn(8, 1003) * 0.01).astype(np.float32),
         a=rng.randn(8, 333).astype(np.float32),
+        xi=rng.randint(-1000, 1000, (8, 17)).astype(np.int32),
     )
 
 
@@ -98,7 +110,7 @@ d = os.environ["HVD_TEST_DIR"]
 hvd.init(device="cpu", init_method=f"file://{d}/store")
 r = hvd.rank()
 data = np.load(f"{d}/inputs.npz")
-x, ragged, z, a = (torch.from_numpy(data[k][r]) for k in ("x", "ragged", "z", "a"))
+x, ragged, z, a, xi = (torch.from_numpy(data[k][r]) for k in ("x", "ragged", "z", "a", "xi"))
 out, info = {}, {}
 meshes = {"c2l4": M.build_hierarchical_mesh(4), "c2l2": M.build_mesh({"data": 2, "cross": 2, "local": 2})}
 three = M.build_three_level_mesh(2, 2, 2)
@@ -134,6 +146,24 @@ for h, mesh in meshes.items():
     out[f"{h}:int8_flat"] = C.lower_allreduce(z, g, wire_dtype="int8", algorithm="flat")
     out[f"{h}:adasum"] = adasum.hierarchical_adasum_allreduce(a, **kw)
     out[f"{h}:adasum_fn"] = adasum.adasum_reduce_fn(a, group=g)
+    # Plan selection: the explicit single-level schedules over the local
+    # level, split and the planned reduce_fns over the grid.
+    for algo in ("ring", "recursive-halving"):
+        for op in ("SUM", "MIN", "MAX"):
+            out[f"{h}:{algo}_{op}"] = C.lower_allreduce(x, (local,), op=getattr(ReduceOp, op),
+                                                        algorithm=algo)
+        out[f"{h}:{algo}_int"] = C.lower_allreduce(xi, (local,), algorithm=algo)
+    frac = C.split_fractions(C.model_for_axes(g))[0]
+    out[f"{h}:split"] = C.lower_allreduce(z, g, algorithm="split", split_fraction=frac)
+    out[f"{h}:two_level_int"] = C.lower_allreduce(xi, g)
+    out[f"{h}:auto_fn"] = C.auto_reduce_fn()(z, op=ReduceOp.AVERAGE, group=g)
+    out[f"{h}:planned_split"] = C.planned_reduce_fn(C.model_for_axes(g), g, algorithm="split")(
+        z, op=ReduceOp.SUM)
+    m = C.model_for_axes(g)
+    info.setdefault("plans", {})[h] = {
+        "model": m.to_dict(),
+        "select": [C.select_plan(m, "allreduce", nb).to_dict() for nb in (4012, 64 << 20)],
+        "candidates": {k: p.to_dict() for k, p in C.candidate_plans(m, "reducescatter", 4012).items()}}
     import torch.distributed as dist
     info[h] = {"coords": [mesh.get_local_rank(n) for n in mesh.mesh_dim_names],
                "flat_rank": dist.get_rank(g.flat), "flat_size": dist.get_world_size(g.flat),
@@ -158,8 +188,8 @@ def _jax_body(h):
         mesh = jax_mesh({"data": 2, "cross": 2, "local": 2}, devices=jax.devices()[:8])
         spec, flat_root = P(("data", "cross", "local")), 1
 
-    def body(x, ragged, z, a):
-        x, ragged, z, a = x[0], ragged[0], z[0], a[0]
+    def body(x, ragged, z, a, xi):
+        x, ragged, z, a, xi = x[0], ragged[0], z[0], a[0], xi[0]
         out = {}
         for name, op in ops.items():
             out[f"allreduce_{name}"] = jc.hierarchical_allreduce(x, op=op)
@@ -184,9 +214,20 @@ def _jax_body(h):
         out["int8_sum"] = jq.quantized_hierarchical_allreduce(z, axes)
         out["int8_avg"] = jq.quantized_hierarchical_allreduce(z, axes, average=True)
         out["adasum"] = jada.hierarchical_adasum_allreduce(a)
+        for algo in ("ring", "recursive-halving"):
+            for name in ("SUM", "MIN", "MAX"):
+                out[f"{algo}_{name}"] = jcomp.lower_allreduce(x, ("local",), op=ops[name],
+                                                              algorithm=algo)
+            out[f"{algo}_int"] = jcomp.lower_allreduce(xi, ("local",), algorithm=algo)
+        frac = jcomp.split_fractions(jcomp.model_for_axes(axes))[0]
+        out["split"] = jcomp.lower_allreduce(z, axes, algorithm="split", split_fraction=frac)
+        out["two_level_int"] = jcomp.lower_allreduce(xi, axes)
+        out["auto_fn"] = jcomp.auto_reduce_fn()(z, op=JOp.AVERAGE, axis_name=axes)
+        out["planned_split"] = jcomp.planned_reduce_fn(jcomp.model_for_axes(axes), axes,
+                                                       algorithm="split")(z, op=JOp.SUM)
         return {k: v[None] for k, v in out.items()}
 
-    fn = _shard_map(body, mesh, in_specs=(spec,) * 4, out_specs=spec)
+    fn = _shard_map(body, mesh, in_specs=(spec,) * 5, out_specs=spec)
     return jax.jit(fn)
 
 
@@ -200,7 +241,7 @@ def collectives(tmp_path_factory):
     info = [json.loads((d / f"info{r}.json").read_text()) for r in range(8)]
     want = {}
     for h in HIERS:
-        res = _jax_body(h)(*(jnp.asarray(inputs[k]) for k in ("x", "ragged", "z", "a")))
+        res = _jax_body(h)(*(jnp.asarray(inputs[k]) for k in ("x", "ragged", "z", "a", "xi")))
         want[h] = {k: np.asarray(v) for k, v in res.items()}
     return SimpleNamespace(port=port, info=info, jax=want, inputs=inputs)
 
@@ -330,19 +371,55 @@ class _FakeHop(SimpleNamespace):
         raise AssertionError("no exchange expected")
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda h: tcomp.lower_allreduce(torch.ones(4), h, algorithm="ring"), "A13"),
-    (lambda h: tcomp.lower_allreduce(torch.ones(4), h, algorithm="recursive-halving"), "A13"),
-    (lambda h: tcomp.lower_allreduce(torch.ones(4), h, algorithm="split"), "A13"),
-    (lambda h: tcomp.select_plan(), "A13"),
-    (lambda h: tcomp.candidate_plans(), "A13"),
-    (lambda h: tcomp.auto_reduce_fn(), "A13"),
-    (lambda h: tcomp.planned_reduce_fn(), "A13"),
-])
-def test_plan_selection_names_a13(call, match):
-    hops = (_FakeHop(rank=0, n=2), _FakeHop(rank=0, n=2))
-    with pytest.raises(NotImplementedError, match=match):
-        call(hops)
+def _local_slice(hier, r):
+    """The ranks of rank r's local level."""
+    size = HIERS[hier]["local"]
+    return list(range(size * (r // size), size * (r // size) + size))
+
+
+def _jax_plans(hier):
+    """JAX's plans on the model of the same axis sizes."""
+    jm = jmodel.synthetic_model(local=HIERS[hier]["local"], cross=2)
+    return {"select": [jcomp.select_plan(jm, "allreduce", nb).to_dict()
+                       for nb in (4012, 64 << 20)],
+            "candidates": {k: p.to_dict() for k, p in
+                           jcomp.candidate_plans(jm, "reducescatter", 4012).items()}}
+
+
+@pytest.mark.parametrize("case", ["ring", "recursive-halving", "split", "select_plan",
+                                  "candidate_plans", "auto_reduce_fn", "planned_reduce_fn"])
+@pytest.mark.parametrize("hier", list(HIERS))
+def test_plan_selection_names_a13(collectives, hier, case):
+    """Plan selection against JAX's (it refused, naming ROADMAP A13, until
+    ported): the explicit schedules bitwise (each element reduced once and
+    copied, so every rank of a level holds the same bits), split and the
+    planned reduce_fns to f32 rounding, the plans themselves exactly."""
+    for r in range(8):
+        port, want = collectives.port[r], collectives.jax[hier]
+        if case in ("ring", "recursive-halving"):
+            for key in (f"{case}_SUM", f"{case}_MIN", f"{case}_MAX", f"{case}_int"):
+                np.testing.assert_array_equal(port[f"{hier}:{key}"], want[key][r], err_msg=key)
+                np.testing.assert_array_equal(
+                    port[f"{hier}:{key}"], collectives.port[_local_slice(hier, r)[0]][
+                        f"{hier}:{key}"])
+            np.testing.assert_allclose(port[f"{hier}:{case}_SUM"],
+                                       collectives.inputs["x"][_local_slice(hier, r)].sum(0),
+                                       rtol=1e-5, atol=1e-5)
+        elif case == "split":
+            np.testing.assert_allclose(port[f"{hier}:split"], want["split"][r], rtol=1e-6,
+                                       atol=1e-7)
+            np.testing.assert_array_equal(port[f"{hier}:two_level_int"], want["two_level_int"][r])
+        elif case in ("select_plan", "candidate_plans"):
+            plans = collectives.info[r]["plans"][hier]
+            key = "select" if case == "select_plan" else "candidates"
+            assert plans[key] == _jax_plans(hier)[key]
+            assert plans["model"]["hops"] == [
+                h.to_dict() for h in jmodel.synthetic_model(local=HIERS[hier]["local"],
+                                                            cross=2).hops]
+        else:
+            key = "auto_fn" if case == "auto_reduce_fn" else "planned_split"
+            np.testing.assert_allclose(port[f"{hier}:{key}"], want[key][r], rtol=1e-6,
+                                       atol=1e-7)
 
 
 @pytest.mark.parametrize("call,match", [
@@ -373,6 +450,9 @@ HIER_VARIANTS = {
     "hierarchical-quantized": dict(hierarchical=True, quantized=True),
     "hierarchical-zero1": dict(hierarchical=True, zero1=True, first_bucket_bytes=GPT_FIRST_BUCKET),
     "hierarchical-adasum": dict(hierarchical=True, op="Adasum"),
+    "hierarchical-auto": dict(hierarchical="auto"),
+    "hierarchical-auto-overlap": dict(hierarchical="auto", overlap=True,
+                                      first_bucket_bytes=GPT_FIRST_BUCKET),
 }
 
 
@@ -383,10 +463,32 @@ def setup():
 
 @pytest.fixture(scope="module")
 def steps(setup, tmp_path_factory):
-    variants = {name: {"kwargs": dict(KW, **kw), "local_size": LOCAL}
+    variants = {name: {"kwargs": dict(KW, **kw), "local_size": LOCAL,
+                       "metrics": kw.get("hierarchical") == "auto"}
                 for name, kw in HIER_VARIANTS.items()}
     variants["flat"] = {"kwargs": dict(KW)}
     return run_port_variants(tmp_path_factory.mktemp("hier_steps"), variants, N, setup)
+
+
+@pytest.fixture(scope="module")
+def jax_auto(setup):
+    """JAX's hierarchical="auto" steps, once each, with its metrics tap on:
+    {name: ((losses, final params, states), the hvd_topo_* series' labels)}."""
+    from horovod_tpu import metrics as jmetrics
+
+    out = {}
+    for name, kw in HIER_VARIANTS.items():
+        if kw.get("hierarchical") != "auto":
+            continue
+        jmetrics.install(True)
+        try:
+            run = run_jax_variant(setup, N, local_size=LOCAL, **dict(KW, **kw))
+            snap = jmetrics.snapshot()
+        finally:
+            jmetrics.reset()
+        out[name] = run, {k: sorted(sorted(x["labels"].items()) for x in snap[k]["series"])
+                          for k in ("hvd_topo_plan_info", "hvd_topo_bytes_per_hop")}
+    return out
 
 
 def _params(arrays):
@@ -394,11 +496,14 @@ def _params(arrays):
 
 
 @pytest.mark.parametrize("name", list(HIER_VARIANTS))
-def test_hierarchical_step_matches_jax(steps, setup, name):
+def test_hierarchical_step_matches_jax(steps, setup, jax_auto, name):
     kw = dict(KW, **HIER_VARIANTS[name])
     if kw.get("op") == "Adasum":
         kw["op"] = JOp.ADASUM
-    losses, final, _ = run_jax_variant(setup, N, local_size=LOCAL, **kw)
+    if name in jax_auto:
+        losses, final, _ = jax_auto[name][0]
+    else:
+        losses, final, _ = run_jax_variant(setup, N, local_size=LOCAL, **kw)
     port = steps[name]
     for r in range(N):
         np.testing.assert_allclose(port[r]["losses"], losses, rtol=1e-5)
@@ -411,11 +516,28 @@ def test_hierarchical_step_matches_jax(steps, setup, name):
         assert all(launched == total > 1 for launched, _, total in port[0]["groups"])
 
 
+@pytest.mark.parametrize("name", ["hierarchical-auto", "hierarchical-auto-overlap"])
+def test_auto_step_records_the_jax_plans(steps, jax_auto, name):
+    """The planned step's ``hvd_topo_plan_info`` and ``hvd_topo_bytes_per_hop``
+    labels (``where="stream"``, one series a selected algorithm and hop)
+    equal those JAX's step records over the same buckets, on every rank,
+    and every bucket's selected algorithm is one JAX's labels name."""
+    want = jax_auto[name][1]
+    algorithms = {dict(labels)["algorithm"] for labels in want["hvd_topo_plan_info"]}
+    assert algorithms >= {"two-level"}
+    for r in range(N):
+        got = {k: [sorted(map(tuple, labels)) for labels in v]
+               for k, v in steps[name][r]["plans"].items()}
+        assert got == {k: [sorted(labels) for labels in v] for k, v in want.items()}
+        assert set(steps[name][r]["selected"].values()) == algorithms
+
+
 def test_hierarchical_equals_flat_within_f32_rounding(steps):
     """test_optimizer.py:146: the two-level reduction against the flat one,
     at rtol 1e-5 on the losses and the parameters."""
     for r in range(N):
-        for name in ("hierarchical", "hierarchical-overlap", "hierarchical-zero1"):
+        for name in ("hierarchical", "hierarchical-overlap", "hierarchical-zero1",
+                     "hierarchical-auto", "hierarchical-auto-overlap"):
             np.testing.assert_allclose(steps[name][r]["losses"], steps["flat"][r]["losses"],
                                        rtol=1e-5)
             for key, a in _params(steps["flat"][r]["arrays"]).items():
@@ -475,14 +597,30 @@ def test_hierarchical_needs_a_cross_local_tuple(one_rank):
 
 @pytest.mark.parametrize("hierarchical", ["planned", "auto"])
 def test_plan_selection_knobs_name_a13(one_rank, hierarchical):
+    """``"planned"`` and ``"auto"`` on a (cross, local) mesh build the
+    planned step (they refused, naming ROADMAP A13, until ported): at one
+    rank every bucket's plan is flat and the update is the plain step's.
+    Without a mesh, ``"planned"`` needs the axis tuple as ``True`` does, and
+    ``"auto"`` on a one-process topology is flat, as JAX's."""
     from horovod_tpu_torch.parallel.mesh import build_hierarchical_mesh, build_mesh
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        hvd.make_train_step(lambda p, b: p.sum(), _sgd(), hierarchical=hierarchical,
-                            mesh=build_hierarchical_mesh(1))
-    with pytest.raises(NotImplementedError, match="A13"):
-        hvd.DistributedOptimizer(_sgd(), hierarchical=hierarchical)
-    if hierarchical == "auto":
+    def run(**kw):
+        w = torch.nn.Parameter(torch.zeros(3))
+        step = hvd.make_train_step(lambda p, b: (p * b).sum(), torch.optim.SGD([w], lr=0.1),
+                                   **kw)
+        loss = step(w, torch.tensor([1.0, -2.0, 0.5]))
+        return step, float(loss), w.detach().clone()
+
+    step, loss, w = run(hierarchical=hierarchical, mesh=build_hierarchical_mesh(1))
+    assert step.optimizer._hierarchical == "planned"
+    assert step.optimizer.selected_plans == {12: "flat"}
+    _, plain_loss, plain_w = run()
+    assert loss == plain_loss and torch.equal(w, plain_w)
+    if hierarchical == "planned":
+        with pytest.raises(ValueError, match="needs a \\(cross, local\\) axis tuple"):
+            hvd.DistributedOptimizer(_sgd(), hierarchical=hierarchical)
+    else:
+        assert not hvd.DistributedOptimizer(_sgd(), hierarchical="auto")._hierarchical
         # A mesh with no (cross, local) grid resolves "auto" to flat.
         step = hvd.make_train_step(lambda p, b: p.sum(), _sgd(), hierarchical="auto",
                                    mesh=build_mesh({"data": 1}))

@@ -51,6 +51,28 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_planning_modules_load_no_jax():
+    """The interconnect model, the planner, the verifier, the simulator and
+    their tools, imported and driven once, leave jax, flax, optax and the
+    JAX package out of sys.modules."""
+    code = (
+        "import sys, horovod_tpu_torch.topo as T, horovod_tpu_torch.sim as S, "
+        "horovod_tpu_torch.analysis.plan_verify as V, horovod_tpu_torch.tools.topo_plan, "
+        "horovod_tpu_torch.tools.fleet_sim as F\n"
+        "m = T.synthetic_model(4, cross=2, generation='h100')\n"
+        "assert T.select_plan(m, 'allreduce', 1 << 26).algorithm\n"
+        "assert V.verify_plan_grid()[0] == []\n"
+        "S.simulate(m, S.program_from_layers('p', [1 << 20] * 4), steps=2)\n"
+        "S.simulate_serve(S.ServeSimConfig(qps=20, duration_s=1))\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_eager_modules_load_no_jax():
     """The eager API, its runtimes, the executor, the binding to the core
     and the analysis modules, imported and driven once on the CPU, leave

@@ -164,15 +164,27 @@ def test_backward_passes_per_step_averages_microbatches(one_rank):
 
 @pytest.mark.parametrize("option", ["hierarchical", "tuned"])
 def test_unported_options_raise(one_rank, option):
-    """What is left unported: plan selection (hierarchical="planned"; True
-    runs two-level, tests/test_torch_hierarchical.py) and pinned tunings,
-    both ROADMAP A13."""
+    """What is left unported: pinned tunings (ROADMAP A13b). Plan selection
+    (hierarchical="planned", which refused until ported) builds on a
+    (cross, local) mesh and, at one rank, steps as the plain step does;
+    without a mesh it needs the axis tuple, as hierarchical=True does."""
     hvd = one_rank
     w = torch.nn.Parameter(torch.zeros(2))
-    value = "planned" if option == "hierarchical" else True
-    with pytest.raises(NotImplementedError, match=option):
+    if option == "tuned":
+        with pytest.raises(NotImplementedError, match=option):
+            hvd.make_train_step(lambda p, b: p.sum(), torch.optim.SGD([w], lr=0.1), tuned=True)
+        return
+    from horovod_tpu_torch.parallel.mesh import build_hierarchical_mesh
+
+    with pytest.raises(ValueError, match="axis tuple"):
         hvd.make_train_step(lambda p, b: p.sum(), torch.optim.SGD([w], lr=0.1),
-                            **{option: value})
+                            hierarchical="planned")
+    step = hvd.make_train_step(lambda p, b: (p * b).sum(), torch.optim.SGD([w], lr=0.1),
+                               hierarchical="planned", mesh=build_hierarchical_mesh(1),
+                               topo_algorithm="two-level")
+    assert float(step(w, torch.tensor([2.0, -1.0]))) == 0.0
+    assert torch.equal(w.detach(), torch.tensor([-0.2, 0.1]))
+    assert step.optimizer._hierarchical == "planned"
 
 
 @pytest.mark.parametrize("kwargs,match", [

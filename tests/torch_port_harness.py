@@ -116,6 +116,8 @@ for name, v in cfg["variants"].items():
         opt = hvd.DistributedOptimizer(adamw, named_parameters=model.named_parameters(), **kw)
         step = hvd.make_train_step(loss_fn, opt)
     out = {"losses": [], "groups": [], "raised": [], "unchanged": []}
+    if v.get("metrics"):
+        hvd.metrics.install(True)
     for s in range(cfg["steps"]):
         poison = torch.zeros(per)
         if v.get("poison") == [s, r] or v.get("poison") == [s, -1]:
@@ -133,6 +135,13 @@ for name, v in cfg["variants"].items():
         if s == 0 and opt._zero1 and opt.zero1_state.ef is not None:
             first_zero1_ef = {f"z1:{g}/{b}": e.clone().numpy()
                               for g, bs in opt.zero1_state.ef.items() for b, e in bs.items()}
+    if v.get("metrics"):
+        snap = hvd.metrics.snapshot()
+        out["plans"] = {name: sorted(sorted(x["labels"].items()) for x in snap[name]["series"])
+                        for name in ("hvd_topo_plan_info", "hvd_topo_bytes_per_hop")
+                        if name in snap}
+        out["selected"] = {str(k): a for k, a in sorted(opt.selected_plans.items())}
+        hvd.metrics.reset()
     arrays = {f"p:{k}": a for k, a in params_to_numpy(model).items()}
     if opt._use_ef and not opt._zero1:
         names = sorted(n for n, _ in model.named_parameters())
@@ -170,7 +179,9 @@ def run_port_variants(workdir, variants: dict, n: int, setup) -> dict:
     spawn; returns ``{name: [per-rank dict of arrays, losses, ...]}``. A
     variant with ``"local_size"`` passes its kwargs to ``make_train_step``
     with a plain optimizer on a ``build_hierarchical_mesh(local_size)``
-    mesh."""
+    mesh; one with ``"metrics"`` runs with the metrics tap on and returns
+    the ``hvd_topo_*`` series' labels (``plans``) and the optimizer's
+    ``selected_plans`` (``selected``)."""
     import json
 
     import numpy as np
