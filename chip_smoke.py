@@ -314,6 +314,21 @@ Phases, each printed as it ends:
    step after the respawn, the driver kill to the first step after the
    re-formation, and the scale-out decision to the new replica's first
    token, each on the card named above.
+22. ``[tune]``: the compiled-path tuner's pins (``horovod_tpu_torch/tune``,
+   ROADMAP A13b) on the GPT-2-small DP step (8 x 1024, bf16, AdamW 3e-4,
+   weight decay 1e-4, ``overlap=True``). An eager allreduce under
+   ``HOROVOD_TUNED_FILE`` first: its plan verdict carries ``tuned_info``
+   (source ``env``, the pin's signature). Then a ``tuned.json`` of 2 MiB
+   threshold, 256 KiB first bucket and the f32 wire, keyed on the live
+   step's signature, applied through ``tuned=<path>`` and through
+   ``HOROVOD_TUNED_FILE``, against the same knobs by hand
+   (``tune.tuned_step_kwargs``), 3 steps each from seed 0 in turns: losses
+   bitwise equal, 12 + 12 B1 launches a step. A pin keyed on another mesh
+   (``{"data": 4}``) warns, builds untuned and gives the untuned step's
+   losses bitwise, with ``hvd_tuned_info{matched="0"}``. Last, ``python -m
+   horovod_tpu_torch.bench --model transformer --batch-size 8 --tuned
+   <path>`` (2 iterations of 5 steps): its JSON line with the mode
+   ``posthoc+tuned`` and the matched ``tuned`` block.
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -3984,6 +3999,177 @@ def phase_elastic_driver(card):
     print(f"[elastic-driver] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+TUNE_STEPS = 3                  # [tune]: steps of each GPT-2-small run, in turns
+TUNE_KNOBS = {"fusion_threshold_bytes": 2 << 20, "first_bucket_bytes": 256 << 10,
+              "topo_algorithm": "auto", "wire_dtype": "f32"}
+
+
+def _tune_run(step_kw: dict, tokens, labels, env_file=None):
+    """One GPT-2-small DP run of [tune]: a fresh seeded model, AdamW 3e-4
+    (weight decay 1e-4), ``make_train_step(overlap=True, **step_kw)`` with
+    ``HOROVOD_TUNED_FILE`` set to ``env_file`` while the step builds;
+    returns its losses and B1's launches a step (forward, dQ + dK/dV)."""
+    import os
+
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    model = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8)
+    if env_file:
+        os.environ["HOROVOD_TUNED_FILE"] = env_file
+    try:
+        step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]), opt, overlap=True,
+                                   **step_kw)
+        losses, launches = [], []
+        for _ in range(TUNE_STEPS):
+            c = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+            losses.append(float(step(model, (tokens, labels))))
+            launches.append((fa.FWD_LAUNCHES - c[0], fa.BWD_LAUNCHES - c[1]))
+    finally:
+        os.environ.pop("HOROVOD_TUNED_FILE", None)
+    knobs = (step.optimizer._threshold, step.optimizer._first_bucket, step.optimizer._quantized)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return losses, launches, knobs
+
+
+def phase_tune(card):
+    """[tune]: the compiled-path tuner's pins applied on the card
+    (``horovod_tpu_torch/tune``). A ``tuned.json`` with ``TUNE_KNOBS`` (2 MiB
+    threshold, 256 KiB first bucket, f32) keyed on the live GPT-2-small DP
+    step's signature (``tune.spec_from_params`` of the module, mesh
+    ``{"data": 1}``): the step built with ``tuned=<path>``, with
+    ``HOROVOD_TUNED_FILE=<path>`` and with the same knobs by hand
+    (``tune.tuned_step_kwargs``), each ``overlap=True``, 3 steps from seed 0
+    in turns: their losses bitwise equal, 12 + 12 B1 launches a step. A pin
+    keyed on ``{"data": 4}`` warns (``FALLING BACK``), builds untuned
+    (64 MiB / 1 MiB) and gives the untuned step's losses bitwise, with
+    ``hvd_tuned_info{matched="0"}``. An eager allreduce under
+    ``HOROVOD_TUNED_FILE`` carries ``tuned_info`` (source ``env``, the pin's
+    signature) in its plan verdict. Then ``python -m horovod_tpu_torch.bench
+    --model transformer --batch-size 8 --tuned <path>``: its JSON line, the
+    mode ending ``+tuned`` and the ``tuned`` block matched."""
+    import logging
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch import tune as T
+    from horovod_tpu_torch.core import nccl_executor as ne
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(0)
+    tokens, labels = (torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"], (BATCH, SEQ)))
+                      .cuda() for _ in range(2))
+    meta = TransformerLM(**GPT2_SMALL, max_len=SEQ, device="meta")
+    spec = T.spec_from_params("transformer", meta, mesh={"data": 1})
+    cfg = T.TunedConfig(knobs=dict(TUNE_KNOBS), signature=spec.signature, objectives={},
+                        baseline={}, program="transformer")
+    stale = T.TunedConfig(knobs=dict(TUNE_KNOBS), objectives={}, baseline={},
+                          program="transformer",
+                          signature=T.spec_from_params("transformer", meta,
+                                                       mesh={"data": 4}).signature)
+    with tempfile.TemporaryDirectory(prefix="tune_") as work:
+        path, stale_path = (os.path.join(work, f) for f in ("tuned.json", "stale.json"))
+        T.save_tuned(cfg, path)
+        T.save_tuned(stale, stale_path)
+        # The eager verdict first, before any step records an application.
+        seen = []
+        execute = ne.NcclPlanExecutor.execute
+
+        def spy(self, plan, entries, topo):
+            out = execute(self, plan, entries, topo)
+            seen.append(dict(plan))
+            return out
+
+        os.environ["HOROVOD_TUNED_FILE"] = path
+        ne.NcclPlanExecutor.execute = spy
+        try:
+            hvd.init()
+            hvd.allreduce(torch.ones(4, device="cuda"), name="tune.verdict")
+        finally:
+            ne.NcclPlanExecutor.execute = execute
+            os.environ.pop("HOROVOD_TUNED_FILE", None)
+        try:
+            info = seen[-1].get("tuned_info") if seen else None
+            check(info is not None and info["source"] == "env"
+                  and info["signature"] == cfg.signature_hash,
+                  f"[tune] the eager verdict's tuned_info {info}, want env / "
+                  f"{cfg.signature_hash}")
+            print(f"[tune] eager allreduce under HOROVOD_TUNED_FILE: plan verdict tuned_info "
+                  f"{info}", flush=True)
+            runs = {}
+            hand_kw = dict(tuned=False, **T.tuned_step_kwargs(cfg))
+            for name, kw, env in (("tuned=path", dict(tuned=path), None),
+                                  ("hand", hand_kw, None),
+                                  ("HOROVOD_TUNED_FILE", {}, path),
+                                  ("untuned", dict(tuned=False), None)):
+                runs[name] = _tune_run(kw, tokens, labels, env)
+                applied = T.applied_tuned_info() if "untuned" != name != "hand" else "-"
+                print(f"[tune] {name}: losses {runs[name][0]}, (threshold, first bucket, "
+                      f"quantized) {runs[name][2]}, B1 launches a step {runs[name][1]}; "
+                      f"applied {applied}", flush=True)
+            want_launches = [(GPT2_SMALL["n_layers"], GPT2_SMALL["n_layers"])] * TUNE_STEPS
+            for name in ("tuned=path", "HOROVOD_TUNED_FILE"):
+                check(runs[name][0] == runs["hand"][0],
+                      f"[tune] {name} losses {runs[name][0]} != hand-set {runs['hand'][0]}")
+                check(runs[name][2] == (TUNE_KNOBS["fusion_threshold_bytes"],
+                                        TUNE_KNOBS["first_bucket_bytes"], False),
+                      f"[tune] {name} built with {runs[name][2]}")
+                check(runs[name][1] == want_launches,
+                      f"[tune] {name} B1 launches {runs[name][1]}")
+            # The stale pin: loud, untuned, gauged.
+            records = []
+            handler = logging.Handler()
+            handler.emit = records.append
+            logging.getLogger("horovod_tpu_torch").addHandler(handler)
+            metrics.install(True)
+            try:
+                runs["stale"] = _tune_run(dict(tuned=stale_path), tokens, labels)
+                gauges = [k for k in metrics.flat() if k.startswith("hvd_tuned_info")]
+            finally:
+                metrics.install(False)
+                metrics.reset()
+                logging.getLogger("horovod_tpu_torch").removeHandler(handler)
+            warned = any("FALLING BACK" in r.getMessage() for r in records)
+            print(f"[tune] stale pin (keyed on {{'data': 4}}): warned {warned}, losses "
+                  f"{runs['stale'][0]}, built with {runs['stale'][2]}, gauge {gauges}",
+                  flush=True)
+            check(warned, "[tune] the stale pin did not warn")
+            check(runs["stale"][0] == runs["untuned"][0],
+                  f"[tune] stale losses {runs['stale'][0]} != untuned {runs['untuned'][0]}")
+            check(runs["stale"][2] == runs["untuned"][2],
+                  f"[tune] the stale pin built {runs['stale'][2]}")
+            check(any('matched="0"' in g for g in gauges), f"[tune] gauge {gauges}")
+        finally:
+            hvd.shutdown()
+        torch.cuda.empty_cache()
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.bench", "--model", "transformer",
+             "--batch-size", "8", "--tuned", path, "--num-warmup-batches", "2",
+             "--num-batches-per-iter", "5", "--num-iters", "2"],
+            capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"[tune] bench --tuned exited {out.returncode}: "
+                                   f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        detail = line["detail"]
+        print(f"[tune] bench --tuned: {line['metric']} {line['value']} {line['unit']}, mode "
+              f"{detail['reduction_mode']}, tuned {detail['tuned']}, loss {detail['loss']}, "
+              f"step {detail['step_time_s']} s on {card}", flush=True)
+        check(line["metric"] == "transformer_synthetic_tokens_per_sec_per_chip"
+              and detail["reduction_mode"].endswith("+tuned")
+              and detail["tuned"]["matched"] and np.isfinite(detail["loss"]),
+              f"[tune] bench --tuned line {line}")
+    print(f"[tune] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def gpt_family(name: str) -> str:
     """The GPT steps' kernel families: the port's flash kernels (no SDPA in
     the step), cuBLAS GEMMs, NCCL, everything else."""
@@ -4113,6 +4299,7 @@ def main() -> int:
     phase_chaos(card)
     phase_elastic(card)
     phase_elastic_driver(card)
+    phase_tune(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -65,6 +65,13 @@ the host); ``--smoke`` keeps the reference's smoke geometry. It runs on one
 card; the tensor-parallel server is timed by ``python -m
 horovod_tpu_torch.tools.serve_parity --bench``.
 
+``--tuned <tuned.json>`` is ``bench.py``'s: a pin whose signature matches
+the live step (the module's parameter names, shapes and dtypes on the flat
+``{"data": ranks}`` mesh) gives its fusion threshold, first bucket and wire
+(``--quantized`` wins), the mode gains ``+tuned`` and ``detail["tuned"]``
+names the file, signature and knobs; a stale pin warns and runs untuned,
+and ``--quantized`` refuses a pin made on another mesh.
+
 Options of ``bench.py`` that the port has not ported exit non-zero and
 name the ROADMAP item that ports them.
 """
@@ -78,6 +85,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from typing import Optional
 
 import numpy as np
 
@@ -123,7 +132,6 @@ UNPORTED = {
     "tp": "A6, the bench's composed DP x TP mode (the A9 step is timed by "
           "horovod_tpu_torch.tools.tp_parity --bench)",
     "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
-    "tuned": "A13b (tune/)",
 }
 # bench.py:1361-1364: the serving benchmark's smoke geometry.
 SERVE_SMOKE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=1, max_len=64)
@@ -254,7 +262,10 @@ def parse_args(argv=None):
                     help="--serve: DP serving replicas")
     ap.add_argument("--scan", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--tuned", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--tuned", default="",
+                    help="a tuned.json (python -m horovod_tpu_torch.tools.autotune_compiled): "
+                         "its knobs apply when its signature matches this run's step; "
+                         "explicit flags win")
     args = ap.parse_args(argv)
     for flag, item in UNPORTED.items():
         if getattr(args, flag):
@@ -298,11 +309,47 @@ def parse_args(argv=None):
     return args
 
 
-def reduction_mode(args) -> str:
-    """``bench.py``'s ``reduction_mode`` for these flags."""
+def reduction_mode(args, quantized: Optional[bool] = None, tuned: bool = False) -> str:
+    """``bench.py``'s ``reduction_mode`` for these flags (``quantized``: the
+    wire in effect, where a pin turned it on; ``tuned``: a pin applied)."""
+    q = args.quantized if quantized is None else quantized
     mode = (("overlap+" if args.overlap else "")
-            + ("quantized" if args.quantized else ("streamed" if args.overlap else "posthoc")))
-    return mode + ("+zero1" if args.zero1 else "")
+            + ("quantized" if q else ("streamed" if args.overlap else "posthoc")))
+    return mode + ("+zero1" if args.zero1 else "") + ("+tuned" if tuned else "")
+
+
+def _resolve_tuned(args, model, n: int):
+    """Resolve ``--tuned`` against the live step (the module's parameters on
+    the flat ``{"data": n}`` mesh), as ``bench.py:_resolve_tuned``: returns
+    ``(step_kwargs or None, detail block or None)``. The block lands in the
+    report matched or not, so a capture names the knobs that produced it; a
+    ``--quantized`` run refuses a pin made on another mesh."""
+    if not args.tuned:
+        return None, None
+    from . import tune as T
+
+    cfg = T.load_tuned(args.tuned)
+    live = T.step_signature(model, mesh={"data": n})
+    matched = T.signatures_match(cfg.signature, live)
+    if not matched:
+        tuned_mesh, live_mesh = T.mesh_axes_hash(cfg.signature), T.mesh_axes_hash(live)
+        if args.quantized and tuned_mesh != live_mesh:
+            # The int8 wire's verdict is a function of the mesh's hop
+            # ladder: a pin made on another mesh cannot vouch for it.
+            raise SystemExit(
+                f"bench: refusing --quantized with --tuned {args.tuned}: the tuning was "
+                f"pinned on mesh-axes hash {tuned_mesh} but this run's mesh axes hash to "
+                f"{live_mesh} — re-run horovod_tpu_torch.tools.autotune_compiled on THIS "
+                f"mesh (or drop --quantized/--tuned)")
+        why = (f"mesh-axes hash {tuned_mesh} (pinned) vs {live_mesh} (live)"
+               + ("; params half matches" if T.params_match(cfg.signature, live)
+                  else "; params half differs too"))
+        print(f"[bench] tuned signature mismatch: {why}", file=sys.stderr, flush=True)
+        T.warn_signature_mismatch(cfg, live.get("hash", "?"), "bench")
+    T.note_applied("file", cfg.signature_hash, matched, "bench")
+    detail = {"path": args.tuned, "program": cfg.program, "signature": cfg.signature_hash,
+              "matched": bool(matched), "knobs": dict(cfg.knobs) if matched else None}
+    return (T.tuned_step_kwargs(cfg) if matched else None), detail
 
 
 def _build_cnn(args, dev, rank, n):
@@ -366,6 +413,11 @@ def run(args) -> int:
         model, batch, loss_fn = (_build_transformer if transformer else _build_cnn)(
             args, dev, rank, n)
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        # A pinned tuning gives the threshold, the first bucket and the wire,
+        # as bench.py applies one; --quantized wins over the pin's wire.
+        tuned_kw, tuned_detail = _resolve_tuned(args, model, n)
+        tk = tuned_kw or {}
+        quantized = bool(args.quantized) or bool(tk.get("quantized"))
         if transformer:
             inner = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8)
         else:
@@ -373,12 +425,14 @@ def run(args) -> int:
         if args.zero1 and not args.overlap:
             from .parallel.zero import make_zero1_train_step
 
-            step = make_zero1_train_step(loss_fn, inner, quantized=args.quantized)
+            step = make_zero1_train_step(loss_fn, inner, quantized=quantized)
         else:
             opt = hvd.DistributedOptimizer(
                 inner, named_parameters=model.named_parameters(), overlap=args.overlap,
-                zero1=args.zero1, quantized=args.quantized,
-                error_feedback=False if args.quantized else None)
+                zero1=args.zero1, quantized=quantized,
+                error_feedback=False if quantized else None,
+                fusion_threshold_bytes=tk.get("fusion_threshold_bytes"),
+                first_bucket_bytes=tk.get("first_bucket_bytes"), tuned=False)
             hvd.broadcast_optimizer_state(opt, root_rank=0)
             step = hvd.make_train_step(loss_fn, opt)
 
@@ -423,7 +477,7 @@ def run(args) -> int:
             "device_kind": kind,
             "power_limit": _power_limit(dev) if on_card else "not measured",
             "scan": False,
-            "tuned": None,
+            "tuned": tuned_detail,
             "mfu": _mfu(flops, steps, min(iter_times), kind) if on_card else None,
             "flops_per_step_per_chip": round(flops) if flops else None,
             "flops_source": source,
@@ -445,9 +499,9 @@ def run(args) -> int:
                     "attention": ("flash (CUDA kernels B1)" if on_card
                                   else "flash (plain PyTorch versions on the CPU)"),
                     "optimizer_state": "zero1-sharded" if args.zero1 else "replicated",
-                    "gradient_wire": ("int8-quantized" if args.quantized
+                    "gradient_wire": ("int8-quantized" if quantized
                                       else "full-precision"),
-                    "reduction_mode": reduction_mode(args),
+                    "reduction_mode": reduction_mode(args, quantized, bool(tuned_kw)),
                     "step_time_s": round(float(np.mean(iter_times)) / steps, 6),
                     **common,
                 },

@@ -116,6 +116,25 @@ class NcclPlanExecutor(PlanExecutor):
             self._topo_model = None
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._done = None
+        # The compiled path's tuned source (``tune.current_tuned_source``:
+        # file/env/none and the pinned signature's hash), stamped into
+        # every executed plan beside the native core's ``tuned_flags`` and
+        # exported as the ``hvd_tuned_info`` gauge.
+        try:
+            from .. import tune as _tune
+
+            self._tuned_info = _tune.current_tuned_source()
+        except Exception:  # noqa: BLE001 - tuning must not block the plane
+            self._tuned_info = {"source": "none", "signature": "-", "matched": False,
+                                "where": "-"}
+        if _metrics.ACTIVE:
+            _metrics.TAP.set(
+                "hvd_tuned_info", 1.0,
+                source=str(self._tuned_info.get("source", "none")),
+                signature=str(self._tuned_info.get("signature", "-")),
+                matched="1" if self._tuned_info.get("matched") else "0",
+                where="executor",
+            )
 
     # --- PlanExecutor hooks ---
     def thread_init(self) -> None:
@@ -171,7 +190,13 @@ class NcclPlanExecutor(PlanExecutor):
         return bool(getattr(self._config, name, False)) if self._config else False
 
     # --- execution ---
+    def tuned_info(self) -> Dict[str, Any]:
+        """The compiled-path tuned source this executor stamps into plan
+        verdicts."""
+        return dict(self._tuned_info)
+
     def execute(self, plan: dict, entries, topo: Topology) -> Dict[str, Any]:
+        plan.setdefault("tuned_info", dict(self._tuned_info))
         ctx = self._set_ctx(plan)
         with contextlib.ExitStack() as stack:
             if self._cuda:

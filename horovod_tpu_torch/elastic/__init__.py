@@ -457,14 +457,21 @@ def adopted_replan() -> Optional[Dict[str, Any]]:
 
 
 def adopted_step_kwargs() -> Optional[Dict[str, Any]]:
-    """The step knobs of the adopted re-plan. None before any adoption;
-    after one it raises: the translation (``tune.tuned_step_kwargs``) is
-    ROADMAP A13b, not ported yet."""
+    """The ``make_train_step`` knobs the adopted re-plan maps to, through
+    the same ``tune.tuned_step_kwargs`` a pinned ``tuned.json`` takes, so a
+    re-planned step is bitwise the same knobs passed by hand. None before
+    any adoption; a training loop splats it when it (re)builds its step::
+
+        kwargs = hvd.elastic.adopted_step_kwargs() or {}
+        step = hvd.make_train_step(loss_fn, opt, **kwargs)
+    """
     if _adopted_replan is None:
         return None
-    raise NotImplementedError(
-        "adopted_step_kwargs maps a re-plan onto make_train_step knobs through "
-        "tune.tuned_step_kwargs, which is not ported yet (ROADMAP A13b)")
+    from ..tune import TunedConfig, tuned_step_kwargs
+
+    cfg = TunedConfig(knobs=dict(_adopted_replan.get("config") or {}), signature={},
+                      objectives={}, baseline={}, program="live-replan")
+    return tuned_step_kwargs(cfg)
 
 
 # --------------------------------------------------------- hot spares

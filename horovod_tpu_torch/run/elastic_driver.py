@@ -28,9 +28,13 @@ supervises an elastic job instead of the fixed fan-out of
   ``max_np`` even when discovery offers more.
 - The control plane is journaled (:mod:`.journal`); ``--resume`` replays
   it and adopts the surviving fleet (:meth:`ElasticDriver._enter_adoption`).
-- The live re-plan (``HOROVOD_REPLAN_DIVERGENCE``, ``HOROVOD_REPLAN_SKEW_S``)
-  needs the tuner of ROADMAP A13b: the driver refuses to start with either
-  above 0.
+- The live re-plan (``HOROVOD_REPLAN_DIVERGENCE``, ``HOROVOD_REPLAN_SKEW_S``;
+  :meth:`ElasticDriver._maybe_replan`): on the supervision beat, a
+  calibration (``HOROVOD_CALIBRATION_FILE``) that drifts from the
+  generation defaults, or a sustained step skew, re-prices the tuner's free
+  objectives on the drifted model; a strictly better, verified
+  configuration is journaled, then published under ``elastic/replan`` for
+  the workers to adopt at their next commit.
 """
 
 from __future__ import annotations
@@ -193,15 +197,6 @@ class ElasticDriver:
         self._failure_threshold = host_failure_threshold
         self._ssh_port = ssh_port
         self._elastic_timeout = elastic_timeout
-        # The live re-plan prices configurations on the tuner and the
-        # interconnect model (selfdrive's planning half): refuse at start
-        # rather than ignore the knobs.
-        for knob in (_selfdrive.REPLAN_DIVERGENCE_ENV, _selfdrive.REPLAN_SKEW_ENV):
-            if _selfdrive._env_float(self._env, knob, 0.0) > 0:
-                raise NotImplementedError(
-                    f"{knob} asks for the live re-plan, which prices configurations on the "
-                    "tuner: not ported yet (ROADMAP A13b); unset it")
-
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
         # Recovery mode for the whole job: explicit
@@ -383,13 +378,31 @@ class ElasticDriver:
         except ValueError:
             self._quarantine_cooldown = blacklist_cooldown
         # --- self-driving fleet: the slowness-quarantine policy over
-        # straggler charges and the hot-spare pool. Both are opt-in
-        # (HOROVOD_QUARANTINE_STRIKES unset and --spares 0 keep the driver
-        # exactly as before). A re-plan notice is never made here (ROADMAP
-        # A13b); one journaled by the JAX package's driver is carried and
-        # re-stamped as it would be there.
+        # straggler charges, the live re-plan and the hot-spare pool. All
+        # three are opt-in (HOROVOD_QUARANTINE_STRIKES / HOROVOD_REPLAN_*
+        # unset and --spares 0 keep the driver exactly as before).
         self._policy = _selfdrive.StragglerPolicy.from_env(self._env)
+        self._replan_divergence = _selfdrive._env_float(
+            self._env, _selfdrive.REPLAN_DIVERGENCE_ENV, 0.0
+        )
+        self._replan_skew_s = _selfdrive._env_float(
+            self._env, _selfdrive.REPLAN_SKEW_ENV, 0.0
+        )
+        self._replan_check_s = max(_selfdrive._env_float(
+            self._env, _selfdrive.REPLAN_CHECK_ENV, 5.0
+        ), 0.5)
+        self._last_replan_check = 0.0
         self._replan_doc: Optional[Dict] = None
+        self._replan_calib_hash: Optional[str] = None
+        # Recent per-step cross-rank skews for the trend trigger; one
+        # skew-trend re-plan per generation (the deque clears on every
+        # publish: fresh world, fresh evidence).
+        from collections import deque as _deque
+
+        self._skew_trend: "_deque[float]" = _deque(
+            maxlen=max(self._policy.window, 8)
+        )
+        self._skew_replanned = False
         if spares is None:
             spares = _selfdrive._env_int(
                 self._env, _selfdrive.SPARES_ENV, 0
@@ -419,6 +432,8 @@ class ElasticDriver:
                 for h, n in (prior.get("slow_strikes") or {}).items()
             }
             self._replan_doc = prior.get("replan") or None
+            if self._replan_doc:
+                self._replan_calib_hash = self._replan_doc.get("calib")
             self._failures = {
                 h: int(n) for h, n in (prior.get("failures") or {}).items()
             }
@@ -562,9 +577,11 @@ class ElasticDriver:
                     )
                 # Feed the self-driving quarantine policy: every emitted
                 # step (charged or not) advances its sliding window, so
-                # a rank that recovers decays out.
+                # a rank that recovers decays out. The same emission feeds
+                # the re-plan's skew-trend window.
                 if self._policy.enabled:
                     self._policy.observe(idx, skew, worst, charged)
+                self._skew_trend.append(skew)
         try:
             data = json.dumps(
                 _trace.TAP.window(), sort_keys=True
@@ -974,6 +991,8 @@ class ElasticDriver:
             if h in self._blacklist
         }
         self._replan_doc = prior.get("replan") or None
+        if self._replan_doc:
+            self._replan_calib_hash = self._replan_doc.get("calib")
         self._failures = {
             h: int(n) for h, n in (prior.get("failures") or {}).items()
         }
@@ -1162,6 +1181,180 @@ class ElasticDriver:
             return False
         self._quarantine_slow_host(decision)
         return True
+
+    def _maybe_replan(self) -> None:
+        """Live re-plan check on the supervision beat, with two
+        triggers: (a) the calibrated per-hop constants
+        (HOROVOD_CALIBRATION_FILE — the artifact ``tools/fleet_sim.py
+        --calibrate`` fits and ``--replay`` diffs) drift from the
+        generation defaults beyond ``HOROVOD_REPLAN_DIVERGENCE``
+        (one-shot per calibration signature), or (b) the
+        ``StepSkewTracker`` trend — mean cross-rank skew over the
+        recent window — stays above ``HOROVOD_REPLAN_SKEW_S`` (one-shot
+        per generation). Either way the tuner's free objectives are
+        re-priced on the best-available model, every implied plan is
+        verified symbolically, the notice is journaled (WAL) and then
+        published under ``elastic/replan`` for workers to adopt at
+        their next commit boundary."""
+        if self._adopting or (self._replan_divergence <= 0
+                              and self._replan_skew_s <= 0):
+            return
+        now = time.monotonic()
+        if now - self._last_replan_check < self._replan_check_s:
+            return
+        self._last_replan_check = now
+        if not self._last_world:
+            return
+        try:
+            from ..sim.calibrate import resolve_calibration
+
+            calib = resolve_calibration(None)
+        except Exception:  # noqa: BLE001 - a bad file must not kill the loop
+            calib = None
+        model = _selfdrive.model_for_world(self._last_world)
+        trigger = None
+        per_hop: Dict[str, float] = {}
+        drift = 0.0
+        priced_calib = None
+        if (self._replan_divergence > 0 and calib is not None
+                and calib.signature_hash != self._replan_calib_hash):
+            from ..tune.objective import calibrated_model
+
+            drifted, info = calibrated_model(
+                model, calib, where="driver-replan"
+            )
+            if info.get("stale"):
+                # Signature mismatch already warned loudly; don't retry
+                # every beat against the same stale file.
+                self._replan_calib_hash = calib.signature_hash
+            else:
+                ratios = _selfdrive.divergence_ratios(model, drifted)
+                d = _selfdrive.max_divergence(ratios)
+                if d >= self._replan_divergence:
+                    trigger, per_hop, drift = "divergence", ratios, d
+                    priced_calib = calib
+                else:
+                    self._replan_calib_hash = calib.signature_hash
+        if (trigger is None and self._replan_skew_s > 0
+                and not self._skew_replanned):
+            trend = _selfdrive.skew_trend(self._skew_trend)
+            if trend is not None and trend >= self._replan_skew_s:
+                trigger, drift = "skew-trend", trend
+                priced_calib = calib  # best available; None = defaults
+        if trigger is None:
+            return
+        windows = {
+            r: doc for r, doc in self._collected_windows().items()
+        }
+        try:
+            spec = _selfdrive.spec_from_windows(windows)
+        except Exception as exc:  # noqa: BLE001 - malformed override
+            self._log(f"re-plan: unusable program spec ({exc}); skipping")
+            if trigger == "divergence":
+                self._replan_calib_hash = calib.signature_hash
+            else:
+                self._skew_replanned = True
+            return
+        if spec is None:
+            return  # nothing observed to price yet; retry next beat
+        current = dict(
+            (self._replan_doc or {}).get("config") or {}
+        ) or self._current_plan_config(windows)
+        proposal = _selfdrive.propose_replan(
+            spec, model, current, priced_calib,
+            trigger=trigger, per_hop=per_hop, drift=drift,
+        )
+        if trigger == "divergence":
+            self._replan_calib_hash = calib.signature_hash
+        else:
+            self._skew_replanned = True
+        if proposal is None:
+            self._log(
+                f"re-plan ({trigger}, drift {drift:g}): the current "
+                "configuration is already optimal on the observed "
+                "model; keeping it"
+            )
+            return
+        findings = _selfdrive.verify_replan(
+            spec, proposal.config, model, priced_calib
+        )
+        if findings:
+            self._log(
+                f"re-plan REFUSED: {len(findings)} plan-verification "
+                f"finding(s) on the proposed configuration "
+                f"({findings[0].render() if findings else ''})"
+            )
+            if _metrics.ACTIVE:
+                _metrics.TAP.inc(
+                    "hvd_replan_total", trigger="refused-verification"
+                )
+            return
+        notice_id = int((self._replan_doc or {}).get("id", 0)) + 1
+        doc = proposal.to_notice(notice_id, self._gen, self._epoch)
+        doc["calib"] = (
+            priced_calib.signature_hash if priced_calib is not None
+            else None
+        )
+        self._replan_doc = doc
+        self._journal_sync(force=True)  # WAL before workers can see it
+        self._kv.put(
+            "elastic", "replan",
+            json.dumps(doc, sort_keys=True).encode(),
+        )
+        if _metrics.ACTIVE:
+            _metrics.TAP.inc("hvd_replan_total", trigger=proposal.trigger)
+        self._trace_event(
+            "hvd_replan", id=notice_id, trigger=proposal.trigger,
+            drift=round(drift, 6), config=dict(proposal.config),
+        )
+        if _fault.ACTIVE:
+            _fault.record_event(
+                "driver", notice_id, "replan",
+                f"trigger={proposal.trigger} "
+                f"wire={proposal.config['wire_dtype']} "
+                f"topo={proposal.config['topo_algorithm']}",
+            )
+        self._log(
+            f"re-plan #{notice_id} published (trigger "
+            f"{proposal.trigger}, drift {drift:g}): "
+            f"{proposal.current} -> {proposal.config}; modeled exposed "
+            f"{proposal.current_exposed_us:g}us -> "
+            f"{proposal.replanned_exposed_us:g}us"
+        )
+
+    def _collected_windows(self) -> Dict[int, dict]:
+        """Freshest worker trace windows off the KV plane (current
+        generation only — stale-generation windows carry renumbered
+        ranks)."""
+        from ..trace import pusher as _tpush
+
+        out: Dict[int, dict] = {}
+        for key, payload in self._kv.snapshot(_trace.KV_SCOPE).items():
+            if not key.startswith("rank."):
+                continue
+            suffix = key.split(".", 1)[1]
+            if not suffix.isdigit():
+                continue
+            doc = _tpush.decode_window(payload)
+            if doc is None:
+                continue
+            if int(doc.get("gen", 0) or 0) not in (0, self._gen):
+                continue
+            out[int(suffix)] = doc
+        return out
+
+    def _current_plan_config(self, windows: Dict[int, dict]) -> Dict:
+        """The fleet's current lowering knobs as the workers reported
+        them (trace-tap ``note_plan`` correlation ids); absent fields
+        fall back to env/config defaults inside the policy layer."""
+        cfg: Dict = {}
+        for _, doc in sorted(windows.items()):
+            plan = doc.get("plan") or {}
+            for src, dst in (("topo_algorithm", "topo_algorithm"),
+                             ("wire_dtype", "wire_dtype")):
+                if plan.get(src) and dst not in cfg:
+                    cfg[dst] = plan[src]
+        return cfg
 
     def _discover(self) -> List[Tuple[str, int]]:
         self._expire_blacklist()
@@ -1519,6 +1712,8 @@ class ElasticDriver:
         if self._skew is not None:
             self._skew.reset_generation(self._gen)
         self._policy.reset_generation(self._gen)
+        self._skew_trend.clear()
+        self._skew_replanned = False
         for key in list(self._kv.snapshot(_trace.KV_SCOPE)):
             if key.startswith("rank."):
                 self._kv.delete(_trace.KV_SCOPE, key)
@@ -1946,6 +2141,7 @@ class ElasticDriver:
                 self._poll_spares()
                 if self._maybe_quarantine_slow():
                     changed = True
+                self._maybe_replan()
             # Reap draining removed workers (exit code irrelevant);
             # terminate stragglers past the grace window.
             still_removing = []

@@ -18,20 +18,25 @@ engine act on, with no clock, no thread and no torch.
    :func:`skew_trend`, :func:`replay_divergence`) and the resize's bytes
    (:func:`price_resize`).
 
-The live re-plan's planning half (:func:`candidate_configs`,
-:func:`propose_replan`, :func:`verify_replan`, :func:`spec_from_windows`,
-:func:`model_for_world`) prices configurations on the tuner, which the
-port does not have yet: each raises ``NotImplementedError`` naming ROADMAP
-A13b, and so does :func:`price_resize` when it is given a model. (The
-simulator, the plan verifier and the interconnect model it builds on are
-``sim/``, ``analysis/plan_verify.py`` and ``topo/``.)
+4. **Live re-plan** (:func:`propose_replan`): when the calibrated per-hop
+   constants drift from the generation defaults beyond
+   ``HOROVOD_REPLAN_DIVERGENCE``, or the skew trend says the current plan
+   is mispriced, re-price the tuner's free objectives
+   (``tune/objective.py``) on the drifted model over a small grid
+   (:func:`candidate_configs`) and propose the best configuration,
+   published only when it is STRICTLY better than the current one and
+   every plan it implies passes the symbolic verifier
+   (:func:`verify_replan`). :func:`spec_from_windows` reconstructs the
+   program from the fleet's trace windows (or ``HOROVOD_REPLAN_SPEC``),
+   :func:`model_for_world` the interconnect model from the published world
+   (``h100`` on an H100, as ``topo/model.py`` detects it).
 """
 
 from __future__ import annotations
 
 import os
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 # --------------------------------------------------------------- knobs
@@ -360,56 +365,145 @@ def replay_divergence(report: Dict) -> Dict[str, float]:
     return out
 
 
-_A13 = ("is the live re-plan's planning half, which prices configurations on the tuner: "
-        "not ported yet (ROADMAP A13b)")
+_DEFAULT_CONFIG_KEYS = (
+    "fusion_threshold_bytes", "first_bucket_bytes", "topo_algorithm",
+    "wire_dtype",
+)
 
 
-def _needs_a13(name: str):
-    raise NotImplementedError(f"selfdrive.{name} {_A13}")
+def _normalize_config(config: Optional[Dict]) -> Dict:
+    from ..common.env import Config
+
+    cfg = dict(config or {})
+    base = Config.from_env()
+    cfg.setdefault("fusion_threshold_bytes",
+                   int(base.fusion_threshold_bytes))
+    cfg.setdefault("first_bucket_bytes",
+                   int(base.fusion_first_bucket_bytes))
+    cfg.setdefault("topo_algorithm", "auto")
+    cfg.setdefault("wire_dtype", "f32")
+    return {k: cfg[k] for k in _DEFAULT_CONFIG_KEYS}
 
 
 def candidate_configs(model, current: Dict) -> List[Dict]:
-    """The re-plan grid over the compositor's topo choices. ROADMAP A13."""
-    _needs_a13("candidate_configs")
+    """The deterministic re-plan grid: every topo choice the compositor
+    can realize on this model x both wire dtypes, over the current
+    bucket knobs plus the tuner's canonical first-bucket alternatives.
+    Small on purpose — a re-plan prices in one supervision beat; the
+    full GP search stays offline (tools/autotune_compiled.py)."""
+    topos = ["auto", "flat"]
+    if model.levels > 1:
+        topos += ["two-level", "split"]
+    first_buckets = sorted({
+        int(current["first_bucket_bytes"]), 1 << 20, 4 << 20,
+    })
+    out: List[Dict] = []
+    for topo in topos:
+        for wire in ("f32", "int8"):
+            for fb in first_buckets:
+                out.append({
+                    "fusion_threshold_bytes":
+                        int(current["fusion_threshold_bytes"]),
+                    "first_bucket_bytes": fb,
+                    "topo_algorithm": topo,
+                    "wire_dtype": wire,
+                })
+    return out
 
 
-def propose_replan(spec, model, current_config: Optional[Dict], calibration,
-                   trigger: str = "divergence", per_hop: Optional[Dict[str, float]] = None,
-                   drift: float = 0.0):
-    """Re-price the tuner's free objectives on the drifted model. ROADMAP A13."""
-    _needs_a13("propose_replan")
+@dataclass
+class ReplanProposal:
+    """A priced, not-yet-verified re-plan: the winning knob set, the
+    incumbent it beats, and the modeled evidence (exposed-us on the
+    drifted model) that justifies publishing it."""
+
+    config: Dict
+    current: Dict
+    current_exposed_us: float
+    replanned_exposed_us: float
+    trigger: str
+    drift: float
+    per_hop: Dict[str, float] = field(default_factory=dict)
+
+    def to_notice(self, notice_id: int, gen: int, epoch: int) -> Dict:
+        """The KV document workers adopt at a commit boundary. Stable
+        key order (the driver serializes it sort_keys) and no wall
+        clock — the notice must journal/diff deterministically."""
+        return {
+            "id": int(notice_id),
+            "gen": int(gen),
+            "epoch": int(epoch),
+            "trigger": self.trigger,
+            "drift": round(self.drift, 6),
+            "per_hop": {k: v for k, v in sorted(self.per_hop.items())},
+            "config": dict(self.config),
+            "current": dict(self.current),
+            "modeled": {
+                "current_exposed_us": round(self.current_exposed_us, 4),
+                "replanned_exposed_us": round(self.replanned_exposed_us, 4),
+            },
+        }
 
 
-def verify_replan(spec, config: Dict, model, calibration) -> List:
-    """Verify every plan a configuration implies. ROADMAP A13."""
-    _needs_a13("verify_replan")
+def propose_replan(
+    spec,
+    model,
+    current_config: Optional[Dict],
+    calibration,
+    trigger: str = "divergence",
+    per_hop: Optional[Dict[str, float]] = None,
+    drift: float = 0.0,
+) -> Optional[ReplanProposal]:
+    """Re-price the free objectives on the CALIBRATED (drifted) model
+    and return the best configuration — or None when the incumbent is
+    already the best (a re-plan that does not strictly win modeled step
+    time is never published; the smoke gates on this)."""
+    from ..tune.objective import free_objectives
 
-
-def spec_from_windows(windows: Dict[int, dict]):
-    """The fleet's observed program as a tuner ``ProgramSpec``. ROADMAP A13."""
-    _needs_a13("spec_from_windows")
-
-
-def model_for_world(world: Optional[Dict], generation: Optional[str] = None):
-    """The interconnect model of a published world. ROADMAP A13."""
-    _needs_a13("model_for_world")
+    current = _normalize_config(current_config)
+    cur_obj = free_objectives(spec, current, model, calibration=calibration)
+    best_cfg, best_obj = current, cur_obj
+    for cand in candidate_configs(model, current):
+        if cand == current:
+            continue
+        obj = free_objectives(spec, cand, model, calibration=calibration)
+        if obj["exposed_us"] < best_obj["exposed_us"] or (
+            obj["exposed_us"] == best_obj["exposed_us"]
+            and obj["wire_bytes"] < best_obj["wire_bytes"]
+        ):
+            best_cfg, best_obj = cand, obj
+    if best_cfg == current:
+        return None
+    if not best_obj["exposed_us"] < cur_obj["exposed_us"]:
+        return None
+    return ReplanProposal(
+        config=best_cfg,
+        current=current,
+        current_exposed_us=float(cur_obj["exposed_us"]),
+        replanned_exposed_us=float(best_obj["exposed_us"]),
+        trigger=trigger,
+        drift=float(drift),
+        per_hop=dict(per_hop or {}),
+    )
 
 
 def price_resize(param_bytes: int, n_old: int, n_new: int, model=None, *,
                  opt_slots: int = 2, quantized: bool = False,
                  itemsize: int = 4) -> Dict:
     """Price the sharded-state redistribution of a world resize
-    (quarantine shrink, spare-promotion grow, scale-in/out): the ZeRO-1
-    optimizer state (``opt_slots`` f32 vectors per parameter, Adam 2,
-    momentum 1, plus the EF residual on the int8 wire) is sharded 1/N and
-    re-partitions when N changes (``parallel/reshard`` executes the move
-    this prices). The bytes only: a ``model`` turns them into a modeled
-    time over its outermost hop, which comes with the re-plan's pricing,
-    ROADMAP A13b."""
+    (quarantine shrink, spare-promotion grow, scale-in/out) so the
+    re-plan ladder can weigh "resize now" against its wire cost: the
+    ZeRO-1 optimizer state (``opt_slots`` f32 vectors per parameter —
+    Adam 2, momentum 1 — plus the EF residual on the int8 wire) is
+    sharded 1/N and must re-partition when N changes
+    (``parallel/reshard`` executes the move this prices).
+
+    ``model`` (an ``InterconnectModel``) turns bytes into a modeled
+    time over its OUTERMOST hop — a resize re-forms the world, so the
+    redistribution crosses the slowest fabric; ranks move their slices
+    in parallel, so the serialized bytes are ``moved / min(n)``."""
     from ..parallel.reshard import resize_redistribution
 
-    if model is not None:
-        _needs_a13("price_resize(model=...)")
     elements = max(int(param_bytes) // 4, 0)  # f32 master elements
     copies = int(opt_slots) + (1 if quantized else 0)
     out = resize_redistribution(
@@ -419,4 +513,106 @@ def price_resize(param_bytes: int, n_old: int, n_new: int, model=None, *,
     out["param_bytes"] = int(param_bytes)
     out["opt_slots"] = int(opt_slots)
     out["quantized"] = bool(quantized)
+    if model is not None:
+        hop = model.hops[0]
+        per_rank = out["moved_bytes"] / max(min(int(n_old), int(n_new)), 1)
+        bytes_per_us = float(hop.bandwidth_gbps) * 1000.0
+        out["modeled_time_us"] = round(
+            float(hop.latency_us) + per_rank / bytes_per_us, 4
+        )
+        out["hop"] = hop.name
     return out
+
+
+def verify_replan(spec, config: Dict, model, calibration) -> List:
+    """Symbolically verify every stream-group plan ``config`` implies
+    (the tuner's pre-pin gate, ``analysis/plan_verify``): a re-plan
+    notice is published only when this returns no findings — the driver
+    must never steer the fleet onto a plan the checker can refute."""
+    from ..analysis.plan_verify import verify_plan
+    from ..tune.objective import calibrated_model, group_plans
+
+    if calibration is not None:
+        model, _ = calibrated_model(model, calibration,
+                                    where="replan-verify")
+    findings: List = []
+    for plan in group_plans(spec, config, model):
+        findings.extend(verify_plan(plan, model))
+    return findings
+
+
+# --------------------------------------------- observed-program spec
+def spec_from_windows(windows: Dict[int, dict]):
+    """Reconstruct the fleet's observed program (layer name -> payload
+    bytes) from collected trace windows: the per-collective spans the
+    runtime records carry ``nbytes``, so the driver can price a re-plan
+    against what the fleet ACTUALLY reduces without any side channel.
+    ``HOROVOD_REPLAN_SPEC`` (inline JSON or a path;
+    ``{"layers": [["name", bytes], ...]}``) overrides for operators who
+    want the re-plan priced against a declared program. Returns None
+    when neither source yields a byte."""
+    from ..tune.objective import ProgramSpec
+
+    raw = os.environ.get(REPLAN_SPEC_ENV, "").strip()
+    if raw:
+        import json as _json
+
+        text = raw
+        if not raw.lstrip().startswith("{"):
+            with open(raw) as f:
+                text = f.read()
+        doc = _json.loads(text)
+        layers = tuple(
+            (str(n), int(b)) for n, b in doc.get("layers", []) if int(b) > 0
+        )
+        if layers:
+            return ProgramSpec(
+                name=str(doc.get("name", "replan-spec")), layers=layers
+            )
+    seen: Dict[str, int] = {}
+    order: List[str] = []
+    for _, doc in sorted(windows.items()):
+        for ev in doc.get("events") or []:
+            name = str(ev.get("name", ""))
+            if not name.startswith(("hvd_response", "hvd_plan")):
+                continue
+            args = ev.get("args") or {}
+            nbytes = args.get("nbytes", args.get("bytes"))
+            if not nbytes:
+                continue
+            key = str(args.get("tensor", "")) or name
+            if key not in seen:
+                order.append(key)
+            seen[key] = max(seen.get(key, 0), int(nbytes))
+    layers = tuple((k, seen[k]) for k in order if seen[k] > 0)
+    if not layers:
+        return None
+    return ProgramSpec(name="observed", layers=layers)
+
+
+def model_for_world(world: Optional[Dict], generation: Optional[str] = None):
+    """The interconnect model the driver prices re-plans on, derived
+    from the published world doc's assignment structure (local/cross
+    sizes) exactly as ``topo.model_from_topology`` derives it from a
+    live process: a homogeneous local>1 x cross>1 grid gets the
+    DCN x ICI ladder, anything else collapses to one flat ICI hop.
+    ``HOROVOD_TOPOLOGY_MODEL`` overrides apply as everywhere else."""
+    from ..topo import model as _tm
+
+    size = len((world or {}).get("assignments") or {}) or 1
+    locals_ = {
+        int(a.get("local_size", 1))
+        for a in (world or {}).get("assignments", {}).values()
+    } or {1}
+    crosses = {
+        int(a.get("cross_size", 1))
+        for a in (world or {}).get("assignments", {}).values()
+    } or {1}
+    gen = generation or _tm.detect_generation()
+    local = locals_.pop() if len(locals_) == 1 else 0
+    cross = crosses.pop() if len(crosses) == 1 else 0
+    if local > 1 and cross > 1 and local * cross == size:
+        model = _tm.synthetic_model(local, cross, generation=gen)
+    else:
+        model = _tm.synthetic_model(size, generation=gen)
+    return _tm.apply_override(model)

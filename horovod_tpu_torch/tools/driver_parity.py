@@ -33,7 +33,23 @@ drawn from (seed, step, rank, size). Faults come from a seeded
   answered the rank's rejoin signal before its exit), which resumes from
   the snapshot on disk (a hard kill of the only rank would leave no snapshot:
   respawn snapshots are written on the way out);
-- ``driver1`` (one rank): ``kill_driver`` under ``--auto-resume``.
+- ``driver1`` (one rank): ``kill_driver`` under ``--auto-resume``;
+- ``replan`` (4 ranks): the live re-plan. The worker is the post-hoc DP
+  step (``make_train_step`` over AdamW, the workload ``replan``) and the
+  driver runs with ``HOROVOD_REPLAN_DIVERGENCE=0.5``,
+  ``HOROVOD_REPLAN_SPEC`` (the GPT's layers, ``tune.spec_from_params``) and
+  ``HOROVOD_CALIBRATION_FILE``, a calibration of the driver's own model
+  (``selfdrive.model_for_world``) whose NVLink (``ici``) bandwidth is the
+  row's divided by ``REPLAN_FACTOR``; the file appears once rank 0 passed
+  step 2, so the notice lands mid-run. The driver must publish one notice
+  whose config equals ``selfdrive.propose_replan`` of the same spec, model
+  and calibration in this process; every rank adopts it at the same commit
+  and rebuilds its step from ``elastic.adopted_step_kwargs()``; every loss
+  after the adoption equals, bitwise, a plain 4-rank job that resumes rank
+  0's state at the adoption with those knobs by hand. Figures: the seconds
+  from the notice's publication (the driver's log line, seen within 0.25 s)
+  to the first rank's adoption and to the end of the first adopted step
+  (rank 0 saves its state for the reference in between).
 
 Checks: the job exits 0; the last generation's ranks agree on their
 parameters bitwise; every loss after a re-formation equals, as
@@ -76,6 +92,11 @@ STEPS = 8
 DRIVER_STEPS, DRIVER_PAUSE_S = 16, 1.0
 # kill_driver's after_s: past the workers' start, inside their training.
 DRIVER_KILL_AFTER_S = {"card1": 14.0, "card4": 20.0, "cpu1": 10.0, "cpu4": 12.0}
+# The replan case: its steps, the pause a step (the driver checks on its
+# one-second beat), the step after which the calibration appears, the
+# factor its NVLink bandwidth is below the row's, and the driver's trigger.
+REPLAN_STEPS, REPLAN_PAUSE_S, REPLAN_CALIBRATE_AT, REPLAN_FACTOR = 10, 1.0, 2, 4.0
+REPLAN_DIVERGENCE = "0.5"
 
 
 def _kill(rank: int, at_step: int = 3) -> dict:
@@ -106,6 +127,9 @@ CASES = {
                           "--auto-resume"],
                     faults=[{"kind": "kill_driver", "after_s": None}], members=[1, 1],
                     steps=DRIVER_STEPS, pause_s=DRIVER_PAUSE_S, reference_in_worker=True),
+    "replan": dict(args=["-H", "localhost:4", "--min-np", "4", "--max-np", "4"],
+                   faults=[], members=[4], workload="replan", steps=REPLAN_STEPS,
+                   pause_s=REPLAN_PAUSE_S, calibrate_at=REPLAN_CALIBRATE_AT),
 }
 CARD_CASES = {1: ["respawn", "driver1"], 4: ["discovery", "crash", "spare", "driver"]}
 
@@ -171,6 +195,17 @@ def worker(cfg_path: str) -> int:
 
     @elastic.run
     def train(state):
+        adopted = elastic.adopted_step_kwargs()
+        if cfg.get("workload") == "replan" and adopted is not None \
+                and adopted != job.step_kwargs:
+            # Re-entered after a live re-plan's adoption: rebuild the step
+            # from the notice's knobs and keep the state it resumes from.
+            job.rebuild(adopted)
+            ep._emit(out, {"event": "adopt", "rank": hvd.rank(), "step": state.step,
+                           "t": time.time(), "kwargs": adopted,
+                           "notice": elastic.adopted_replan()})
+            if hvd.rank() == 0:
+                ep._dump_state(job, state, os.path.join(cfg["out"], "adopt.rank0.pt"))
         while state.step < steps:
             s = state.step + 1
             counts = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
@@ -209,6 +244,107 @@ def _slot_records(path: str) -> List[dict]:
         return [json.loads(l) for l in f]
 
 
+# --- the replan case's inputs ---------------------------------------------------
+
+
+def replan_inputs(work: str, dims: dict, seq: int, n: int) -> dict:
+    """Write the replan case's program spec and calibration (the latter as
+    ``calibration.pending``, moved into place mid-run) and compute the
+    notice the driver must publish: ``selfdrive.propose_replan`` of the
+    same spec, model (``model_for_world`` of the launcher's one-host world)
+    and calibration. Returns the spec's extra keys (env, paths) and the
+    expected proposal's notice fields."""
+    from horovod_tpu_torch import tune as T
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.run import selfdrive as sd
+    from horovod_tpu_torch.sim import calibrate as C
+    from horovod_tpu_torch.tune.objective import calibrated_model
+
+    program = T.spec_from_params("gpt", TransformerLM(**dims, max_len=seq, device="meta"),
+                                 mesh={"data": n})
+    world = {"assignments": {f"localhost:{i}": {"rank": i, "local_rank": i, "local_size": n,
+                                                "cross_rank": 0, "cross_size": 1}
+                             for i in range(n)}}
+    model = sd.model_for_world(world)
+    hop = model.hops[-1]
+    calib = C.Calibration(
+        signature=C.model_signature(model), source="driver_parity: the replan case",
+        hops={hop.name: {"calibrated": True, "latency_us": hop.latency_us,
+                         "bandwidth_gbps": hop.bandwidth_gbps / REPLAN_FACTOR}})
+    ratios = sd.divergence_ratios(model, calibrated_model(model, calib)[0])
+    drift = sd.max_divergence(ratios)
+    prop = sd.propose_replan(program, model, None, calib, trigger="divergence",
+                             per_hop=ratios, drift=drift)
+    if prop is None:
+        raise SystemExit("driver_parity: the replan case's calibration proposes no re-plan")
+    spec_path = os.path.join(work, "replan_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"name": program.name, "layers": [list(l) for l in program.layers]}, f)
+    pending, path = (os.path.join(work, f) for f in ("calibration.pending", "calibration.json"))
+    C.save_calibration(calib, pending)
+    expect = {k: v for k, v in prop.to_notice(1, 1, 1).items() if k not in ("id", "gen", "epoch")}
+    return {"env": {"HOROVOD_REPLAN_DIVERGENCE": REPLAN_DIVERGENCE,
+                    "HOROVOD_REPLAN_CHECK_S": "0.5", "HOROVOD_REPLAN_SPEC": spec_path,
+                    "HOROVOD_CALIBRATION_FILE": path},
+            "calibration_pending": pending, "calibration": path, "expect": expect,
+            "model": model.to_dict()}
+
+
+def _replan_checks(work: str, cfg: dict, spec: dict, job: dict, steps_of: dict, recs: dict,
+                   n: int, timeout: float, figures: dict, failures: List[str]) -> int:
+    """The replan case's checks (the module docstring); returns the losses
+    compared against the reference."""
+    from horovod_tpu_torch import tune as T
+
+    published = re.findall(r"re-plan #(\d+) published", job["log"])
+    if published != ["1"]:
+        failures.append(f"replan: the driver published notices {published}, not one")
+    adopts = {slot: [r for r in rs if r.get("event") == "adopt"] for slot, rs in recs.items()}
+    if sorted(adopts) != list(range(n)) or any(len(a) != 1 for a in adopts.values()):
+        failures.append(f"replan: adoptions by slot {adopts}")
+        return 0
+    at = {a[0]["step"] for a in adopts.values()}
+    notice = adopts[0][0]["notice"]
+    got = {k: v for k, v in notice.items() if k not in ("id", "gen", "epoch", "calib")}
+    want_kw = T.tuned_step_kwargs(T.TunedConfig(knobs=spec["expect"]["config"], signature={},
+                                                objectives={}, baseline={}))
+    figures.update(adopted_at_step=sorted(at), notice=notice, expected=spec["expect"],
+                   adopted_step_kwargs=adopts[0][0]["kwargs"])
+    if len(at) != 1:
+        failures.append(f"replan: the ranks adopted at steps {sorted(at)}")
+    if got != spec["expect"]:
+        failures.append(f"replan: the notice {got} != propose_replan's {spec['expect']}")
+    if any(a[0]["kwargs"] != want_kw for a in adopts.values()):
+        failures.append(f"replan: adopted_step_kwargs {adopts[0][0]['kwargs']} != {want_kw}")
+    start = min(at)
+    if start >= cfg["steps"]:
+        failures.append(f"replan: adopted at step {start}, no step after it")
+        return 0
+    ref = ep._reference(work, dict(cfg, step_kwargs=want_kw), "adopt", n, timeout,
+                        dump=os.path.join(work, "adopt.rank0.pt"))
+    compared, worst = 0, 0.0
+    for rs in steps_of.values():
+        for r in rs:
+            if r["step"] <= start:
+                continue
+            want = ref.get(r["rank"], {}).get(r["step"])
+            if want is None or r["loss"] != want:
+                failures.append(f"replan: rank {r['rank']} step {r['step']} loss {r['loss']!r} "
+                                f"!= reference {want!r}")
+            else:
+                worst = max(worst, abs(r["loss"] - want))
+            compared += 1
+    first = min((r["t"] for rs in steps_of.values() for r in rs if r["step"] > start),
+                default=None)
+    if job.get("published_t") and first:
+        # The adoption (the rebuilt step, before rank 0 saves the state the
+        # reference resumes) and the end of the first step after it.
+        figures["publication_to_adoption_s"] = (
+            min(a[0]["t"] for a in adopts.values()) - job["published_t"])
+        figures["publication_to_first_adopted_step_s"] = first - job["published_t"]
+    return compared
+
+
 # --- one job under the driver ------------------------------------------------------
 
 
@@ -216,7 +352,9 @@ def _job_env(spec: dict, work: str) -> dict:
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "MASTER_", "TORCHELASTIC_"))}
     env["PYTHONPATH"] = os.pathsep.join([ep.REPO, env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
-    env.update(ep.REDUCE_ENV)
+    if spec.get("workload") != "replan":
+        env.update(ep.REDUCE_ENV)
+    env.update(spec.get("env", {}))
     env.update({"OMP_NUM_THREADS": "2", "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "60",
                 "HOROVOD_FAULT_EVENT_LOG": os.path.join(work, "events.jsonl"),
                 "HOROVOD_METRICS": "1", "HOROVOD_METRICS_PUSH_INTERVAL_S": "0.5"})
@@ -256,9 +394,33 @@ class _Watch(threading.Thread):
         self.done = threading.Event()
         self.page: Optional[str] = None
         self.marks = list(spec.get("slots", []))
+        self.calibrate_at = spec.get("calibrate_at")
+        self.published_t: Optional[float] = None
+
+    def _replan_marks(self) -> None:
+        """The replan case: the calibration file appears once rank 0 passed
+        ``calibrate_at``; the notice's publication is the first sight of its
+        line in the driver's log."""
+        if self.calibrate_at is not None:
+            try:
+                recs = ep._records(self.work).get(0, [])
+            except ValueError:  # a line half written
+                return
+            if any(r.get("step", 0) >= self.calibrate_at for r in recs):
+                os.replace(self.spec["calibration_pending"], self.spec["calibration"])
+                self.calibrate_at = None
+        elif self.published_t is None:
+            try:
+                with open(os.path.join(self.od, "driver.log")) as f:
+                    if "re-plan #1 published" in f.read():
+                        self.published_t = time.time()
+            except OSError:
+                pass
 
     def run(self) -> None:
         while not self.done.wait(0.25):
+            if "calibration" in self.spec:
+                self._replan_marks()
             if self.marks:
                 try:
                     recs = ep._records(self.work).get(0, [])
@@ -315,7 +477,8 @@ def run_job(case: str, spec: dict, cfg: dict, work: str, timeout: float) -> dict
         _reap_workers(work)
     with open(log_path, errors="replace") as f:
         text = f.read()
-    return {"rc": rc, "seconds": seconds, "log": text, "metrics": watch.page}
+    return {"rc": rc, "seconds": seconds, "log": text, "metrics": watch.page,
+            "published_t": watch.published_t}
 
 
 def _reap_workers(work: str) -> None:
@@ -372,8 +535,11 @@ def run_case(case: str, device: Optional[str], dims: dict, batch: int, seq: int,
     on_card = device != "cpu"
     steps = spec.get("steps", STEPS)
     os.makedirs(work, exist_ok=True)
+    if case == "replan":
+        spec.update(replan_inputs(work, dims, seq, spec["members"][0]))
     cfg = {"dims": dims, "batch": batch, "seq": seq, "dtype": dtype, "device": device,
-           "steps": steps, "out": work, "workload": "binding", "kill": spec.get("kill"),
+           "steps": steps, "out": work, "workload": spec.get("workload", "binding"),
+           "kill": spec.get("kill"),
            "reference_in_worker": spec.get("reference_in_worker"),
            "pause_s": spec.get("pause_s", 0.0), "threshold": None}
     timeout = 600.0 if on_card else 300.0
@@ -437,6 +603,9 @@ def run_case(case: str, device: Optional[str], dims: dict, batch: int, seq: int,
                         failures.append(f"{case}: gen {gen} rank {r['rank']} step {r['step']} "
                                         f"loss {r['loss']!r} != reference {want!r}")
                     compared += 1
+    if case == "replan":
+        compared += _replan_checks(work, cfg, spec, job, steps_of, recs, spec["members"][0],
+                                   timeout, figures, failures)
     figures["losses_compared"], figures["max_loss_diff"] = compared, worst
     if references and compared == 0:
         failures.append(f"{case}: no step after a re-formation was compared")
@@ -535,7 +704,9 @@ def rehearse(n: int, device: Optional[str], dims: dict, batch: int, seq: int, dt
     if device != "cpu":
         import torch
 
-        out["card"] = torch.cuda.get_device_name(0)
+        from .topo_parity import _card
+
+        out["card"] = _card(torch.device("cuda", 0))      # name, power limit
 
     def one(case):
         out["cases"][case] = run_case(case, device, dims, batch, seq, dtype,
@@ -572,7 +743,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="gloo ranks on the CPU at a 2-layer d-64 GPT (f32)")
     ap.add_argument("--case", action="append", default=None,
-                    help=f"run only these cases (of {sorted(CASES)})")
+                    help=f"run only these cases (of {sorted(CASES)}; replan runs only when "
+                         "named, at 4 ranks)")
     ap.add_argument("--parallel", action="store_true",
                     help="run the cases at once (they share the host and the cards)")
     ap.add_argument("--out", default=None, help="working directory (default: a temporary one)")

@@ -132,8 +132,10 @@ def batch_for(dims: dict, batch: int, seq: int, step: int, rank: int, size: int)
 
 
 class _Job:
-    """One worker's model, optimizer and step (the binding or the DP
-    step with ZeRO-1)."""
+    """One worker's model, optimizer and step: the binding, the DP step with
+    ZeRO-1, or (workload ``replan``) the post-hoc DP step built with
+    ``cfg["step_kwargs"]`` and rebuilt by :meth:`rebuild` when a live
+    re-plan is adopted."""
 
     def __init__(self, cfg: dict):
         import torch
@@ -152,7 +154,12 @@ class _Job:
         inner = torch.optim.AdamW(self.model.parameters(), lr=LR, weight_decay=WEIGHT_DECAY,
                                   eps=EPS)
         self.zero1 = cfg.get("workload") == "zero1"
-        if self.zero1:
+        self.step_fn = None
+        self.lm_loss = lm_loss
+        if cfg.get("workload") == "replan":
+            self.opt = inner
+            self.rebuild(cfg.get("step_kwargs") or {})
+        elif self.zero1:
             self.opt = hvd.DistributedOptimizer(
                 inner, named_parameters=self.model.named_parameters(), zero1=True,
                 fusion_threshold_bytes=cfg.get("threshold"))
@@ -160,7 +167,15 @@ class _Job:
         else:
             self.opt = bhvd.DistributedOptimizer(
                 inner, named_parameters=self.model.named_parameters())
-        self.lm_loss = lm_loss
+
+    def rebuild(self, step_kwargs: dict) -> None:
+        """The DP step (post hoc: no hooks left behind on a rebuild) over
+        the same inner optimizer, with ``step_kwargs`` by hand."""
+        import horovod_tpu_torch as hvd
+
+        self.step_kwargs = dict(step_kwargs)
+        self.step_fn = hvd.make_train_step(lambda m, b: self.lm_loss(m(b[0]), b[1]), self.opt,
+                                           tuned=False, **self.step_kwargs)
 
     def sync(self) -> None:
         import torch
@@ -175,7 +190,7 @@ class _Job:
 
         tokens, labels = (torch.from_numpy(a).to(self.dev) for a in batch_for(
             self.dims, self.batch, self.seq, s, basics.rank(), basics.size()))
-        if self.zero1:
+        if self.step_fn is not None:
             return float(self.step_fn(self.model, (tokens, labels)))
         self.opt.zero_grad()
         loss = self.lm_loss(self.model(tokens), labels)
@@ -514,13 +529,14 @@ def _logs(work: str) -> str:
     return "\n".join(parts)
 
 
-def _reference(work: str, cfg: dict, gen: int, size: int, timeout: float) -> Dict[int, dict]:
+def _reference(work: str, cfg: dict, gen, size: int, timeout: float,
+               dump: Optional[str] = None) -> Dict[int, dict]:
     """The plain job at ``size`` from the sync root's post-re-formation
-    state (the ZeRO-1 rows from each rank's own dump): ``{rank: {step:
-    loss}}``."""
+    state (the ZeRO-1 rows from each rank's own dump), or from ``dump``:
+    ``{rank: {step: loss}}``."""
     ref_dir = os.path.join(work, f"ref{gen}")
     os.makedirs(ref_dir, exist_ok=True)
-    dump = os.path.join(work, f"reset.gen{gen}.rank" + (
+    dump = dump or os.path.join(work, f"reset.gen{gen}.rank" + (
         "{rank}" if cfg.get("workload") == "zero1" else "0") + ".pt")
     rcfg = dict(cfg, out=ref_dir, dump=dump, ref_size=size)
     path = os.path.join(ref_dir, "cfg.json")

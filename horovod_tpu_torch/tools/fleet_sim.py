@@ -37,9 +37,9 @@ ladder falls back loudly). Consumed here via ``--calibration`` and by
 **Serve** (``--serve --qps ...``): an open-loop Poisson arrival stream
 through the serving batcher, one report a rate.
 
-No device is touched. ``--resize`` prices its reshard time on the
-interconnect model through ``run/selfdrive.price_resize``, which is the
-live re-plan's half (ROADMAP A13b): with ``--zero1`` it exits 2 naming it.
+No device is touched. ``--resize --zero1`` prices the reshard's bytes and
+its time over the model's outermost hop through
+``run/selfdrive.price_resize(model=...)``.
 """
 from __future__ import annotations
 
@@ -669,11 +669,7 @@ def main(argv=None) -> int:
         return run_calibrate(args)
     if args.replay:
         return run_replay(args)
-    try:
-        return run_predict(args)
-    except NotImplementedError as e:
-        print(f"fleet_sim: {e}", file=sys.stderr)
-        return 2
+    return run_predict(args)
 
 
 if __name__ == "__main__":

@@ -38,8 +38,11 @@ The reduction, as the options select it:
   only); ``topo_algorithm`` pins one lowering. ``"auto"`` on a flat mesh
   is flat.
 
-Pinned tunings (``tuned``) are ROADMAP A13b; asking for them raises
-``NotImplementedError``.
+``tuned`` (a ``tune.TunedConfig``, a ``tuned.json`` path, or None for the
+``HOROVOD_TUNED_FILE`` knob) applies a pinned offline tuning
+(``horovod_tpu_torch/tune``) when the live step's signature matches it:
+the pin's fusion threshold, first bucket, wire and topology choice fill
+every knob the caller left unset; a stale pin warns and runs untuned.
 
 ``make_train_step(rules=..., mesh=...)`` builds the composed DP×TP step
 (``_build_composed_train_step`` of the JAX package): the parameters are this
@@ -61,6 +64,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from . import trace as _trace
+from . import tune as _tune
 from .common import basics
 from .common import env as _env
 from .common.compression import Compression
@@ -163,13 +167,18 @@ def _check_hierarchy_group(group: Any, hierarchical: Any = True) -> None:
             f"hierarchical={hierarchical!r})")
 
 
-def _check_tuned(tuned: Any) -> None:
-    """Pinned offline tunings are ROADMAP A13b."""
-    if tuned is None:
-        tuned = os.environ.get(_env.HOROVOD_TUNED_FILE, "") or None
-    if tuned not in (None, False):
-        raise NotImplementedError("tuned= (pinned offline tunings) is not ported yet "
-                                  "(ROADMAP A13b, the tuner)")
+def _tuned_knobs(cfg, caller: Dict[str, Any]) -> Dict[str, Any]:
+    """The step knobs a matched pin gives, under the caller's explicit
+    ones: every knob the caller left at its default (None, or False for
+    ``hierarchical``) takes the pin's value (``tune.tuned_step_kwargs``)."""
+    tk = _tune.tuned_step_kwargs(cfg)
+    out = dict(caller)
+    for k in ("fusion_threshold_bytes", "first_bucket_bytes", "quantized", "topo_algorithm"):
+        if k in out and out[k] is None:
+            out[k] = tk[k]
+    if out.get("hierarchical", None) is False:
+        out["hierarchical"] = tk["hierarchical"]
+    return out
 
 
 def _select_reduce_fn(op: ReduceOp, hierarchical: Any, quantized: bool,
@@ -343,8 +352,17 @@ class DistributedOptimizer:
     ``make_train_step(zero1=True, hierarchical=True, mesh=...)``, or a
     tuple ``group`` here. Unlike the JAX optax wrapper, ``zero1`` takes
     error feedback and skip/abort: the step here owns the state the JAX
-    wrapper could not reach. ``tuned`` raises ``NotImplementedError``
-    (ROADMAP A13b)."""
+    wrapper could not reach.
+
+    ``tuned`` (a ``tune.TunedConfig``, a ``tuned.json`` path, None for
+    ``HOROVOD_TUNED_FILE``, or False) is matched on the params half of its
+    signature only (the optimizer sees no mesh), once: on the first named
+    tree it binds (``named_parameters`` or ``bind_module``), or an unnamed
+    parameter list it matches, else at the first ``step()``; a match fills
+    the knobs left unset (threshold, first bucket, ``quantized``,
+    ``hierarchical``, ``topo_algorithm``), a mismatch warns and keeps
+    them. With ``zero1`` the pin is ignored with the JAX optax wrapper's
+    warning: the sharded state is keyed by the knobs it was built with."""
 
     def __init__(
         self,
@@ -367,8 +385,22 @@ class DistributedOptimizer:
         tuned: Any = None,
         topo_algorithm: Optional[str] = None,
     ):
+        self._caller_knobs = {
+            "fusion_threshold_bytes": fusion_threshold_bytes,
+            "first_bucket_bytes": first_bucket_bytes, "quantized": quantized,
+            "hierarchical": hierarchical, "topo_algorithm": topo_algorithm,
+            "error_feedback": error_feedback}
+        if zero1:
+            if tuned not in (None, False):
+                _logger.warning(
+                    "DistributedOptimizer(zero1=True) ignores tuned=: the sharded state "
+                    "layout is keyed by the knobs the state was built with — apply "
+                    "tunings via make_train_step(zero1=True, tuned=...)")
+            self._tuned_cfg, self._tuned_source = None, "none"
+        else:
+            self._tuned_cfg, self._tuned_source = _tune.resolve_tuned(tuned)
+        self._tuned_done = False
         hierarchical, _ = _resolve_hierarchical(hierarchical)
-        _check_tuned(tuned)
         quantized = _resolve_quantized(quantized)
         _check_overlap_rejections(overlap, quantized, op)
         if quantized and compression is not Compression.none:
@@ -399,16 +431,12 @@ class DistributedOptimizer:
         self._opt = optimizer
         self._compression = compression
         self._op = op
-        self._threshold = fusion_threshold_bytes
-        self._first_bucket = first_bucket_bytes
         self._group = group
         # The groups the skip/abort flag is agreed over (the composed step
         # adds the model group).
         self._flag_group = group
-        self._hierarchical = hierarchical
-        self._quantized = quantized
-        self._reduce_fn = _select_reduce_fn(op, hierarchical, quantized, topo_algorithm)
-        self._use_ef = _resolve_error_feedback(error_feedback, quantized, bool(hierarchical))
+        self._set_knobs(fusion_threshold_bytes, first_bucket_bytes, quantized, hierarchical,
+                        topo_algorithm, error_feedback)
         self._overlap = overlap
         self._policy = resolve_policy(nonfinite)
         if zero1:
@@ -426,6 +454,43 @@ class DistributedOptimizer:
         self._stream: Optional[fusion.StreamedReduction] = None
         self._named = named_parameters is not None
         self._bind(list(named_parameters) if named_parameters is not None else None)
+
+    def _set_knobs(self, threshold, first_bucket, quantized: bool, hierarchical: Any,
+                   topo_algorithm: Optional[str], error_feedback: Optional[bool]) -> None:
+        self._threshold = threshold
+        self._first_bucket = first_bucket
+        self._hierarchical = hierarchical
+        self._quantized = quantized
+        self._reduce_fn = _select_reduce_fn(self._op, hierarchical, quantized, topo_algorithm)
+        self._use_ef = _resolve_error_feedback(error_feedback, quantized, bool(hierarchical))
+
+    def _apply_tuned(self, final: bool) -> None:
+        """Match the pin on the params half of the bound tree's signature
+        and, on a match, take its knobs under the caller's explicit ones.
+        An unnamed tree that does not match is decided later (``final``):
+        a module's names may still bind, or the first ``step()`` decides."""
+        cfg = self._tuned_cfg
+        live = _tune.step_signature(self._tree)
+        matched = _tune.signatures_match(cfg.signature, live, require_mesh=False)
+        if not (matched or final):
+            return
+        if matched:
+            kw = _tuned_knobs(cfg, self._caller_knobs)
+            hierarchical, _ = _resolve_hierarchical(kw["hierarchical"])
+            if hierarchical == "planned" and not isinstance(self._group, tuple):
+                # A plan over levels needs a tuple of groups; a flat group
+                # lowers flat whatever the pin's topology choice.
+                hierarchical = False
+            quantized = _resolve_quantized(kw["quantized"])
+            _check_overlap_rejections(self._overlap, quantized, self._op)
+            self._set_knobs(kw["fusion_threshold_bytes"], kw["first_bucket_bytes"], quantized,
+                            hierarchical, kw["topo_algorithm"] if hierarchical == "planned"
+                            else None, kw["error_feedback"])
+        else:
+            _tune.warn_signature_mismatch(cfg, live.get("hash", "?"), "DistributedOptimizer")
+        _tune.note_applied(self._tuned_source, cfg.signature_hash, matched,
+                           "DistributedOptimizer")
+        self._tuned_done = True
 
     # --- the parameter tree ------------------------------------------------
 
@@ -446,6 +511,8 @@ class DistributedOptimizer:
             self._tree: Any = fusion.named_tree([(n, p) for n, p in named if id(p) in wanted])
         else:
             self._tree = params
+        if self._tuned_cfg is not None and not self._tuned_done:
+            self._apply_tuned(final=named is not None)
         self._params: List[torch.Tensor] = fusion.tree_leaves(self._tree)
         self._residual: Dict[int, torch.Tensor] = {}
         self._zero1_state = None
@@ -601,6 +668,8 @@ class DistributedOptimizer:
         return skip
 
     def step(self, closure=None):
+        if self._tuned_cfg is not None and not self._tuned_done:
+            self._apply_tuned(final=True)
         if self._pending is None:
             self.synchronize()
         try:
@@ -745,8 +814,22 @@ def make_train_step(
     reduce-scatter's and the all-gather's, two-level. ``topo_algorithm``
     pins a plan only under plan selection and is otherwise moot, as in the
     JAX package, except ``"split"`` with ``zero1`` (no reduce-scatter form),
-    a ``ValueError``. ``tuned`` raises ``NotImplementedError`` (ROADMAP
-    A13b).
+    a ``ValueError``.
+
+    ``tuned`` (a ``tune.TunedConfig``, a ``tuned.json`` path, None for the
+    ``HOROVOD_TUNED_FILE`` knob, or False) defers the build to the first
+    call, as the JAX package does: the live signature (``params``' names,
+    shapes and dtypes, and ``mesh``'s axes, ``{"data": world size}``
+    without one) is matched against the pin's; a match fills the threshold,
+    the first bucket, ``quantized``, ``hierarchical`` and
+    ``topo_algorithm`` wherever the caller left them unset (under
+    ``zero1`` a ``split`` pin falls back to per-bucket selection), a
+    mismatch warns loudly and builds untuned. ``tune.applied_tuned_info``
+    and the ``hvd_tuned_info`` gauge record the verdict; ``step.optimizer``
+    exists from the first call on. A tuned step is bitwise the step built
+    with ``tune.tuned_step_kwargs(cfg)`` by hand. An explicit ``tuned``
+    with a :class:`DistributedOptimizer` raises ``ValueError`` (pass it
+    there); the env knob is then the optimizer's own to resolve.
 
     ``rules`` (a rule table or a shipped name, ``"gpt"``; see
     ``parallel/rules.py``) switches to the composed DP×TP step on ``mesh``
@@ -754,8 +837,12 @@ def make_train_step(
     :func:`_build_composed_train_step`. ``tp_overlap`` (default: the
     ``HOROVOD_TP_OVERLAP`` knob) selects its fused collective-matmul path
     and needs ``rules``."""
+    if isinstance(optimizer, DistributedOptimizer):
+        if tuned not in (None, False):
+            raise ValueError("tuned= is set on the DistributedOptimizer already; pass it there")
+        tuned = False
+    tuned_cfg, tuned_source = _tune.resolve_tuned(tuned)
     if rules is not None:
-        _check_tuned(tuned)
         return _build_composed_train_step(
             loss_fn, optimizer, mesh, rules=rules, model_axis=model_axis,
             data_axis=data_axis, op=ReduceOp.AVERAGE if op is None else op,
@@ -764,6 +851,7 @@ def make_train_step(
             quantized=quantized, error_feedback=error_feedback, overlap=overlap,
             first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite,
             topo_algorithm=topo_algorithm, zero1=zero1,
+            tuned_cfg=tuned_cfg, tuned_source=tuned_source,
         )
     if tp_overlap is not None:
         raise ValueError(
@@ -771,7 +859,68 @@ def make_train_step(
             "composed builder — pass rules=... (and a model axis); without "
             "tensor parallelism there is no TP psum to fuse"
         )
-    _check_tuned(tuned)
+    kwargs = dict(op=op, compression=compression, fusion_threshold_bytes=fusion_threshold_bytes,
+                  has_aux=has_aux, nonfinite=nonfinite, quantized=quantized,
+                  error_feedback=error_feedback, zero1=zero1, overlap=overlap,
+                  first_bucket_bytes=first_bucket_bytes, hierarchical=hierarchical,
+                  topo_algorithm=topo_algorithm, mesh=mesh)
+    if tuned_cfg is None:
+        return _build_train_step(loss_fn, optimizer, **kwargs)
+
+    state: dict = {}
+
+    def dispatch(params, batch):
+        step = state.get("step")
+        if step is None:
+            live = _tune.step_signature(params, mesh=_signature_mesh(mesh))
+            matched = _tune.signatures_match(tuned_cfg.signature, live)
+            kw = dict(kwargs)
+            if matched:
+                kw = _tuned_knobs(tuned_cfg, kw)
+                if kw["zero1"] and kw["topo_algorithm"] == "split":
+                    # The split has no reduce-scatter form; zero1 lowers
+                    # by the mesh's shape: back to per-bucket selection.
+                    kw["topo_algorithm"] = None
+            else:
+                _tune.warn_signature_mismatch(tuned_cfg, live.get("hash", "?"),
+                                              "make_train_step")
+            _tune.note_applied(tuned_source, tuned_cfg.signature_hash, matched,
+                               "make_train_step")
+            step = state["step"] = _build_train_step(loss_fn, optimizer, **kw)
+            dispatch.optimizer = step.optimizer
+        return step(params, batch)
+
+    dispatch.optimizer = None
+    return dispatch
+
+
+def _signature_mesh(mesh) -> Any:
+    """The mesh half of a live step's signature: the mesh's axes, or a flat
+    DP step's ``{"data": world size}``."""
+    from .parallel.mesh import DATA_AXIS
+
+    return mesh if mesh is not None else {DATA_AXIS: collectives.group_rank_size(None)[1]}
+
+
+def _build_train_step(
+    loss_fn: Callable,
+    optimizer,
+    *,
+    op: Optional[ReduceOp],
+    compression,
+    fusion_threshold_bytes: Optional[int],
+    has_aux: bool,
+    nonfinite: Optional[str],
+    quantized: Optional[bool],
+    error_feedback: Optional[bool],
+    zero1: bool,
+    overlap: bool,
+    first_bucket_bytes: Optional[int],
+    hierarchical: Any,
+    topo_algorithm: Optional[str],
+    mesh,
+):
+    """The DP step :func:`make_train_step` describes, for knobs resolved."""
     if zero1 and topo_algorithm == "split":
         raise ValueError(
             "topo_algorithm='split' has no reduce-scatter decomposition; zero1 lowers flat "
@@ -801,6 +950,7 @@ def make_train_step(
             quantized=quantized, error_feedback=error_feedback, overlap=overlap,
             first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite, zero1=zero1,
             hierarchical=False if zero1 else hierarchical, topo_algorithm=pin_algorithm,
+            tuned=False,
         )
     # The loss is averaged over the reduction's ranks (every rank, unless
     # the optimizer reduces over the flattened group of an axis tuple).
@@ -880,6 +1030,8 @@ def _build_composed_train_step(
     nonfinite: Optional[str] = None,
     topo_algorithm: Optional[str] = None,
     zero1: bool = False,
+    tuned_cfg=None,
+    tuned_source: str = "none",
 ):
     """The composed DP×TP step, ``step(params, batch)``.
 
@@ -914,7 +1066,10 @@ def _build_composed_train_step(
     flattened group, and ZeRO-1's two-level. ``hierarchical=True``,
     ``compression``, ``topo_algorithm``, ``error_feedback`` and
     ``quantized`` with a data-axis tuple raise the JAX builder's
-    ``ValueError``s."""
+    ``ValueError``s. A pinned tuning (``tuned_cfg``, from
+    ``make_train_step(tuned=...)``) is matched at the first call on the
+    local tree and the mesh and gives the threshold and the first bucket
+    only, where the caller left them unset."""
     from .parallel import rules as _rules
     from .parallel import tp as _tp
 
@@ -981,13 +1136,25 @@ def _build_composed_train_step(
 
     def step(params, batch):
         if "opt" not in built:
+            threshold, first = fusion_threshold_bytes, first_bucket_bytes
+            if tuned_cfg is not None:
+                where = "make_train_step(rules=...)"
+                live = _tune.step_signature(params, mesh=mesh)
+                matched = _tune.signatures_match(tuned_cfg.signature, live)
+                if matched:
+                    kw = _tuned_knobs(tuned_cfg, {"fusion_threshold_bytes": threshold,
+                                                  "first_bucket_bytes": first})
+                    threshold, first = kw["fusion_threshold_bytes"], kw["first_bucket_bytes"]
+                else:
+                    _tune.warn_signature_mismatch(tuned_cfg, live.get("hash", "?"), where)
+                _tune.note_applied(tuned_source, tuned_cfg.signature_hash, matched, where)
             specs = _rules.match_partition_rules(rules, params)
             _rules.preflight_rules(rules, mesh, _rules.global_shapes(params, specs, mesh))
             dist_opt = DistributedOptimizer(
                 optimizer, named_parameters=_rules.named_tree_paths(params), op=op,
-                fusion_threshold_bytes=fusion_threshold_bytes, group=data_group,
+                fusion_threshold_bytes=threshold, group=data_group,
                 quantized=quantized, error_feedback=False, overlap=overlap,
-                first_bucket_bytes=first_bucket_bytes, nonfinite=nonfinite, zero1=zero1,
+                first_bucket_bytes=first, nonfinite=nonfinite, zero1=zero1, tuned=False,
             )
             # A model rank's NaN must skip the step on every rank of the mesh.
             levels = data_group if isinstance(data_group, tuple) else (data_group,)

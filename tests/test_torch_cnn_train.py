@@ -258,9 +258,42 @@ def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
     (["--tp", "2"], "A6"),
     (["--serve", "--tp", "2"], "A6"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
 ])
-def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys):
+def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys, tmp_path):
+    """The unported options exit naming their item; ``--tuned`` (A13,
+    ported) runs: a pin keyed on the smoke step gives the JAX bench's
+    ``+tuned`` mode and ``tuned`` block, a pin made on another mesh refuses
+    ``--quantized``."""
     from horovod_tpu_torch import bench
 
+    if item == "A13":
+        from horovod_tpu_torch import tune as T
+        from horovod_tpu_torch.models.transformer import TransformerLM
+
+        meta = TransformerLM(**bench.GPT_SMOKE, max_len=128, device="meta")
+        knobs = {"fusion_threshold_bytes": 1 << 20, "first_bucket_bytes": 64 << 10,
+                 "topo_algorithm": "auto", "wire_dtype": "int8"}
+        for name, mesh in (("t.json", {"data": 1}), ("other.json", {"data": 4})):
+            T.save_tuned(T.TunedConfig(knobs=knobs, signature=T.step_signature(meta, mesh=mesh),
+                                       objectives={}, baseline={}, program="transformer"),
+                         str(tmp_path / name))
+        args = ["--smoke", "--device", "cpu", "--model", "transformer", "--overlap",
+                "--num-warmup-batches", "1"]
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.bench", *args, "--tuned",
+             str(tmp_path / "t.json")], env=_subprocess_env(), cwd=REPO, capture_output=True,
+            text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        detail = json.loads(proc.stdout.strip().splitlines()[-1])["detail"]
+        assert detail["reduction_mode"] == "overlap+quantized+tuned"
+        assert detail["gradient_wire"] == "int8-quantized" and np.isfinite(detail["loss"])
+        assert detail["tuned"] == {"path": str(tmp_path / "t.json"), "program": "transformer",
+                                   "signature": T.step_signature(meta, mesh={"data": 1})["hash"],
+                                   "matched": True, "knobs": knobs}
+        args = bench.parse_args(["--smoke", "--device", "cpu", "--model", "transformer",
+                                 "--quantized", "--tuned", str(tmp_path / "other.json")])
+        with pytest.raises(SystemExit, match="refusing --quantized"):
+            bench._resolve_tuned(args, meta, 1)
+        return
     with pytest.raises(SystemExit) as exc:
         bench.parse_args(argv + ["--device", "cpu"])
     assert exc.value.code != 0

@@ -11,8 +11,9 @@ JAX package's (``horovod_tpu/run/{elastic_driver,journal,selfdrive}.py``).
   and the driver tests of ``tests/test_elastic.py``.
 - A journal written by either package's ``DriverJournal`` replays in the
   other's, byte for byte.
-- What the port does not have yet refuses naming ROADMAP A13: the live
-  re-plan knobs at the driver's start, and selfdrive's planning half.
+- The live re-plan (A13b): its knobs arm the driver's ``_maybe_replan``,
+  and each call of selfdrive's planning half gives the JAX package's value
+  (``tests/test_torch_replan.py`` holds the rest).
 - The world document the port's driver publishes (the generation's
   TCPStore, served by the job's store host, and the slots keeping their
   local ranks) and its card-keeping spare swap.
@@ -182,27 +183,65 @@ def test_journal_written_by_one_package_replays_in_the_other(tmp_path, writer, r
     assert reader.blacklist_from_journal(state["blacklist"]) == {"s": None}
 
 
-# --- what waits for ROADMAP A13 ----------------------------------------------------
+# --- the live re-plan (A13b) --------------------------------------------------------
 
 
 @pytest.mark.parametrize("knob", [psd.REPLAN_DIVERGENCE_ENV, psd.REPLAN_SKEW_ENV])
-def test_replan_knobs_refuse_naming_a13(knob, tmp_path, capsys, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ed.ElasticDriver(["true"], min_np=1, max_np=1, hosts=[("localhost", 1)],
-                         env={knob: "0.5"}, output_dir=str(tmp_path))
-    # The CLI exits 2 with the refusal, before any worker starts.
-    monkeypatch.setenv(knob, "0.5")
-    assert prun.run_commandline(["-np", "1", "--min-np", "1", "python", "x.py"]) == 2
-    assert "ROADMAP A13" in capsys.readouterr().err
+def test_replan_knobs_refuse_naming_a13(knob, tmp_path):
+    """The re-plan knobs (refused until A13b) arm the driver's
+    ``_maybe_replan``, as in the JAX package: its thresholds and check
+    interval read from the job's env, and a beat with no published world
+    yet publishes nothing."""
+    drv = ed.ElasticDriver(["true"], min_np=1, max_np=1, hosts=[("localhost", 1)],
+                           env={knob: "0.5", psd.REPLAN_CHECK_ENV: "0.1"},
+                           output_dir=str(tmp_path))
+    try:
+        assert (drv._replan_divergence, drv._replan_skew_s) == (
+            (0.5, 0.0) if knob == psd.REPLAN_DIVERGENCE_ENV else (0.0, 0.5))
+        assert drv._replan_check_s == 0.5        # the floor
+        drv._maybe_replan()
+        assert drv._replan_doc is None and drv._last_replan_check > 0
+    finally:
+        drv._kv.close()
 
 
-@pytest.mark.parametrize("call", [
-    lambda: psd.candidate_configs(None, {}), lambda: psd.propose_replan(None, None, {}, None),
-    lambda: psd.verify_replan(None, {}, None, None), lambda: psd.spec_from_windows({}),
-    lambda: psd.model_for_world({}), lambda: psd.price_resize(1 << 20, 4, 2, model=object())])
-def test_selfdrive_planning_half_refuses_naming_a13(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        call()
+def _planning_inputs(sd, tm, obj, cal):
+    """One package's model, program and drifted calibration."""
+    model = tm.synthetic_model(4, cross=2)
+    spec = obj.ProgramSpec(name="p", layers=(("a", 3 << 20), ("b", 1 << 20), ("c", 64 << 10)))
+    hop = model.hops[-1]
+    calib = cal.Calibration(signature=cal.model_signature(model), hops={hop.name: {
+        "calibrated": True, "latency_us": hop.latency_us, "bandwidth_gbps": 0.05}})
+    return model, spec, calib
+
+
+PLANNING_CALLS = [
+    lambda sd, m, s, c: sd.candidate_configs(m, sd._normalize_config(None)),
+    lambda sd, m, s, c: sd.propose_replan(s, m, {}, c, drift=2.0).to_notice(1, 2, 3),
+    lambda sd, m, s, c: [f.render() for f in sd.verify_replan(
+        s, sd.propose_replan(s, m, {}, c).config, m, c)],
+    lambda sd, m, s, c: sd.spec_from_windows({0: {"events": [
+        {"name": "hvd_plan", "args": {"tensor": "g", "nbytes": 4096}}]}}).layers,
+    lambda sd, m, s, c: sd.model_for_world({"assignments": {
+        f"h{i}:0": {"rank": i, "local_size": 1, "cross_size": 2} for i in range(2)}}).to_dict(),
+    lambda sd, m, s, c: sd.price_resize(1 << 20, 4, 2, model=m)]
+
+
+@pytest.mark.parametrize("call", PLANNING_CALLS)
+def test_selfdrive_planning_half_refuses_naming_a13(call, monkeypatch):
+    """Each call of the planning half (refused until A13b) gives the JAX
+    package's value on the same inputs."""
+    from horovod_tpu.sim import calibrate as jcal
+    from horovod_tpu.topo import model as jtm
+    from horovod_tpu.tune import objective as jobj
+    from horovod_tpu_torch.sim import calibrate as tcal
+    from horovod_tpu_torch.topo import model as ttm
+    from horovod_tpu_torch.tune import objective as tobj
+
+    monkeypatch.delenv(psd.REPLAN_SPEC_ENV, raising=False)
+    got = call(psd, *_planning_inputs(psd, ttm, tobj, tcal))
+    want = call(jselfdrive, *_planning_inputs(jselfdrive, jtm, jobj, jcal))
+    assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
 
 
 @pytest.mark.parametrize("n_old,n_new,quantized", [(4, 2, False), (3, 4, True), (2, 2, False)])

@@ -16,7 +16,8 @@
 - The worker's view of the rendezvous: park and reattach against a KV
   server whose driver document changes epoch; a SIGTERM reaching
   ``PreemptionInterrupt``; the failure filter; ``apply_serve_scale``'s verbs
-  and event lines against the JAX package's; the refusal (A13).
+  and event lines against the JAX package's; ``adopted_step_kwargs``
+  against the JAX package's translation.
 """
 
 import copy
@@ -632,10 +633,12 @@ def test_rejoin_mode_and_refusals(monkeypatch):
         ("replica", 1, "serve-promote", "reason=queue-depth depth=20.0 burn=0.000"),
         ("replica", 1, "serve-retire", "reason=idle depth=0.0 burn=0.000")]
     assert elastic.adopted_step_kwargs() is None
-    monkeypatch.setattr(elastic, "_adopted_replan", {"id": 1, "config": {}})
-    with pytest.raises(NotImplementedError, match="A13"):
-        elastic.adopted_step_kwargs()
-    assert elastic.adopted_replan() == {"id": 1, "config": {}}
+    notice = {"id": 1, "config": {"fusion_threshold_bytes": 1 << 22, "first_bucket_bytes": 1 << 20,
+                                  "topo_algorithm": "flat", "wire_dtype": "int8"}}
+    monkeypatch.setattr(elastic, "_adopted_replan", notice)
+    monkeypatch.setattr(jelastic, "_adopted_replan", notice)
+    assert elastic.adopted_step_kwargs() == jelastic.adopted_step_kwargs()
+    assert elastic.adopted_replan() == notice
 
 
 def test_world_document_env_and_the_spare_gate(kv, monkeypatch):

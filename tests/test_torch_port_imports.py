@@ -73,6 +73,31 @@ def test_planning_modules_load_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_tune_modules_load_no_jax():
+    """The tuner (``tune/``), its tools and the re-plan's planning half,
+    imported and driven once (a GPT-2-small spec on the meta device tuned,
+    a re-plan priced), leave jax, flax, optax and the JAX package out of
+    sys.modules."""
+    code = (
+        "import sys, horovod_tpu_torch, horovod_tpu_torch.tune as T, "
+        "horovod_tpu_torch.tools.autotune_compiled, horovod_tpu_torch.tools.tune_parity, "
+        "horovod_tpu_torch.run.selfdrive as sd\n"
+        "from horovod_tpu_torch.models.transformer import TransformerLM\n"
+        "from horovod_tpu_torch.topo.model import synthetic_model\n"
+        "m = TransformerLM(32768, d_model=768, n_heads=12, n_layers=12, device='meta')\n"
+        "spec = T.spec_from_params('gpt', m, mesh={'data': 4})\n"
+        "cfg = T.tune(spec, synthetic_model(4, generation='h100'), samples=4)\n"
+        "assert T.tuned_step_kwargs(cfg)['fusion_threshold_bytes'] > 0\n"
+        "assert sd.candidate_configs(synthetic_model(4), sd._normalize_config(None))\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_eager_modules_load_no_jax():
     """The eager API, its runtimes, the executor, the binding to the core
     and the analysis modules, imported and driven once on the CPU, leave

@@ -9,8 +9,8 @@
   staleness warning the same text (the tool it names is the port's);
   ``divergence_report`` and ``measured_from_stats`` the same documents.
 - ``tools/fleet_sim`` (predict, ``--serve``, ``--calibrate``,
-  ``--replay``) writes the JAX tool's bytes; ``--resize`` with ``--zero1``
-  exits 2 naming A13b.
+  ``--replay``, ``--resize`` with and without ``--zero1``) writes the JAX
+  tool's bytes.
 - The JAX package's own simulator tests (``tests/test_sim.py``) run
   against the port's modules (``run_reference_test``).
 """
@@ -226,10 +226,16 @@ def test_fleet_sim_tool_writes_the_jax_bytes(args, sim_trace, tmp_path):
     assert got == want and len(got) > 100
 
 
-def test_fleet_sim_resize_names_a13b(capsys):
-    assert ttool.main(["--ranks", "8", "--local", "4", "--resize", "4,2"]) == 0
-    assert ttool.main(["--ranks", "8", "--local", "4", "--resize", "4,2", "--zero1"]) == 2
-    assert "A13" in capsys.readouterr().err
+def test_fleet_sim_resize_names_a13b(tmp_path):
+    """``--resize`` prices the reshard; with ``--zero1`` its time too,
+    through ``price_resize(model=)`` (A13b): the JAX tool's bytes."""
+    ref = _jax_tool()
+    for extra in ([], ["--zero1"]):
+        args = ["--ranks", "8", "--local", "4", "--resize", "4,2", *extra]
+        assert ttool.main(args + ["-o", str(tmp_path / "port.json")]) == 0
+        assert ref.main(args + ["-o", str(tmp_path / "jax.json")]) == 0
+        got, want = ((tmp_path / k).read_text() for k in ("port.json", "jax.json"))
+        assert got == want and ("modeled_time_us" in got) == bool(extra)
 
 
 # The JAX package's own simulator tests, against the port (its CLI, tuner

@@ -164,15 +164,22 @@ def test_backward_passes_per_step_averages_microbatches(one_rank):
 
 @pytest.mark.parametrize("option", ["hierarchical", "tuned"])
 def test_unported_options_raise(one_rank, option):
-    """What is left unported: pinned tunings (ROADMAP A13b). Plan selection
-    (hierarchical="planned", which refused until ported) builds on a
-    (cross, local) mesh and, at one rank, steps as the plain step does;
-    without a mesh it needs the axis tuple, as hierarchical=True does."""
+    """The options that refused until ported. Pinned tunings (A13b):
+    ``tuned=True`` is the JAX package's ``TypeError`` (``resolve_tuned``
+    takes a TunedConfig, a path, None or False). Plan selection
+    (hierarchical="planned") builds on a (cross, local) mesh and, at one
+    rank, steps as the plain step does; without a mesh it needs the axis
+    tuple, as hierarchical=True does."""
     hvd = one_rank
     w = torch.nn.Parameter(torch.zeros(2))
     if option == "tuned":
-        with pytest.raises(NotImplementedError, match=option):
+        from horovod_tpu import tune as jtune
+
+        with pytest.raises(TypeError, match=option) as exc:
             hvd.make_train_step(lambda p, b: p.sum(), torch.optim.SGD([w], lr=0.1), tuned=True)
+        with pytest.raises(TypeError) as ref:
+            jtune.resolve_tuned(True)
+        assert str(exc.value) == str(ref.value)
         return
     from horovod_tpu_torch.parallel.mesh import build_hierarchical_mesh
 
