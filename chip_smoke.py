@@ -329,6 +329,25 @@ Phases, each printed as it ends:
    horovod_tpu_torch.bench --model transformer --batch-size 8 --tuned
    <path>`` (2 iterations of 5 steps): its JSON line with the mode
    ``posthoc+tuned`` and the matched ``tuned`` block.
+23. ``[analysis]``: the static checks (``horovod_tpu_torch/analysis``,
+   ROADMAP A13c) on the GPT-2-small DP step (8 x 1024, bf16, AdamW 3e-4,
+   weight decay 1e-4). With ``HOROVOD_TPU_STATIC_CHECKS=1`` the post-hoc,
+   ``overlap=True`` and ``nonfinite="skip"`` steps pre-flight with zero
+   findings, each with the pre-flight's host ms on its own line. A steady
+   post-hoc step recorded on the card (``analysis.record``: every
+   collective's kind, axis, dtype and bytes) equals the same step recorded
+   on the CPU in a process of its own (batch 1 x 64: the buckets depend on
+   the parameters only), and its graph lint is clean; B1 launches 12 + 12
+   in it. C5: the ``overlap=True`` step built three times over one model
+   leaves one build's hooks on its parameters, and the first step after
+   the last rebuild issues as many NCCL operations (torch.profiler's
+   ``nccl:*`` host events; at one rank NCCL launches no kernel) and records
+   as many collectives as the first step of one fresh build. The
+   steady post-hoc step with the knob off and on, in turns (off, on, on,
+   off; 5 timed steps a turn), must not move by more than the largest
+   spread within a turn. ``[bench]`` (12.) also checks the transformer's
+   ``wire``, ``step_skew`` and ``sim`` blocks, the wire's bytes those of
+   the fusion layer's ring formula (``ops/fusion.ring_wire_bytes``).
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -2489,6 +2508,26 @@ def phase_bench(slice_tokens_per_s: float):
         check(out["value"] > 0, f"bench {model}: value {out['value']}")
         check(mfu is not None and 0 < mfu <= 1, f"bench {model}: mfu {mfu}")
         if model == "transformer":
+            # bench.py's three blocks; the wire's bytes by the fusion layer's
+            # ring formula over GPT-2-small's f32 parameters at one rank.
+            from horovod_tpu_torch.ops.fusion import ring_wire_bytes
+
+            det = out["detail"]
+            check(all(k in det for k in ("wire", "step_skew", "sim")),
+                  f"bench transformer: detail keys {sorted(det)}")
+            grad_bytes = 4 * det["n_params"]
+            want = ring_wire_bytes(grad_bytes, det["n_chips"], "allreduce")
+            check(det["wire"]["gradient_bytes"] == grad_bytes
+                  and det["wire"]["bytes_on_wire_per_step_per_chip"] == want
+                  and det["wire"]["full_precision_bytes_on_wire_per_step_per_chip"] == want,
+                  f"bench transformer: wire {det['wire']} against {grad_bytes} bytes, {want} "
+                  "on the wire")
+            check("error" not in det["sim"] and det["sim"]["predicted_step_time_s"] > 0,
+                  f"bench transformer: sim {det['sim']}")
+            check(det["step_skew"]["step_spans"]["steps"] > 0,
+                  f"bench transformer: step_skew {det['step_skew']}")
+            print(f"[bench] transformer blocks: wire {det['wire']}; step_skew "
+                  f"{det['step_skew']}; sim {det['sim']}", flush=True)
             print(f"[bench] transformer {out['value']:.1f} tokens/s against [slice]'s "
                   f"{slice_tokens_per_s:.1f} in this run ({out['value'] / slice_tokens_per_s:.3f}x)",
                   flush=True)
@@ -4249,6 +4288,191 @@ def profile_step(run_step, span=None, classify=gpt_family,
     return busy / wall_ms
 
 
+ANALYSIS_TURNS = ("off", "on", "on", "off")   # the knob's turns for the steady step
+ANALYSIS_STEPS = 6                             # steps a turn; the first is not timed
+CPU_INVENTORY = r'''
+import json, os, sys, tempfile
+import numpy as np, torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import analysis
+from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+dims, seq = json.loads(sys.argv[1]), int(sys.argv[2])
+torch.set_num_threads(os.cpu_count() or 1)
+with tempfile.TemporaryDirectory() as d:
+    hvd.init("cpu", init_method=f"file://{d}/store")
+    try:
+        model = TransformerLM(**dims, max_len=seq, dtype=torch.bfloat16, device="cpu", seed=0)
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(0, dims["vocab_size"], (1, 64)))
+        step = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]), torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8))
+        step(model, (tokens, tokens))
+        with analysis.record() as rec:
+            step(model, (tokens, tokens))
+        print(json.dumps(analysis.graph_lint.inventory(rec.sites)))
+    finally:
+        hvd.shutdown()
+'''
+
+
+def _nccl_calls(run_step):
+    """The NCCL collectives one call of ``run_step`` issued, by
+    torch.profiler: (the process group's ``nccl:*`` operations on the host,
+    NCCL kernels on the card; at one rank NCCL launches none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("nccl:"))
+    kernels = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation and "nccl" in e.name.lower())
+    return host, kernels
+
+
+def phase_analysis(card):
+    """``[analysis]``: the static checks on the main path, GPT-2-small DP at
+    8 x 1024 in bf16 on one card. With HOROVOD_TPU_STATIC_CHECKS=1 the
+    post-hoc, ``overlap=True`` and ``nonfinite="skip"`` steps pre-flight
+    clean (their host ms printed); the recorded inventory of a steady step
+    (kinds, axes, dtypes, bytes) equals the CPU's of the same step in a
+    process of its own; B1 launches 12 + 12 a step; an overlap step rebuilt
+    three times carries one build's hooks and issues one build's NCCL
+    operations (torch.profiler) in the first step after the last rebuild; the
+    steady post-hoc step with the knob on and off, in turns, stays within
+    the spread of its own steps."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import analysis
+    from horovod_tpu_torch.analysis import preflight
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+
+    t_phase = time.perf_counter()
+    knob = os.environ.get(preflight.ENV_KNOB)
+    hvd.init()
+    try:
+        model = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+        n_tensors = len(list(model.parameters()))
+        rng = np.random.RandomState(0)
+        batch = tuple(torch.from_numpy(rng.randint(0, GPT2_SMALL["vocab_size"], (BATCH, SEQ)))
+                      .cuda() for _ in range(2))
+
+        def build(**kw):
+            return hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]), torch.optim.AdamW(
+                model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8), **kw)
+
+        def set_knob(on: bool):
+            os.environ[preflight.ENV_KNOB] = "1" if on else "0"
+            preflight.refresh()
+
+        # The pre-flight of each variant, knob on: zero findings.
+        set_knob(True)
+        for label, kw in (("posthoc", {}), ("overlap", {"overlap": True}),
+                          ("skip", {"nonfinite": "skip"})):
+            preflight.reset_report()
+            step = build(**kw)
+            t0 = time.perf_counter()
+            loss = float(step(model, batch))
+            first_ms = (time.perf_counter() - t0) * 1e3
+            findings, host_ms = preflight.report()
+            print(f"[analysis] {label}: pre-flight host ms {host_ms:.3f} (first step "
+                  f"{first_ms:.1f} ms), findings {[f.render() for f in findings]}, loss {loss}",
+                  flush=True)
+            check(findings == [], f"[analysis] {label}: pre-flight findings {findings}")
+            check(np.isfinite(loss), f"[analysis] {label}: loss {loss}")
+            step.close()
+        # The recorded inventory of a steady post-hoc step, on the card and
+        # on the CPU; B1's launches of that step.
+        step = build()
+        step(model, batch)
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        with analysis.record() as rec:
+            step(model, batch)
+        torch.cuda.synchronize()
+        launches = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        card_inv = analysis.graph_lint.inventory(rec.sites)
+        check(launches == (GPT2_SMALL["n_layers"],) * 2, f"[analysis] B1 launches {launches}")
+        lint = analysis.lint_sites(rec.sites, fusion_threshold_bytes=64 << 20)
+        check(lint == [], f"[analysis] graph lint of the card's record: {lint}")
+        proc = subprocess.run(
+            [sys.executable, "-c", CPU_INVENTORY, json.dumps(GPT2_SMALL), str(SEQ)],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.getcwd(), "CUDA_VISIBLE_DEVICES": ""})
+        check(proc.returncode == 0, f"[analysis] the CPU record exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        cpu_inv = [tuple(x[:1]) + (tuple(x[1]),) + tuple(x[2:])
+                   for x in json.loads(proc.stdout.strip().splitlines()[-1])]
+        print(f"[analysis] recorded collectives a step: card {len(card_inv)}, CPU "
+              f"{len(cpu_inv)}; card {card_inv}; B1 launches {launches}", flush=True)
+        check(card_inv == cpu_inv, f"[analysis] card inventory {card_inv} != CPU {cpu_inv}")
+        step.close()
+        # C5 on the card: three builds of the overlap step over one model,
+        # against one build over a fresh model.
+        set_knob(False)
+        for _ in range(2):
+            build(overlap=True)(model, batch)
+        rebuilt = build(overlap=True)
+        with analysis.record() as rec_rebuilt:
+            nccl_rebuilt = _nccl_calls(lambda: rebuilt(model, batch))
+        regs = fusion.stream_registrations(model.parameters())
+        fresh_model = TransformerLM(**GPT2_SMALL, max_len=SEQ, dtype=torch.bfloat16, seed=0)
+        fresh = hvd.make_train_step(lambda m, b: lm_loss(m(b[0]), b[1]), torch.optim.AdamW(
+            fresh_model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8), overlap=True)
+        with analysis.record() as rec_fresh:
+            nccl_fresh = _nccl_calls(lambda: fresh(fresh_model, batch))
+        print(f"[analysis] C5: after three builds {regs} on {n_tensors} tensors; first step "
+              f"after the last rebuild: NCCL operations {nccl_rebuilt[0]} on the host, "
+              f"{nccl_rebuilt[1]} kernels, {len(rec_rebuilt.sites)} recorded collectives; one "
+              f"fresh build: {nccl_fresh[0]} on the host, {nccl_fresh[1]} kernels, "
+              f"{len(rec_fresh.sites)} recorded", flush=True)
+        check(regs == {"calls": 1, "leaves": n_tensors, "hooks": n_tensors},
+              f"[analysis] C5: registrations after three builds {regs}")
+        check(nccl_rebuilt == nccl_fresh and nccl_fresh[0] > 0
+              and len(rec_rebuilt.sites) == len(rec_fresh.sites) == nccl_fresh[0],
+              f"[analysis] C5: NCCL operations {nccl_rebuilt} and {len(rec_rebuilt.sites)} "
+              f"collectives after the rebuilds, {nccl_fresh} and {len(rec_fresh.sites)} fresh")
+        rebuilt.close()
+        fresh.close()
+        del fresh_model, fresh
+        # The steady step with the knob off and on, in turns.
+        medians = {"off": [], "on": []}
+        spreads = []
+        for turn in ANALYSIS_TURNS:
+            set_knob(turn == "on")
+            step = build()
+            times = []
+            for _ in range(ANALYSIS_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step(model, batch))
+                times.append(time.perf_counter() - t0)
+            step.close()
+            medians[turn].append(statistics.median(times[1:]) * 1e3)
+            spreads.append((max(times[1:]) - min(times[1:])) * 1e3)
+        off, on = statistics.mean(medians["off"]), statistics.mean(medians["on"])
+        print(f"[analysis] steady step ms, knob off {medians['off']}, on {medians['on']} "
+              f"(turns {list(ANALYSIS_TURNS)}); on - off {on - off:+.3f} ms, largest spread "
+              f"within a turn {max(spreads):.3f} ms", flush=True)
+        check(abs(on - off) <= max(spreads), f"[analysis] the knob moved the steady step "
+              f"{on - off:+.3f} ms, outside the spread {max(spreads):.3f} ms")
+    finally:
+        if knob is None:
+            os.environ.pop(preflight.ENV_KNOB, None)
+        else:
+            os.environ[preflight.ENV_KNOB] = knob
+        preflight.refresh()
+        hvd.shutdown()
+    print(f"[analysis] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4300,6 +4524,7 @@ def main() -> int:
     phase_elastic(card)
     phase_elastic_driver(card)
     phase_tune(card)
+    phase_analysis(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

@@ -62,8 +62,45 @@ one JSON line ``serve_decode_tokens_per_sec`` with the latency percentiles,
 requests/s and the mean batch occupancy. The model is GPT-2-small at
 ``max_len`` 1024 (the reference's 256-wide 2-layer model would time only
 the host); ``--smoke`` keeps the reference's smoke geometry. It runs on one
-card; the tensor-parallel server is timed by ``python -m
-horovod_tpu_torch.tools.serve_parity --bench``.
+card, or tensor-parallel with ``--tp`` (below).
+
+``--tp N`` is ``bench.py``'s composed DP x TP mode (the transformer only):
+the ranks form a ``{"data": ranks / N, "model": N}`` mesh, each cuts the
+seeded GPT to its shards by ``--rules`` (default ``gpt``;
+``utils/convert.local_params_from_flax``) and trains them with
+``make_train_step(rules=...)``, one all-reduce per Megatron half-block on the
+model group, or with ``--tp-overlap`` the collective-matmul rings (kernels B3
+and B4 on the card); ``--overlap``, ``--quantized`` and ``--zero1`` act on
+the data group only. Every rank takes its data rows of one global batch of
+``--batch-size`` x data ranks sequences. ``detail`` gains ``mesh`` and
+``rules``, and the mode ``+tp<N>``. ``--serve --tp N`` serves
+tensor-parallel over N ranks, one card each (``serve(mesh=..., rules=...)``:
+rank 0 the engine, the others followers), as ``tools/serve_parity --bench``
+does at model N.
+
+The transformer's ``detail`` carries ``bench.py``'s three blocks:
+
+- ``wire``: the gradient bytes a card reduces and what one step puts on the
+  wire a card by the ring accounting of ``ops/fusion.ring_wire_bytes`` (the
+  formula of the ``hvd_axis_wire_bytes_total`` tap): the full-precision
+  bytes, the savings of the int8 wire, ZeRO-1's reduce-scatter and
+  all-gather apart, and under ``--tp`` the ``per_axis`` split, ``data``
+  (the local shards' ring) and ``model`` (the activation all-reduces, bf16,
+  four a layer, priced the same way);
+- ``step_skew``: the step spans (the trace tap's when it is armed, else
+  the timed iterations') and, over ``--ranks``, the real cross-rank skew:
+  the spread of the ranks' host times at each timed step's end, its p50 and
+  p99, and the rank most often last (``bench.py``'s single controller
+  reports zeros there);
+- ``sim``: the port's fleet simulator (``sim/``) priced on the detected
+  card's row of the interconnect model (``h100`` on an H100), or on the
+  ``--calibration`` file (``tools/fleet_sim --calibrate``), predicting this
+  program's step at this data size beside the measured one, with the
+  tensor-parallel term under ``--tp``.
+
+On the card the transformer's ``detail`` also counts this rank's launches
+of the hand-written kernels a timed step (``kernel_launches_per_step``: B1's
+forwards and backward pairs, B3 and B4).
 
 ``--tuned <tuned.json>`` is ``bench.py``'s: a pin whose signature matches
 the live step (the module's parameter names, shapes and dtypes on the flat
@@ -129,8 +166,6 @@ GPT_SMOKE = dict(vocab_size=512, d_model=128, n_heads=4, n_layers=2)
 # bench.py's options the port does not have yet, and the ROADMAP item
 # that brings each.
 UNPORTED = {
-    "tp": "A6, the bench's composed DP x TP mode (the A9 step is timed by "
-          "horovod_tpu_torch.tools.tp_parity --bench)",
     "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
 }
 # bench.py:1361-1364: the serving benchmark's smoke geometry.
@@ -261,7 +296,19 @@ def parse_args(argv=None):
     ap.add_argument("--serve-replicas", type=int, default=1,
                     help="--serve: DP serving replicas")
     ap.add_argument("--scan", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--tp", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="transformer: composed DP x TP, the model sharded N ways over a "
+                         "'model' mesh axis by the sharding rules (make_train_step(rules=...)); "
+                         "--overlap/--quantized/--zero1 act on the data axis only; with "
+                         "--serve, the tensor-parallel server on N ranks")
+    ap.add_argument("--tp-overlap", action="store_true",
+                    help="with --tp N: the collective-matmul rings (kernels B3/B4) in place of "
+                         "the tensor-parallel all-reduces")
+    ap.add_argument("--rules", default="", choices=["", "gpt"],
+                    help="sharding-rules table for --tp (default: gpt)")
+    ap.add_argument("--calibration", default="",
+                    help="transformer: a calibration.json (tools/fleet_sim --calibrate) pricing "
+                         "the report's sim block; default: the detected card's row")
     ap.add_argument("--tuned", default="",
                     help="a tuned.json (python -m horovod_tpu_torch.tools.autotune_compiled): "
                          "its knobs apply when its signature matches this run's step; "
@@ -277,14 +324,33 @@ def parse_args(argv=None):
                 ap.error(f"--serve benchmarks the inference decode path: --{flag} acts on "
                          f"the gradients of training, which serving has none of — drop "
                          f"--{flag}")
-        if args.micro or (args.ranks or 1) > 1:
-            ap.error("--serve runs one engine on one card; the tensor-parallel server is "
-                     "timed by python -m horovod_tpu_torch.tools.serve_parity --bench")
+        if args.micro:
+            ap.error("--serve runs the serving engine; --micro does not apply")
+        if args.tp:
+            args.ranks = args.ranks or args.tp
+            if args.ranks != args.tp:
+                ap.error(f"--serve --tp {args.tp} serves on {args.tp} ranks, one card each "
+                         f"(the model axis); --ranks {args.ranks} does not match")
+        elif (args.ranks or 1) > 1:
+            ap.error("--serve runs one engine on one card, or tensor-parallel with --tp N "
+                     "on N ranks")
         args.model = "transformer"
     if args.zero1 and args.model != "transformer":
         ap.error("--zero1 is implemented for --model transformer only")
     if args.quantized and args.model != "transformer":
         ap.error("--quantized applies to --model transformer only")
+    if args.tp and args.model != "transformer":
+        ap.error("--tp applies to --model transformer only")
+    if args.rules and not args.tp:
+        ap.error("--rules needs --tp N (the composed DP x TP mode)")
+    if args.tp and args.tp < 2:
+        ap.error("--tp needs a model-axis degree >= 2")
+    if args.tp_overlap and not args.tp:
+        ap.error("--tp-overlap fuses the TENSOR-PARALLEL psums into chunked "
+                 "collective-matmul rings — without --tp N there is no "
+                 "model axis and no TP psum to fuse; add --tp N (N >= 2)")
+    if args.tp and not args.rules:
+        args.rules = "gpt"
     if args.model == "moe" and (args.overlap or args.micro):
         ap.error("--model moe runs the DP x EP step; --overlap and --micro do not apply")
     if args.micro and args.ranks == 1:
@@ -293,6 +359,8 @@ def parse_args(argv=None):
     args.ranks = args.ranks or 1
     if args.ranks < 1:
         ap.error("--ranks must be at least 1")
+    if args.tp and args.ranks % args.tp:
+        ap.error(f"--tp {args.tp} does not divide --ranks {args.ranks}")
     if args.smoke and args.serve:
         args.serve_clients = min(args.serve_clients, 4)
         args.serve_requests = min(args.serve_requests, 16)
@@ -315,7 +383,8 @@ def reduction_mode(args, quantized: Optional[bool] = None, tuned: bool = False) 
     q = args.quantized if quantized is None else quantized
     mode = (("overlap+" if args.overlap else "")
             + ("quantized" if q else ("streamed" if args.overlap else "posthoc")))
-    return mode + ("+zero1" if args.zero1 else "") + ("+tuned" if tuned else "")
+    return (mode + ("+zero1" if args.zero1 else "") + (f"+tp{args.tp}" if args.tp else "")
+            + ("+tuned" if tuned else ""))
 
 
 def _resolve_tuned(args, model, n: int):
@@ -387,6 +456,206 @@ def _build_transformer(args, dev, rank, n):
     return model, (tokens, labels), lambda m, b: lm_loss(m(b[0]), b[1])
 
 
+def _launch_counts(reset: bool = False) -> dict:
+    """This rank's launches of the hand-written kernels (B1's forward and
+    backward pairs, B3, B4) since the last reset."""
+    from .ops import collective_matmul as cm
+    from .ops import flash_attention as fa
+
+    if reset:
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = cm.AGMM_LAUNCHES = cm.MRS_LAUNCHES = 0
+    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd": fa.BWD_LAUNCHES,
+            "ag_matmul": cm.AGMM_LAUNCHES, "matmul_reduce_scatter": cm.MRS_LAUNCHES}
+
+
+def _build_composed(args, model, dev, tk: dict, quantized: bool):
+    """The composed DP x TP step over ``model``'s weights (the same on every
+    rank): ``(step, this rank's shards, the global batch)``, as
+    ``tools/tp_parity --bench`` builds it."""
+    import torch
+
+    from .models.transformer import make_gpt_loss_fn
+    from .ops.fusion import tree_leaves
+    from .parallel.mesh import build_mesh
+    from .train import make_train_step
+    from .utils.convert import local_params_from_flax, params_to_numpy
+
+    n = torch.distributed.get_world_size()
+    mesh = build_mesh({"data": n // args.tp, "model": args.tp})
+    params = local_params_from_flax(params_to_numpy(model), args.rules, mesh, device=dev)
+    dims = GPT_SMOKE if args.smoke else GPT2_SMALL
+    step = make_train_step(
+        make_gpt_loss_fn(dims["n_heads"], model_axis="model"),
+        torch.optim.AdamW(tree_leaves(params), lr=3e-4, weight_decay=1e-4, eps=1e-8),
+        mesh=mesh, rules=args.rules, overlap=args.overlap, quantized=quantized,
+        zero1=args.zero1, tp_overlap=True if args.tp_overlap else None,
+        fusion_threshold_bytes=tk.get("fusion_threshold_bytes"),
+        first_bucket_bytes=tk.get("first_bucket_bytes"))
+    rng = np.random.RandomState(args.seed)
+    rows = (n // args.tp) * args.batch_size
+    batch = tuple(torch.from_numpy(rng.randint(0, dims["vocab_size"], (rows, args.seq_len)))
+                  .to(dev) for _ in range(2))
+    return step, params, batch
+
+
+def wire_block(args, reduced, dp: int, quantized: bool, dims: dict):
+    """``bench.py``'s ``wire`` block by the ring accounting of
+    ``ops/fusion.ring_wire_bytes``, over the leaves a card reduces over the
+    data group (its shards under ``--tp``); returns it and, under ``--tp``,
+    the model axis's block."""
+    from .ops.fusion import ring_wire_bytes
+
+    grad_bytes = int(sum(t.numel() * t.element_size() for t in reduced))
+    wire_dtype = "int8" if quantized else "f32"
+    full = ring_wire_bytes(grad_bytes, dp, "allreduce")
+    tp_block = None
+    if args.tp:
+        payload = args.batch_size * args.seq_len * dims["d_model"] * 2     # bf16
+        psums = 4 * dims["n_layers"]                 # forward psums and their conjugates
+        tp_block = {
+            "psum_payload_bytes": int(payload),
+            "psums_per_step": int(psums),
+            "bytes_on_wire_per_step_per_chip": psums * ring_wire_bytes(payload, args.tp),
+            "wire_dtype": "bf16 (never quantized, never re-planned)",
+            # The fused pair moves the same bytes, inside the products.
+            "path": "collective_matmul (fused)" if args.tp_overlap else "psum (classic)",
+        }
+    rs = ag = None
+    if args.zero1:
+        rs = ring_wire_bytes(grad_bytes, dp, "reduce_scatter", wire_dtype)
+        ag = ring_wire_bytes(grad_bytes, dp, "all_gather")
+        wire = rs + ag
+    else:
+        wire = ring_wire_bytes(grad_bytes, dp, "allreduce", wire_dtype)
+    block = {
+        "gradient_bytes": grad_bytes,
+        "bytes_on_wire_per_step_per_chip": wire,
+        "full_precision_bytes_on_wire_per_step_per_chip": full,
+        "savings_ratio": round(1.0 - wire / full, 4) if full else 0.0,
+    }
+    if args.zero1:
+        block.update({
+            "reduce_scatter_bytes_per_step_per_chip": rs,
+            "all_gather_bytes_per_step_per_chip": ag,
+            "gradient_reduction_savings_ratio": round(1.0 - rs / (full / 2), 4) if full else 0.0,
+        })
+    if tp_block:
+        block["per_axis"] = {
+            "data": {"bytes_on_wire_per_step_per_chip": wire,
+                     "local_gradient_bytes": grad_bytes, "dp_degree": dp},
+            "model": dict(tp_block, tp_degree=args.tp),
+        }
+    return block, tp_block
+
+
+def step_skew_block(args, iter_times, step_ends, rank: int, n: int) -> dict:
+    """``bench.py``'s ``step_skew`` block. The step spans are the trace
+    tap's when it is armed, else the timed iterations'. Over ``n > 1``
+    ranks (a collective: every rank calls it) the skew is real: for each
+    timed step, the spread of the ranks' host clocks at its end, with the
+    rank most often last."""
+    import collections
+
+    import torch.distributed as dist
+
+    from . import trace as _trace
+
+    steps = args.num_batches_per_iter
+    spans = _trace.step_summary()
+    if not spans.get("steps"):
+        per_step = sorted(dt / steps for dt in iter_times)
+        spans = {"steps": steps * args.num_iters, "p50_s": round(per_step[len(per_step) // 2], 6),
+                 "p99_s": round(per_step[-1], 6), "source": "iter-timing"}
+    else:
+        spans["source"] = "trace-step-tap"
+    if n == 1:
+        return {"step_spans": spans, "p50_skew_s": 0.0, "p99_skew_s": 0.0, "worst_rank": None,
+                "ranks_observed": 1, "note": "one rank: no cross-rank skew"}
+    ends = [None] * n
+    dist.all_gather_object(ends, list(step_ends))
+    skews = sorted(max(e[k] for e in ends) - min(e[k] for e in ends)
+                   for k in range(len(step_ends)))
+    last = collections.Counter(max(range(n), key=lambda r: ends[r][k])
+                               for k in range(len(step_ends)))
+    return {
+        "step_spans": spans,
+        "p50_skew_s": round(skews[len(skews) // 2], 6),
+        "p99_skew_s": round(skews[min(int(0.99 * (len(skews) - 1)), len(skews) - 1)], 6),
+        "worst_rank": last.most_common(1)[0][0],
+        "ranks_observed": n,
+        "note": (f"{n} processes: the spread of the ranks' host clocks at each timed step's "
+                 "end (one host's wall clock), and the rank most often last"),
+    }
+
+
+def sim_block(args, params, dp: int, measured_step_s: float, quantized: bool, tk: dict,
+              tp_block) -> dict:
+    """``bench.py``'s ``sim`` block: the port's fleet simulator's predicted
+    step for this program at ``dp`` data ranks beside the measured one,
+    priced on the detected card's row (``topo/model.detect_generation``) or
+    on ``--calibration`` / HOROVOD_CALIBRATION_FILE. Without a calibration
+    the divergence ratio is 0.0 with a note. Never raises: a failing
+    simulation costs the block, not the capture."""
+    try:
+        from . import metrics as _metrics
+        from . import sim as hvdsim
+        from . import tune as T
+        from .topo.model import detect_generation, synthetic_model
+
+        spec = T.spec_from_params("bench-transformer", params, mesh={"data": dp})
+        config = ({"fusion_threshold_bytes": tk["fusion_threshold_bytes"],
+                   "first_bucket_bytes": tk["first_bucket_bytes"]} if tk else {})
+        calib = hvdsim.resolve_calibration(args.calibration or None)
+        model = hvdsim.apply_calibration(synthetic_model(dp, generation=detect_generation()),
+                                         calib, where="bench")
+        fixed_us, overlap_block = 0.0, None
+        if tp_block:
+            kw = dict(psums_per_step=tp_block["psums_per_step"])
+            fixed_us = hvdsim.tp_fixed_comm_us(model, tp_block["psum_payload_bytes"], args.tp,
+                                               **kw)
+            if args.tp_overlap:
+                from .ops.collective_matmul import resolve_chunks
+
+                chunks = resolve_chunks(max(args.batch_size * args.seq_len // args.tp, 1))
+                fused_us = hvdsim.tp_fixed_comm_us(model, tp_block["psum_payload_bytes"],
+                                                   args.tp, overlap=True, chunks=chunks, **kw)
+                overlap_block = {"chunks": int(chunks),
+                                 "fixed_comm_us": round(float(fused_us), 4),
+                                 "classic_fixed_comm_us": round(float(fixed_us), 4),
+                                 "compute_hidden_us": 0.0}
+                fixed_us = fused_us
+        program = hvdsim.program_from_spec(spec, config, fixed_comm_us=fixed_us)
+        res = hvdsim.simulate(model, program, hvdsim.SimConfig(
+            wire_dtype="int8" if quantized else "f32", zero1=bool(args.zero1),
+            overlap=bool(args.overlap)), steps=2)
+        predicted_s = res.mean_step_us / 1e6
+        calibrated = calib is not None and model.source.endswith("+calibrated")
+        block = {
+            "predicted_step_time_s": round(predicted_s, 6),
+            "measured_step_time_s": round(float(measured_step_s), 6),
+            "scaling_efficiency": round(res.scaling_efficiency, 6),
+            "ranks": int(dp),
+            "calibrated": bool(calibrated),
+            **({"tp": {"degree": int(args.tp), "fixed_comm_us": round(float(fixed_us), 4),
+                       **({"overlap": overlap_block} if overlap_block else {})}}
+               if tp_block else {}),
+        }
+        if calibrated and measured_step_s > 0:
+            block["divergence_ratio"] = round(predicted_s / float(measured_step_s), 6)
+            if _metrics.ACTIVE:
+                _metrics.TAP.set("hvd_sim_divergence_ratio", block["divergence_ratio"],
+                                 hop="step")
+        else:
+            block["divergence_ratio"] = 0.0
+            block["note"] = (f"no calibration applied — the prediction uses the "
+                             f"{model.generation} row's defaults; fit constants with python -m "
+                             "horovod_tpu_torch.tools.fleet_sim --calibrate and pass "
+                             "--calibration / HOROVOD_CALIBRATION_FILE")
+        return block
+    except Exception as e:  # noqa: BLE001 - an advisory block only
+        return {"error": repr(e)}
+
+
 def run(args) -> int:
     """One rank of the benchmark; rank 0 prints the JSON line."""
     import torch
@@ -418,23 +687,29 @@ def run(args) -> int:
         tuned_kw, tuned_detail = _resolve_tuned(args, model, n)
         tk = tuned_kw or {}
         quantized = bool(args.quantized) or bool(tk.get("quantized"))
-        if transformer:
-            inner = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8)
+        dp, params = n, model
+        if args.tp:
+            dp = n // args.tp
+            step, params, batch = _build_composed(args, model, dev, tk, quantized)
         else:
-            inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-        if args.zero1 and not args.overlap:
-            from .parallel.zero import make_zero1_train_step
+            if transformer:
+                inner = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
+                                          eps=1e-8)
+            else:
+                inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            if args.zero1 and not args.overlap:
+                from .parallel.zero import make_zero1_train_step
 
-            step = make_zero1_train_step(loss_fn, inner, quantized=quantized)
-        else:
-            opt = hvd.DistributedOptimizer(
-                inner, named_parameters=model.named_parameters(), overlap=args.overlap,
-                zero1=args.zero1, quantized=quantized,
-                error_feedback=False if quantized else None,
-                fusion_threshold_bytes=tk.get("fusion_threshold_bytes"),
-                first_bucket_bytes=tk.get("first_bucket_bytes"), tuned=False)
-            hvd.broadcast_optimizer_state(opt, root_rank=0)
-            step = hvd.make_train_step(loss_fn, opt)
+                step = make_zero1_train_step(loss_fn, inner, quantized=quantized)
+            else:
+                opt = hvd.DistributedOptimizer(
+                    inner, named_parameters=model.named_parameters(), overlap=args.overlap,
+                    zero1=args.zero1, quantized=quantized,
+                    error_feedback=False if quantized else None,
+                    fusion_threshold_bytes=tk.get("fusion_threshold_bytes"),
+                    first_bucket_bytes=tk.get("first_bucket_bytes"), tuned=False)
+                hvd.broadcast_optimizer_state(opt, root_rank=0)
+                step = hvd.make_train_step(loss_fn, opt)
 
         def sync():
             if on_card:
@@ -442,32 +717,36 @@ def run(args) -> int:
 
         # Warmup; its first step also counts the step's FLOPs.
         with FlopCounterMode(display=False) as counter:
-            loss = step(model, batch)
+            loss = step(params, batch)
         measured = counter.get_total_flops() or None
         for _ in range(args.num_warmup_batches - 1):
-            loss = step(model, batch)
+            loss = step(params, batch)
         float(loss)
-        iter_times = []
+        launch_counts = _launch_counts(reset=True)
+        iter_times, step_ends = [], []
         for _ in range(args.num_iters):
             sync()
             t0 = time.perf_counter()
             for _ in range(args.num_batches_per_iter):
-                loss = step(model, batch)
+                loss = step(params, batch)
+                step_ends.append(time.time())
             sync()
             iter_times.append(time.perf_counter() - t0)
         loss = float(loss)
+        launch_counts = {k: v / (args.num_iters * args.num_batches_per_iter)
+                         for k, v in _launch_counts().items()}
 
         platform = "gpu" if on_card else "cpu"
         kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
         steps = args.num_batches_per_iter
-        per_step_items = n * args.batch_size * (args.seq_len if transformer else 1)
+        per_step_items = dp * args.batch_size * (args.seq_len if transformer else 1)
         total = float(np.mean([per_step_items * steps / dt for dt in iter_times]))
         per_chip = total / n
         if transformer:
             dims = GPT_SMOKE if args.smoke else GPT2_SMALL
             n_params = sum(p.numel() for p in model.parameters())
             analytic = _analytic_flops_lm(n_params, dims["n_layers"], dims["d_model"],
-                                          args.batch_size, args.seq_len)
+                                          args.batch_size, args.seq_len) / max(args.tp, 1)
         else:
             analytic = _analytic_flops_cnn(args.model, args.image_size, args.batch_size)
         flops, source = _reconcile_flops(measured, analytic, platform)
@@ -485,6 +764,12 @@ def run(args) -> int:
             "backend_init_attempts": 1,
         }
         if transformer:
+            from .ops.fusion import tree_leaves
+
+            measured_step_s = float(np.mean(iter_times)) / steps
+            reduced = (tree_leaves(params) if args.tp else list(model.parameters()))
+            wire, tp_block = wire_block(args, reduced, dp, quantized, dims)
+            skew = step_skew_block(args, iter_times, step_ends, rank, n)
             out = {
                 "metric": "transformer_synthetic_tokens_per_sec_per_chip",
                 "value": round(per_chip, 1),
@@ -493,6 +778,8 @@ def run(args) -> int:
                 "detail": {
                     "total_tokens_per_sec": round(total, 1),
                     "n_chips": n,
+                    **({"mesh": {"data": dp, "model": args.tp}, "rules": args.rules}
+                       if args.tp else {}),
                     "batch_per_chip": args.batch_size,
                     "seq_len": args.seq_len,
                     "n_params": n_params,
@@ -502,7 +789,12 @@ def run(args) -> int:
                     "gradient_wire": ("int8-quantized" if quantized
                                       else "full-precision"),
                     "reduction_mode": reduction_mode(args, quantized, bool(tuned_kw)),
-                    "step_time_s": round(float(np.mean(iter_times)) / steps, 6),
+                    "step_time_s": round(measured_step_s, 6),
+                    "wire": wire,
+                    "step_skew": skew,
+                    "sim": sim_block(args, params, dp, measured_step_s, quantized, tk,
+                                     tp_block),
+                    "kernel_launches_per_step": launch_counts if on_card else None,
                     **common,
                 },
             }
@@ -806,7 +1098,8 @@ def time_decode_step(engine, *, steps: int = 20) -> dict:
 
 
 def serve_report(args, dims, loop: dict, device) -> dict:
-    """``bench.py``'s serving JSON from a :func:`closed_loop` run."""
+    """``bench.py``'s serving JSON from a :func:`closed_loop` run (with
+    ``mesh`` and ``rules`` under ``--tp``)."""
     import torch
 
     ok = [c for c in loop["completions"] if c.outcome == "ok"]
@@ -840,6 +1133,7 @@ def serve_report(args, dims, loop: dict, device) -> dict:
             "model": {"vocab": dims["vocab_size"], "d_model": dims["d_model"],
                       "n_heads": dims["n_heads"], "n_layers": dims["n_layers"],
                       "max_len": dims["max_len"]},
+            **({"mesh": {"model": args.tp}, "rules": args.rules} if args.tp else {}),
             "dtype": "float32 compute and cache",
             "platform": "gpu" if on_card else "cpu",
             "device_kind": torch.cuda.get_device_name(device) if on_card else "cpu",
@@ -853,12 +1147,56 @@ def run_serve(args) -> int:
     line."""
     from .common.basics import resolve_device
 
+    if args.tp:
+        return run_serve_tp(args)
     device = resolve_device(args.device)
     dims, params = serve_model(args, device)
     with serve_engine(args, dims, params, device) as engine:
         loop = closed_loop(engine, args, dims["vocab_size"])
     print(json.dumps(serve_report(args, dims, loop, device)), flush=True)
     return 0
+
+
+def run_serve_tp(args) -> int:
+    """One rank of the tensor-parallel server (``--serve --tp N``): the
+    seeded weights cut to this rank's shards on a ``{"model": N}`` mesh,
+    ``serve(mesh=..., rules=...)`` with the engine's configuration of
+    :func:`serve_engine`; rank 0 drives the closed loop and prints the JSON
+    line, the others follow its steps."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    from .common.basics import resolve_device
+    from .common.env import Config
+    from .parallel.mesh import build_mesh
+    from .serve import serve
+    from .tools.launch import store_url
+    from .utils.convert import local_params_from_flax, params_to_numpy
+
+    hvd.init(resolve_device(args.device), init_method=store_url())
+    try:
+        dev = hvd.device()
+        mesh = build_mesh({"model": hvd.size()})
+        dims, whole = serve_model(args, dev)
+        local = local_params_from_flax(params_to_numpy(whole), args.rules, mesh, device=dev)
+        del whole
+        cfg = Config()
+        cfg.serve_kv_pages, cfg.serve_page_size = max(64, 8 * args.serve_max_batch), 8
+        cfg.serve_max_batch, cfg.serve_max_wait_us = args.serve_max_batch, args.serve_max_wait_us
+        cfg.serve_replicas = args.serve_replicas
+        handle = serve(local, n_heads=dims["n_heads"], mesh=mesh, rules=args.rules, config=cfg,
+                       dtype=torch.float32, device=dev)
+        if handle.engine is None:
+            return 0                     # a follower: it replayed the leader's steps
+        try:
+            loop = closed_loop(handle.engine, args, dims["vocab_size"])
+        finally:
+            handle.stop()
+        print(json.dumps(serve_report(args, dims, loop, dev)), flush=True)
+        return 0
+    finally:
+        hvd.shutdown()
 
 
 def run_micro(args, out_dir: str) -> None:
@@ -877,7 +1215,7 @@ def run_micro(args, out_dir: str) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.serve:
+    if args.serve and (not args.tp or "HOROVOD_RANK" in os.environ):
         return run_serve(args)
     if "HOROVOD_RANK" in os.environ:
         return run(args)

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Any, Dict, Optional
 
 import torch
@@ -90,6 +91,9 @@ class NcclPlanExecutor(PlanExecutor):
         n = topology.size
         # The eager plane's own communicator, created by every rank in one order.
         self._group = dist.new_group(list(range(n)))
+        # Registered from the caller's thread, read by the executor thread's
+        # plans: every access holds the lock.
+        self._lock = threading.Lock()
         self._sets: Dict[int, _SetContext] = {}
         # The (cross, local) groups of a homogeneous grid, for the two-level
         # lowerings (the reference's LOCAL/CROSS communicator pair).
@@ -166,17 +170,20 @@ class NcclPlanExecutor(PlanExecutor):
         """Create the set's group: collective over every rank of the job,
         called in one order on all of them."""
         ranks = sorted(int(r) for r in ranks)
-        self._sets[int(psid)] = _SetContext(psid, ranks, dist.new_group(ranks),
-                                            self._topo.rank)
+        ctx = _SetContext(psid, ranks, dist.new_group(ranks), self._topo.rank)
+        with self._lock:
+            self._sets[int(psid)] = ctx
 
     def remove_process_set(self, psid: int) -> None:
-        self._sets.pop(int(psid), None)
+        with self._lock:
+            self._sets.pop(int(psid), None)
 
     def _set_ctx(self, plan: dict) -> Optional[_SetContext]:
         psid = int(plan.get("process_set", 0))
         if psid == 0:
             return None
-        ctx = self._sets.get(psid)
+        with self._lock:
+            ctx = self._sets.get(psid)
         if ctx is None:
             raise RuntimeError(f"process set {psid} is not registered on this rank")
         return ctx

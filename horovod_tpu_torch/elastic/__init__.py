@@ -460,9 +460,14 @@ def adopted_step_kwargs() -> Optional[Dict[str, Any]]:
     """The ``make_train_step`` knobs the adopted re-plan maps to, through
     the same ``tune.tuned_step_kwargs`` a pinned ``tuned.json`` takes, so a
     re-planned step is bitwise the same knobs passed by hand. None before
-    any adoption; a training loop splats it when it (re)builds its step::
+    any adoption; a training loop splats it when it (re)builds its step,
+    closing the step it replaces (an ``overlap=True`` step's hooks come off
+    the parameters; a new streamed build over them would take them off by
+    itself, and the old step raises if it is called again)::
 
         kwargs = hvd.elastic.adopted_step_kwargs() or {}
+        if step is not None:
+            step.close()
         step = hvd.make_train_step(loss_fn, opt, **kwargs)
     """
     if _adopted_replan is None:

@@ -67,6 +67,8 @@ def agree_flag(flag: torch.Tensor, group: Any = None) -> torch.Tensor:
     applies a step another rank skipped. A tuple of groups (an axis tuple,
     or the composed step's data and model groups) agrees over every rank of
     their grid, one MAX a group."""
+    if collectives.RECORD is not None:
+        collectives.RECORD.seam_calls += 1       # the static checks' skip-agreement rule
     flag = flag.reshape(1)
     for g in (group if isinstance(group, tuple) else (group,)):
         flag = collectives.allreduce(flag, op=ReduceOp.MAX, group=g)

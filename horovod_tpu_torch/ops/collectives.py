@@ -48,6 +48,20 @@ from ..common.types import ReduceOp, Status  # noqa: F401  (Status: the eager op
 
 Group = Optional[dist.ProcessGroup]
 
+# The static checks' recorder (``analysis/graph_lint.record``): None, or
+# ``RECORD(primitive, tensor, group, **params)`` called just before each
+# collective is issued, which returns False when the collective must not be
+# issued (a call whose group members disagree about it). Read from this
+# module at each call, as the other taps are.
+RECORD = None
+
+
+def _issue(primitive: str, x: torch.Tensor, group: Group, **params) -> bool:
+    """Record one collective (the recorder is on); whether to issue it.
+    Call sites test ``RECORD is None`` first, so the step pays nothing
+    with the recorder off."""
+    return bool(RECORD(primitive, x, group, **params))
+
 
 class AxisGroups(tuple):
     """The groups of several mesh axes, outermost first: the port's form of
@@ -102,6 +116,10 @@ _TORCH_OPS = {
 }
 
 
+# The JAX primitive each reduction lowers to (the static checks' vocabulary).
+_PRIMITIVE = {ReduceOp.MIN: "pmin", ReduceOp.MAX: "pmax", ReduceOp.PRODUCT: "pprod"}
+
+
 def _maybe_scale(x: torch.Tensor, factor: float) -> torch.Tensor:
     if factor == 1.0:
         return x
@@ -125,7 +143,8 @@ def allreduce_(
     if op not in _TORCH_OPS:
         raise ValueError(f"Unsupported reduce op: {op}")
     x = _maybe_scale(x, prescale_factor)
-    dist.all_reduce(x, op=_TORCH_OPS[op], group=group)
+    if RECORD is None or _issue(_PRIMITIVE.get(op, "psum"), x, group, op=ReduceOp(op).name):
+        dist.all_reduce(x, op=_TORCH_OPS[op], group=group)
     if op == ReduceOp.AVERAGE:
         n = dist.get_world_size(group)
         if x.is_floating_point():
@@ -156,7 +175,10 @@ def _allgather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
         return x
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((n * front.shape[0], *front.shape[1:]))
-    dist.all_gather_into_tensor(out, front, group=group)
+    if RECORD is None or _issue("all_gather", front, group):
+        dist.all_gather_into_tensor(out, front, group=group)
+    else:
+        out.copy_(front.repeat(n, *([1] * (front.dim() - 1))))
     return out.movedim(0, dim)
 
 
@@ -171,7 +193,10 @@ def _reducescatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
         )
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
-    dist.reduce_scatter_tensor(out, front, group=group)
+    if RECORD is None or _issue("reduce_scatter", front, group):
+        dist.reduce_scatter_tensor(out, front, group=group)
+    else:
+        out.copy_(front.chunk(n)[dist.get_rank(group)])
     return out.movedim(0, dim)
 
 
@@ -242,7 +267,8 @@ def _check_root(root_rank: int, group: Group) -> None:
 def broadcast_(x: torch.Tensor, *, root_rank: int = 0, group: Group = None) -> torch.Tensor:
     """Overwrite ``x`` on the group's ranks with the root's value, in place."""
     _check_root(root_rank, group)
-    dist.broadcast(x, group=group, group_src=int(root_rank))
+    if RECORD is None or _issue("pbroadcast", x, group, root=int(root_rank)):
+        dist.broadcast(x, group=group, group_src=int(root_rank))
     return x
 
 
@@ -263,7 +289,10 @@ def _alltoall(x: torch.Tensor, group: Group, split_axis: int, concat_axis: int) 
         )
     chunks = torch.stack(x.chunk(n, dim=split_axis))   # [n, ...], chunk j for rank j
     received = torch.empty_like(chunks)
-    dist.all_to_all_single(received, chunks, group=group)
+    if RECORD is None or _issue("all_to_all", chunks, group):
+        dist.all_to_all_single(received, chunks, group=group)
+    else:
+        received = chunks
     return torch.cat(received.unbind(0), dim=concat_axis)
 
 
@@ -304,6 +333,10 @@ def ring_exchange(sends: Sequence[Tuple[torch.Tensor, int]], group: Group = None
     stream wait for them, not the host."""
     group = group or dist.group.WORLD
     n, r = dist.get_world_size(group), dist.get_rank(group)
+    if RECORD is not None and not all(
+            [_issue("ppermute", t, group, perm=[(i, (i + step) % n) for i in range(n)])
+             for t, step in sends]):
+        return [t.clone() for t, _ in sends], []
     recvs = [torch.empty_like(t) for t, _ in sends]
     ops = []
     for (t, step), buf in zip(sends, recvs):
@@ -323,6 +356,12 @@ def p2p_exchange(sends: Sequence[Tuple[torch.Tensor, int]] = (),
     collective on the group before its first such batch (``parallel/pp.py``'s
     ``StageLine`` does)."""
     group = group or dist.group.WORLD
+    if RECORD is not None:
+        me = dist.get_rank(group)
+        for t, peer in sends:
+            _issue("send", t, group, pairs=[(me, int(peer))])
+        for buf, peer in recvs:
+            _issue("recv", buf, group, pairs=[(int(peer), me)])
     ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, peer), group)
            for t, peer in sends]
     ops += [dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, peer), group)
@@ -393,6 +432,9 @@ class Hop:
     def exchange(self, x: torch.Tensor, peer: int) -> torch.Tensor:
         """Send ``x`` to the level's rank ``peer`` and return its tensor."""
         global_peer = dist.get_global_rank(self.group, peer)
+        if RECORD is not None:
+            _issue("send", x, self.group, pairs=[(self.rank, int(peer))])
+            _issue("recv", x, self.group, pairs=[(int(peer), self.rank)])
         buf = torch.empty_like(x)
         for work in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, x.contiguous(), global_peer, self.group),

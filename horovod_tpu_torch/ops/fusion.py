@@ -47,9 +47,10 @@ step count.
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import metrics as _metrics
 from .. import trace as _trace
@@ -149,6 +150,22 @@ def axis_label(group: Any) -> str:
     return "cross+local" if isinstance(group, tuple) and len(group) == 2 else DATA_AXIS
 
 
+def ring_wire_bytes(payload_bytes: int, n: int, collective: str = "allreduce",
+                    wire_dtype: str = "f32") -> int:
+    """Ring accounting of what one reduction of ``payload_bytes`` moves per
+    rank over ``n`` ranks: ``2 (n - 1) / n`` of the payload for an
+    allreduce, ``(n - 1) / n`` for one reduce-scatter or all-gather pass;
+    the int8 wire prices the payload's int8 + scales form."""
+    if n <= 1:
+        return 0
+    payload = int(payload_bytes)
+    if wire_dtype == "int8":
+        payload = int8_wire_bytes(payload)
+    if collective in ("allreduce", "psum"):
+        return 2 * (n - 1) * payload // n
+    return (n - 1) * payload // n
+
+
 def record_axis_wire_bytes(payload_bytes: int, group: Any, collective: str,
                            wire_dtype: str = "f32") -> None:
     """Per-axis bytes-on-wire of one reduction plan (``horovod_tpu/ops/
@@ -161,13 +178,7 @@ def record_axis_wire_bytes(payload_bytes: int, group: Any, collective: str,
     n = collectives.group_rank_size(group)[1]
     if n <= 1:
         return
-    payload = int(payload_bytes)
-    if wire_dtype == "int8":
-        payload = int8_wire_bytes(payload)
-    if collective in ("allreduce", "psum"):
-        onwire = 2 * (n - 1) * payload // n
-    else:  # reduce_scatter / all_gather: one ring pass
-        onwire = (n - 1) * payload // n
+    onwire = ring_wire_bytes(payload_bytes, n, collective, wire_dtype)
     label = axis_label(group)
     if _metrics.ACTIVE:
         _metrics.TAP.inc("hvd_axis_wire_bytes_total", float(onwire), axis=label,
@@ -255,6 +266,10 @@ def fused_allreduce(
     reduce_fn = reduce_fn or collectives.allreduce
     results: List[Optional[torch.Tensor]] = [None] * len(leaves)
     for bucket in buckets:
+        if collectives.RECORD is not None:
+            # The static checks' recorder: the bucket's fusion path and, for
+            # a packed bucket, its leaf count (the fusion-budget rule).
+            collectives.RECORD.note(path=label or "fused", fused_leaves=len(bucket))
         if len(bucket) == 1:
             i = bucket[0]
             results[i] = reduce_fn(
@@ -606,7 +621,12 @@ class StreamedReduction:
     and returns the results by group. ``launched_in_backward`` counts the
     groups the hooks launched since the last ``finish``, ``launched_early``
     those launched while another group's gradients were still to come; the
-    ``last_`` counts keep the step ``finish`` closed."""
+    ``last_`` counts keep the step ``finish`` closed.
+
+    A parameter carries the hooks of one streamed reduction at a time, as
+    the JAX step, a function, leaves nothing behind when it is rebuilt: a
+    new reduction over a parameter that another open one hooks closes that
+    one (:meth:`remove`), whose :meth:`finish` then raises."""
 
     def __init__(self, groups: Sequence[Sequence[torch.Tensor]],
                  reduce: Callable[[int, List[torch.Tensor]], Any], backward_passes: int = 1,
@@ -619,8 +639,14 @@ class StreamedReduction:
         self._order = list(range(len(self.groups)))
         self._ordered = False
         self._side = None
-        self._handles = [p.register_post_accumulate_grad_hook(self._on_grad)
-                         for g in self.groups for p in g]
+        self.closed = False
+        params = [p for g in self.groups for p in g]
+        for stale in {id(o): o for o in (_STREAM_OF.get(p) for p in params)
+                      if o is not None and not o.closed}.values():
+            stale.remove()
+        self._handles = [p.register_post_accumulate_grad_hook(self._on_grad) for p in params]
+        for p in params:
+            _STREAM_OF[p] = self
         self.last_launched_in_backward = self.last_launched_early = 0
         self._reset()
 
@@ -633,10 +659,12 @@ class StreamedReduction:
         self.launched_in_backward = self.launched_early = 0
 
     def remove(self) -> None:
-        """Take the hooks off the parameters."""
+        """Take the hooks off the parameters and close the reduction.
+        Idempotent."""
         for h in self._handles:
             h.remove()
         self._handles = []
+        self.closed = True
 
     def _on_grad(self, p: torch.Tensor) -> None:
         count = self._counts.get(id(p), 0) + 1
@@ -654,6 +682,8 @@ class StreamedReduction:
     def _launch(self, in_backward: bool) -> None:
         gi = self._order[self._next]
         self._next += 1
+        if collectives.RECORD is not None:
+            collectives.RECORD.stream_calls += 1
         params = self.groups[gi]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if params[0].device.type == "cuda":
@@ -669,6 +699,10 @@ class StreamedReduction:
             self.launched_early += len(self._complete) < len(self.groups)
 
     def finish(self) -> List[Any]:
+        if self.closed:
+            raise RuntimeError(
+                "this streamed reduction is closed: its step was closed or rebuilt over the "
+                "same parameters, and its hooks are off them; step with the new build")
         while self._next < len(self.groups):
             self._launch(in_backward=False)
         results = self._results
@@ -696,6 +730,24 @@ class StreamedReduction:
         self.last_launched_early = self.launched_early
         self._reset()
         return results
+
+
+# The open streamed reduction whose hooks each parameter carries.
+_STREAM_OF = WeakIdKeyDictionary()
+
+
+def stream_registrations(params: Iterable[torch.Tensor]) -> Dict[str, int]:
+    """What the open streamed reductions register on ``params``: ``calls``
+    (distinct reductions), ``leaves`` (parameters that one hooks) and
+    ``hooks`` (post-accumulate-grad hooks on them, of any owner). The
+    counterpart of the JAX package's ``take_stream_registrations``, read
+    from the parameters rather than from a trace."""
+    params = list(params)
+    owners = [_STREAM_OF.get(p) for p in params]
+    live = [o for o in owners if o is not None and not o.closed]
+    return {"calls": len({id(o) for o in live}), "leaves": len(live),
+            "hooks": sum(len(getattr(p, "_post_accumulate_grad_hooks", None) or ())
+                         for p in params)}
 
 
 def _tensors(x: Any) -> List[torch.Tensor]:

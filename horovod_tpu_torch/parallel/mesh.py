@@ -27,6 +27,7 @@ Conventions:
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch.distributed as dist
@@ -86,8 +87,22 @@ def build_mesh(axes: Optional[Dict[str, int]] = None) -> DeviceMesh:
         raise ValueError(
             f"Mesh axes {axes} require {total} devices but {ndev} are available"
         )
-    return init_device_mesh(basics.device().type, tuple(axes.values()),
+    mesh = init_device_mesh(basics.device().type, tuple(axes.values()),
                             mesh_dim_names=tuple(axes.keys()))
+    _BUILT.append(weakref.ref(mesh))
+    return mesh
+
+
+# Every mesh built in this process, so the static checks' recorder can name
+# the axis of a group a step issues a collective on (``analysis/graph_lint``),
+# as a jaxpr carries the names of its enclosing shard_map meshes.
+_BUILT: list = []
+
+
+def built_meshes() -> list:
+    """The meshes :func:`build_mesh` built that are still alive."""
+    _BUILT[:] = [r for r in _BUILT if r() is not None]
+    return [r() for r in _BUILT]
 
 
 def axis_size(mesh: DeviceMesh, name: str) -> int:

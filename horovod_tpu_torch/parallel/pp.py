@@ -77,7 +77,7 @@ class StageLine:
         self.n = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         if self.n > 1:
-            dist.all_reduce(torch.zeros(1, device=basics.device()), group=self.group)
+            collectives.allreduce_(torch.zeros(1, device=basics.device()), group=self.group)
 
     def post(self, send: Optional[torch.Tensor], recv_like: Optional[torch.Tensor], step: int):
         """Send ``send`` to stage rank + step and receive a tensor shaped

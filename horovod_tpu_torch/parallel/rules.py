@@ -12,12 +12,13 @@ or ``()``, replicates the leaf. :func:`match_partition_rules` returns the
 normalised form, which equals ``tuple(PartitionSpec)`` of the JAX
 package's result leaf for leaf.
 
-The JAX package checks a table with its Pass 5 validator
-(``analysis/sharding_rules.py``); the port's :func:`preflight_rules` checks
-the two faults that would otherwise surface deep inside the step (an axis
-the mesh lacks, a dim the axis does not divide) and raises ``ValueError``
-naming the parameter. Its own copies of ``Rule``, ``normalize_spec`` and the
-shipped GPT table live here, because the JAX package's module imports JAX.
+Every table is checked against the mesh and the tree's whole shapes before
+it places anything, by the Pass 5 validator
+(``analysis/sharding_rules.py``, through
+``analysis/preflight.check_sharding_rules``), which raises
+``CollectiveSafetyError`` naming the rule and the parameter. The port's
+own copies of ``Rule``, ``normalize_spec`` and the shipped GPT table live
+here, because the JAX package's module imports JAX.
 """
 
 from __future__ import annotations
@@ -178,38 +179,6 @@ def mesh_axes(mesh: Any) -> Dict[str, int]:
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
     return {str(k): int(v) for k, v in zip(mesh.mesh_dim_names, mesh.shape)}
-
-
-def preflight_rules(rules: Any, mesh: Any, shapes: Mapping[str, Sequence[int]]) -> None:
-    """Check ``rules`` against the mesh and the GLOBAL shapes of the tree
-    (``{/-joined name: shape}``): every leaf matches a rule, every axis a
-    spec names is a mesh axis, and every sharded dim divides by the product
-    of its axes' sizes. Raises ``ValueError`` naming the parameter (and the
-    rule) at the first fault."""
-    axes = mesh_axes(mesh)
-    compiled = _compile(rules)
-    for name in sorted(shapes):
-        shape = tuple(int(d) for d in shapes[name])
-        norm = _match(compiled, name, shape)
-        if len(norm) > len(shape):
-            raise ValueError(
-                f"param {name!r} has {len(shape)} dims but its rule's spec "
-                f"{_to_spec(norm)} has {len(norm)} entries"
-            )
-        for dim, dim_axes in enumerate(norm):
-            factor = 1
-            for a in dim_axes:
-                if a not in axes:
-                    raise ValueError(
-                        f"param {name!r}: its rule shards dim {dim} over axis {a!r}, "
-                        f"which is not a mesh axis (mesh: {sorted(axes)})"
-                    )
-                factor *= axes[a]
-            if shape[dim] % factor:
-                raise ValueError(
-                    f"param {name!r} dim {dim} (size {shape[dim]}) is not divisible "
-                    f"by {'x'.join(dim_axes)} = {factor}"
-                )
 
 
 def local_shard_tree(

@@ -140,9 +140,11 @@ def decode_state_specs(cache_rules: Any, cache: Any) -> Any:
 def preflight_decode_state(cache_rules: Any, mesh: Any, cache: Any) -> None:
     """Check a cache-rule table against the mesh and this rank's cache tree
     before a sharded decode step is built: every leaf matches a rule and
-    every axis it names is a mesh axis that divides its dim
-    (``rules.preflight_rules`` over the whole shapes the shards imply)."""
+    every axis it names is a mesh axis that divides its dim (the Pass 5
+    pre-flight, ``analysis/preflight.check_sharding_rules``, over the whole
+    shapes the shards imply; ``CollectiveSafetyError`` otherwise)."""
+    from ..analysis.preflight import check_sharding_rules
     from ..parallel import rules as _rules
 
     shapes = _rules.global_shapes(cache, decode_state_specs(cache_rules, cache), mesh)
-    _rules.preflight_rules(cache_rules, mesh, shapes)
+    check_sharding_rules(cache_rules, mesh, shapes)

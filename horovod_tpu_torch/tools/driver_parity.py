@@ -49,7 +49,11 @@ drawn from (seed, step, rank, size). Faults come from a seeded
   0's state at the adoption with those knobs by hand. Figures: the seconds
   from the notice's publication (the driver's log line, seen within 0.25 s)
   to the first rank's adoption and to the end of the first adopted step
-  (rank 0 saves its state for the reference in between).
+  (rank 0 saves its state for the reference in between). After the
+  rebuild the parameters carry one build's hooks: none post hoc;
+- ``replan-overlap`` (4 ranks): the same with the ``overlap=True`` step,
+  whose rebuild closes the step it replaces: after the adoption every
+  parameter carries the hook of one streamed reduction, and only one.
 
 Checks: the job exits 0; the last generation's ranks agree on their
 parameters bitwise; every loss after a re-formation equals, as
@@ -131,6 +135,7 @@ CASES = {
                    faults=[], members=[4], workload="replan", steps=REPLAN_STEPS,
                    pause_s=REPLAN_PAUSE_S, calibrate_at=REPLAN_CALIBRATE_AT),
 }
+CASES["replan-overlap"] = dict(CASES["replan"], overlap=True)
 CARD_CASES = {1: ["respawn", "driver1"], 4: ["discovery", "crash", "spare", "driver"]}
 
 
@@ -203,7 +208,8 @@ def worker(cfg_path: str) -> int:
             job.rebuild(adopted)
             ep._emit(out, {"event": "adopt", "rank": hvd.rank(), "step": state.step,
                            "t": time.time(), "kwargs": adopted,
-                           "notice": elastic.adopted_replan()})
+                           "notice": elastic.adopted_replan(), "hooks": job.hooks(),
+                           "n_params": len(list(job.model.parameters()))})
             if hvd.rank() == 0:
                 ep._dump_state(job, state, os.path.join(cfg["out"], "adopt.rank0.pt"))
         while state.step < steps:
@@ -316,6 +322,15 @@ def _replan_checks(work: str, cfg: dict, spec: dict, job: dict, steps_of: dict, 
         failures.append(f"replan: the notice {got} != propose_replan's {spec['expect']}")
     if any(a[0]["kwargs"] != want_kw for a in adopts.values()):
         failures.append(f"replan: adopted_step_kwargs {adopts[0][0]['kwargs']} != {want_kw}")
+    # No hooks left behind on the rebuild: one build's, streamed or none.
+    for slot, a in adopts.items():
+        p = a[0]["n_params"]
+        want_hooks = ({"calls": 1, "leaves": p, "hooks": p} if cfg.get("overlap")
+                      else {"calls": 0, "leaves": 0, "hooks": 0})
+        if a[0]["hooks"] != want_hooks:
+            failures.append(f"replan: slot {slot} carries {a[0]['hooks']} after the rebuild, "
+                            f"not one build's {want_hooks}")
+    figures["hooks_after_rebuild"] = adopts[0][0]["hooks"]
     start = min(at)
     if start >= cfg["steps"]:
         failures.append(f"replan: adopted at step {start}, no step after it")
@@ -535,13 +550,14 @@ def run_case(case: str, device: Optional[str], dims: dict, batch: int, seq: int,
     on_card = device != "cpu"
     steps = spec.get("steps", STEPS)
     os.makedirs(work, exist_ok=True)
-    if case == "replan":
+    if spec.get("workload") == "replan":
         spec.update(replan_inputs(work, dims, seq, spec["members"][0]))
     cfg = {"dims": dims, "batch": batch, "seq": seq, "dtype": dtype, "device": device,
            "steps": steps, "out": work, "workload": spec.get("workload", "binding"),
            "kill": spec.get("kill"),
            "reference_in_worker": spec.get("reference_in_worker"),
-           "pause_s": spec.get("pause_s", 0.0), "threshold": None}
+           "pause_s": spec.get("pause_s", 0.0), "threshold": None,
+           "overlap": bool(spec.get("overlap"))}
     timeout = 600.0 if on_card else 300.0
     exact = dtype == "f32"
     job = run_job(case, spec, cfg, work, timeout)
@@ -603,7 +619,7 @@ def run_case(case: str, device: Optional[str], dims: dict, batch: int, seq: int,
                         failures.append(f"{case}: gen {gen} rank {r['rank']} step {r['step']} "
                                         f"loss {r['loss']!r} != reference {want!r}")
                     compared += 1
-    if case == "replan":
+    if spec.get("workload") == "replan":
         compared += _replan_checks(work, cfg, spec, job, steps_of, recs, spec["members"][0],
                                    timeout, figures, failures)
     figures["losses_compared"], figures["max_loss_diff"] = compared, worst
@@ -743,8 +759,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="gloo ranks on the CPU at a 2-layer d-64 GPT (f32)")
     ap.add_argument("--case", action="append", default=None,
-                    help=f"run only these cases (of {sorted(CASES)}; replan runs only when "
-                         "named, at 4 ranks)")
+                    help=f"run only these cases (of {sorted(CASES)}; replan and replan-overlap "
+                         "run only when named, at 4 ranks)")
     ap.add_argument("--parallel", action="store_true",
                     help="run the cases at once (they share the host and the cards)")
     ap.add_argument("--out", default=None, help="working directory (default: a temporary one)")

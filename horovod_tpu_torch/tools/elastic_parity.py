@@ -133,9 +133,9 @@ def batch_for(dims: dict, batch: int, seq: int, step: int, rank: int, size: int)
 
 class _Job:
     """One worker's model, optimizer and step: the binding, the DP step with
-    ZeRO-1, or (workload ``replan``) the post-hoc DP step built with
-    ``cfg["step_kwargs"]`` and rebuilt by :meth:`rebuild` when a live
-    re-plan is adopted."""
+    ZeRO-1, or (workload ``replan``) the DP step, post hoc or with
+    ``cfg["overlap"]`` streamed, built with ``cfg["step_kwargs"]`` and
+    rebuilt by :meth:`rebuild` when a live re-plan is adopted."""
 
     def __init__(self, cfg: dict):
         import torch
@@ -169,13 +169,24 @@ class _Job:
                 inner, named_parameters=self.model.named_parameters())
 
     def rebuild(self, step_kwargs: dict) -> None:
-        """The DP step (post hoc: no hooks left behind on a rebuild) over
-        the same inner optimizer, with ``step_kwargs`` by hand."""
+        """The DP step over the same inner optimizer, with ``step_kwargs``
+        by hand; the step it replaces is closed first, so the parameters
+        carry one build's hooks (:meth:`hooks`)."""
         import horovod_tpu_torch as hvd
 
+        if self.step_fn is not None:
+            self.step_fn.close()
         self.step_kwargs = dict(step_kwargs)
         self.step_fn = hvd.make_train_step(lambda m, b: self.lm_loss(m(b[0]), b[1]), self.opt,
-                                           tuned=False, **self.step_kwargs)
+                                           tuned=False, overlap=bool(self.cfg.get("overlap")),
+                                           **self.step_kwargs)
+
+    def hooks(self) -> dict:
+        """The streamed registrations and hooks on the model's parameters
+        (``ops/fusion.stream_registrations``)."""
+        from horovod_tpu_torch.ops.fusion import stream_registrations
+
+        return stream_registrations(self.model.parameters())
 
     def sync(self) -> None:
         import torch

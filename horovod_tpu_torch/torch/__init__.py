@@ -123,7 +123,8 @@ class _DistributedOptimizer:
             for p in group["params"]:
                 if not p.requires_grad:
                     continue
-                self._passes[p] = 0
+                with self._lock:
+                    self._passes[p] = 0
                 self._hook_handles.append(p.register_post_accumulate_grad_hook(self._hook))
 
     def _hook(self, param) -> None:

@@ -65,6 +65,7 @@ import torch
 
 from . import trace as _trace
 from . import tune as _tune
+from .analysis import preflight as _preflight
 from .common import basics
 from .common import env as _env
 from .common.compression import Compression
@@ -249,6 +250,13 @@ def allreduce_gradients(
         _check_hierarchy_group(group, hierarchical)
     quantized = _resolve_quantized(quantized)
     policy = resolve_policy(nonfinite)
+    if _preflight.enabled():
+        # The JAX package checks at trace time, once a compile: here once
+        # a plan (the tree's shapes and dtypes, the threshold, the group).
+        threshold = fusion.default_threshold_bytes(fusion_threshold_bytes)
+        if _preflight.first_check(("allreduce_gradients", threshold, id(group),
+                                   tuple((tuple(g.shape), g.dtype) for g in grads))):
+            _preflight.check_gradient_tree(grads, threshold, group)
     if quantized:
         if op not in fusion._QUANTIZABLE_OPS:
             raise ValueError("quantized=True supports SUM/AVERAGE reduction only")
@@ -452,8 +460,35 @@ class DistributedOptimizer:
                                  wire_dtype="int8" if quantized else "f32",
                                  overlap=bool(overlap), **({"zero1": True} if zero1 else {}))
         self._stream: Optional[fusion.StreamedReduction] = None
+        self._closed = False
+        # The step's mesh, which make_train_step sets, for the pre-flight;
+        # the pre-flight runs at the first reduction only.
+        self._mesh = None
+        self._preflighted = False
         self._named = named_parameters is not None
         self._bind(list(named_parameters) if named_parameters is not None else None)
+
+    def close(self) -> None:
+        """Take the streamed reduction's hooks off the parameters
+        (``overlap``) and close the optimizer: a later ``synchronize`` or
+        ``step`` raises. Idempotent. A new streamed build over the same
+        parameters closes the old one's stream by itself."""
+        if self._stream is not None:
+            self._stream.remove()
+        self._closed = True
+
+    @property
+    def closed(self) -> bool:
+        """Closed by :meth:`close`, or its stream by a newer build over the
+        same parameters."""
+        return self._closed or (self._stream is not None and self._stream.closed)
+
+    def _check_open(self) -> None:
+        if self.closed:
+            raise RuntimeError(
+                "this DistributedOptimizer is closed (close(), or a newer streamed build "
+                "over the same parameters took its hooks off them); build the step anew "
+                "and call that")
 
     def _set_knobs(self, threshold, first_bucket, quantized: bool, hierarchical: Any,
                    topo_algorithm: Optional[str], error_feedback: Optional[bool]) -> None:
@@ -616,6 +651,9 @@ class DistributedOptimizer:
         hoc. The replicated paths write the reduced gradients (divided by
         ``backward_passes_per_step``) into ``p.grad``; zero1 keeps this
         rank's reduced shards for ``step()``."""
+        self._check_open()
+        if not self._preflighted:
+            self._preflight()
         params = self._params
         pre = None
         if self._policy in ("skip", "abort") and not self._overlap and not self._zero1:
@@ -644,6 +682,25 @@ class DistributedOptimizer:
                     if scale != 1.0:
                         p.grad.mul_(scale)
 
+    def _preflight(self) -> None:
+        """The first reduction's static checks: with HOROVOD_TPU_STATIC_CHECKS
+        the gradient tree's bucket plan and the group against the step's
+        mesh; under ``overlap`` the streamed registrations (one build's,
+        every leaf), raised or logged with the knob, logged without it."""
+        self._preflighted = True
+        if _preflight.enabled():
+            _preflight.check_gradient_tree(
+                self._params, fusion.default_threshold_bytes(self._threshold), self._group,
+                self._mesh)
+        if self._overlap:
+            findings = _preflight.check_overlap_streaming(
+                fusion.stream_registrations(self._params), len(self._params))
+            if _preflight.enabled():
+                _preflight._raise_or_log(findings)
+            else:
+                for f in findings:
+                    _logger.warning("%s", f.render())
+
     def _agreed_skip(self) -> bool:
         """Apply the guard to the pending reduction: log under ``warn``;
         under ``skip``/``abort`` agree across ranks whether to skip."""
@@ -668,6 +725,7 @@ class DistributedOptimizer:
         return skip
 
     def step(self, closure=None):
+        self._check_open()
         if self._tuned_cfg is not None and not self._tuned_done:
             self._apply_tuned(final=True)
         if self._pending is None:
@@ -870,6 +928,8 @@ def make_train_step(
     state: dict = {}
 
     def dispatch(params, batch):
+        if state.get("closed"):
+            raise RuntimeError("this train step is closed; build the step anew and call that")
         step = state.get("step")
         if step is None:
             live = _tune.step_signature(params, mesh=_signature_mesh(mesh))
@@ -890,7 +950,15 @@ def make_train_step(
             dispatch.optimizer = step.optimizer
         return step(params, batch)
 
+    def close() -> None:
+        """Close the built step (its hooks off the parameters); a later call
+        raises."""
+        state["closed"] = True
+        if state.get("step") is not None:
+            state["step"].close()
+
     dispatch.optimizer = None
+    dispatch.close = close
     return dispatch
 
 
@@ -952,6 +1020,7 @@ def _build_train_step(
             hierarchical=False if zero1 else hierarchical, topo_algorithm=pin_algorithm,
             tuned=False,
         )
+    dist_opt._mesh = mesh
     # The loss is averaged over the reduction's ranks (every rank, unless
     # the optimizer reduces over the flattened group of an axis tuple).
     loss_group = getattr(dist_opt._group, "flat", None)
@@ -960,6 +1029,7 @@ def _build_train_step(
         return collectives.allreduce(t.detach(), op=ReduceOp.AVERAGE, group=loss_group)
 
     def step(params, batch):
+        dist_opt._check_open()
         if isinstance(params, torch.nn.Module):
             dist_opt.bind_module(params)
         dist_opt.zero_grad(set_to_none=True)
@@ -981,6 +1051,7 @@ def _build_train_step(
         hierarchical=str(dist_opt._hierarchical),
         wire_dtype="int8" if dist_opt._quantized else "f32")
     step.optimizer = dist_opt
+    step.close = dist_opt.close
     return step
 
 
@@ -1135,6 +1206,8 @@ def _build_composed_train_step(
         return collectives.allreduce(t, op=ReduceOp.AVERAGE, group=model_group)
 
     def step(params, batch):
+        if built.get("closed"):
+            raise RuntimeError("this train step is closed; build the step anew and call that")
         if "opt" not in built:
             threshold, first = fusion_threshold_bytes, first_bucket_bytes
             if tuned_cfg is not None:
@@ -1149,19 +1222,22 @@ def _build_composed_train_step(
                     _tune.warn_signature_mismatch(tuned_cfg, live.get("hash", "?"), where)
                 _tune.note_applied(tuned_source, tuned_cfg.signature_hash, matched, where)
             specs = _rules.match_partition_rules(rules, params)
-            _rules.preflight_rules(rules, mesh, _rules.global_shapes(params, specs, mesh))
+            _preflight.check_sharding_rules(rules, mesh,
+                                            _rules.global_shapes(params, specs, mesh))
             dist_opt = DistributedOptimizer(
                 optimizer, named_parameters=_rules.named_tree_paths(params), op=op,
                 fusion_threshold_bytes=threshold, group=data_group,
                 quantized=quantized, error_feedback=False, overlap=overlap,
                 first_bucket_bytes=first, nonfinite=nonfinite, zero1=zero1, tuned=False,
             )
+            dist_opt._mesh = mesh
             # A model rank's NaN must skip the step on every rank of the mesh.
             levels = data_group if isinstance(data_group, tuple) else (data_group,)
             dist_opt._flag_group = (*levels, model_group)
             built["opt"] = traced.optimizer = dist_opt
             traced.sharding_specs = specs
         dist_opt = built["opt"]
+        dist_opt._check_open()
         dist_opt.zero_grad(set_to_none=True)
         with _tp.mesh_scope(mesh), _tp.overlap_scope(tp_overlap):
             out = loss_fn(params, _tree_map(rows, batch))
@@ -1175,8 +1251,16 @@ def _build_composed_train_step(
     traced = _trace.wrap_step(step, overlap=overlap, quantized=bool(quantized),
                               hierarchical=str(hierarchical),
                               wire_dtype="int8" if quantized else "f32")
+    def close() -> None:
+        """Close the step's optimizer (its hooks off the parameters); a
+        later call raises."""
+        built["closed"] = True
+        if "opt" in built:
+            built["opt"].close()
+
     traced.sharding_specs = None
     traced.optimizer = None
+    traced.close = close
     return traced
 
 
@@ -1313,7 +1397,7 @@ def make_decode_step(
         resolved = _rules.resolve_rules(rules)
         specs = _rules.match_partition_rules(resolved, params)
         # Both tables checked against the whole shapes before any step.
-        _rules.preflight_rules(resolved, mesh, _rules.global_shapes(params, specs, mesh))
+        _preflight.check_sharding_rules(resolved, mesh, _rules.global_shapes(params, specs, mesh))
         preflight_decode_state(crules, mesh, cache)
         return mesh.get_group(model_axis)
 

@@ -69,11 +69,12 @@ def local_params_from_flax(flat: Mapping[str, np.ndarray], rules: Any, mesh,
     (``rules.local_shard_tree``), moved to ``device`` (None: the card) and
     made a leaf that requires grad. The rules are preflighted against the
     whole shapes first."""
+    from ..analysis.preflight import check_sharding_rules
     from ..parallel import rules as _rules
 
     device = resolve_device(device)
     tree = nest({path: np.asarray(a) for path, a in flat.items()})
-    _rules.preflight_rules(rules, mesh, {path: np.shape(a) for path, a in flat.items()})
+    check_sharding_rules(rules, mesh, {path: np.shape(a) for path, a in flat.items()})
     specs = _rules.match_partition_rules(rules, tree)
     local = _rules.local_shard_tree(tree, specs, _rules.mesh_coords(mesh))
     return nest({path: torch.tensor(np.ascontiguousarray(a), device=device).requires_grad_()

@@ -197,17 +197,16 @@ def _subprocess_env():
 
 
 # The detail keys bench.py prints (bench.py:1674-1692 and :1121-1182), less
-# the blocks of subsystems the port has not ported (wire, step_skew, sim,
-# mesh) and less the reference's supervisor.
+# ``mesh`` and ``rules`` (``--tp`` only) and the reference's supervisor.
 CNN_DETAIL = {"total_img_per_sec", "n_chips", "batch_per_chip", "image_size", "loss",
               "platform", "device_kind", "scan", "dtype", "tuned", "mfu",
               "flops_per_step_per_chip", "flops_source", "backend_init_s",
               "backend_init_attempts"}
 LM_DETAIL = {"total_tokens_per_sec", "n_chips", "batch_per_chip", "seq_len", "n_params",
              "loss", "platform", "device_kind", "attention", "optimizer_state",
-             "gradient_wire", "reduction_mode", "tuned", "step_time_s", "scan", "mfu",
-             "flops_per_step_per_chip", "flops_source", "backend_init_s",
-             "backend_init_attempts"}
+             "gradient_wire", "reduction_mode", "tuned", "step_time_s", "wire", "step_skew",
+             "sim", "scan", "mfu", "flops_per_step_per_chip", "flops_source",
+             "backend_init_s", "backend_init_attempts"}
 
 
 @pytest.mark.parametrize("model,metric,unit,keys", [
@@ -255,16 +254,36 @@ def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "A6"),
+    (["--tp", "2", "--ranks", "2"], "A6"),
     (["--serve", "--tp", "2"], "A6"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
 ])
 def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys, tmp_path):
-    """The unported options exit naming their item; ``--tuned`` (A13,
-    ported) runs: a pin keyed on the smoke step gives the JAX bench's
-    ``+tuned`` mode and ``tuned`` block, a pin made on another mesh refuses
-    ``--quantized``."""
+    """The unported option, ``--scan``, exits naming its item. The ported
+    ones run: ``--tp`` and ``--serve --tp`` (A6's remainder) on 2 gloo ranks
+    give the JAX bench's mode, ``mesh`` and ``rules``; ``--tuned`` (A13): a
+    pin keyed on the smoke step gives the JAX bench's ``+tuned`` mode and
+    ``tuned`` block, a pin made on another mesh refuses ``--quantized``."""
     from horovod_tpu_torch import bench
 
+    if item == "A6":
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.bench", "--smoke", "--device", "cpu",
+             "--model", "transformer", "--num-warmup-batches", "1", *argv],
+            env=_subprocess_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+        assert len(lines) == 1, proc.stdout
+        out = json.loads(lines[0])
+        detail = out["detail"]
+        if "--serve" in argv:
+            assert out["metric"] == "serve_decode_tokens_per_sec" and out["value"] > 0
+            assert (detail["mesh"], detail["rules"]) == ({"model": 2}, "gpt")
+        else:
+            assert out["metric"] == "transformer_synthetic_tokens_per_sec_per_chip"
+            assert (detail["mesh"], detail["rules"], detail["reduction_mode"]) == \
+                ({"data": 1, "model": 2}, "gpt", "posthoc+tp2")
+            assert LM_DETAIL <= set(detail) and np.isfinite(detail["loss"])
+        return
     if item == "A13":
         from horovod_tpu_torch import tune as T
         from horovod_tpu_torch.models.transformer import TransformerLM

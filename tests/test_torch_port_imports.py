@@ -73,6 +73,30 @@ def test_planning_modules_load_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_analysis_modules_and_cli_load_no_jax():
+    """The static checks (``analysis/``: the sharding rules, the runtime
+    lint, the graph lint, rank divergence, the pre-flight) and their CLI,
+    imported and driven once without ranks, leave jax, flax, optax and the
+    JAX package out of sys.modules."""
+    code = (
+        "import sys, horovod_tpu_torch.analysis as A, horovod_tpu_torch.analysis.graph_lint, "
+        "horovod_tpu_torch.analysis.divergence, horovod_tpu_torch.analysis.runtime_lint, "
+        "horovod_tpu_torch.analysis.sharding_rules as S, horovod_tpu_torch.analysis.preflight "
+        "as P, horovod_tpu_torch.tools.collective_lint as L\n"
+        "assert A.lint_runtime() == []\n"
+        "assert S.validate_sharding_rules(S.EXAMPLE_GPT_RULES, S.EXAMPLE_GPT_MESH, "
+        "S.example_gpt_params()) == []\n"
+        "assert P.check_sharding_rules('gpt', {'data': 2, 'model': 2}) == []\n"
+        "assert L.main(['sharding']) == 0\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'horovod_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_tune_modules_load_no_jax():
     """The tuner (``tune/``), its tools and the re-plan's planning half,
     imported and driven once (a GPT-2-small spec on the meta device tuned,

@@ -244,12 +244,19 @@ def test_cache_rules_match_the_reference():
         port_serve.decode_state_specs(port_rules.GPT_CACHE_RULES, port_cache)))
     assert {k: tuple(v) for k, v in ref_specs.items()} == port_specs
     # The preflight over this rank's shard (2 of 4 heads at model 2): an
-    # axis the mesh lacks, and a leaf no rule matches, fail it.
+    # axis the mesh lacks fails it with the JAX package's error and
+    # findings (the Pass 5 validator), and a leaf no rule matches fails it.
+    from horovod_tpu.analysis import CollectiveSafetyError as RefError
+    from horovod_tpu_torch.analysis import CollectiveSafetyError
+
     local = port_serve.make_decode_state(2, num_pages=4, page_size=8, n_heads=2, head_dim=4,
                                          device="cpu")
     port_serve.preflight_decode_state(port_rules.GPT_CACHE_RULES, {"model": 2}, local)
-    with pytest.raises(ValueError, match="cache_k.*not a mesh axis"):
+    with pytest.raises(CollectiveSafetyError, match="cache_.*not a mesh axis") as e:
         port_serve.preflight_decode_state(port_rules.GPT_CACHE_RULES, {"data": 2}, local)
+    with pytest.raises(RefError) as r:
+        ref_serve.preflight_decode_state(ref_rules.GPT_CACHE_RULES, {"data": 2}, ref_cache)
+    assert [f.to_dict() for f in e.value.findings] == [f.to_dict() for f in r.value.findings]
     with pytest.raises(ValueError, match="no sharding rule matches"):
         port_serve.preflight_decode_state(port_rules.GPT_CACHE_RULES[:0], {"model": 2}, local)
 

@@ -414,11 +414,22 @@ def test_local_shard_tree_matches_jax(jax_side, n, i):
     ({"data": 1, "model": 3}, "not divisible by model = 3"),
 ])
 def test_preflight_names_the_parameter(jax_side, mesh, match):
+    """The Pass 5 pre-flight raises the JAX package's error, with its
+    findings: an unknown axis names the rule, an indivisible dim the
+    parameter."""
+    from horovod_tpu.analysis import CollectiveSafetyError as RefError
+    from horovod_tpu_torch.analysis import CollectiveSafetyError
+    from horovod_tpu_torch.analysis.preflight import check_sharding_rules
+
     shapes = {k: v.shape for k, v in jax_side["flat"].items()}
-    with pytest.raises(ValueError, match=match) as e:
-        port_rules.preflight_rules("gpt", mesh, shapes)
-    assert "param 'block_0/attention/" in str(e.value)
-    port_rules.preflight_rules("gpt", {"data": 2, "model": 4}, shapes)
+    with pytest.raises(CollectiveSafetyError, match=match) as e:
+        check_sharding_rules("gpt", mesh, shapes)
+    with pytest.raises(RefError) as r:
+        ref_rules.preflight_rules("gpt", mesh, jax_side["params"])
+    assert [f.to_dict() for f in e.value.findings] == [f.to_dict() for f in r.value.findings]
+    if "divisible" in match:
+        assert "param 'block_0/attention/" in str(e.value)
+    check_sharding_rules("gpt", {"data": 2, "model": 4}, shapes)
 
 
 def test_unknown_rule_table_and_unmatched_leaf():
