@@ -147,10 +147,24 @@ Phases, each printed as it ends:
    profiled step's busy share by kernel family (conv, bn, elementwise,
    optimizer, gemm, nccl); then VGG-16, Inception-v3 (299 px), ResNet-18 and
    MnistCNN, 3 steps each at batch 8: finite, falling loss;
-12. ``[bench]``: ``python -m horovod_tpu_torch.bench`` for resnet50 and
-   transformer (at ``[slice]``'s batch of 8) at reduced iterations, each in
-   its own process: one JSON line with bench.py's metric name, a positive
-   value and 0 < mfu <= 1; the transformer's tokens/s beside ``[slice]``'s.
+12. ``[scan]``: ``bench --scan``'s CUDA graph of the DP step
+   (``utils/step_graph.capture_step``) against the eager step, through the
+   bench's own builders (``bench.build_dp_step``, the bench's seed): the
+   GPT-2-small step at 8 x 1024 (posthoc, ``--overlap``, ``--quantized``,
+   ``--zero1``, ``--overlap --zero1`` and a tuned pin's knobs) and
+   ResNet-50 at 32 x 224², each as two copies with the same capturable
+   optimizer, 3 eager warm-up steps each, then 3 replays of the one copy's
+   captured step against 3 eager steps of the other: the losses and every
+   parameter and buffer bitwise equal, 12 + 12 B1 launches in the GPT
+   captures; a failed capture fails the run. Then ``[bench]``: ``python -m
+   horovod_tpu_torch.bench`` for resnet50 and transformer (at ``[slice]``'s
+   batch of 8) at reduced iterations, ``--scan`` (the default) and
+   ``--no-scan`` in turns (scan, no-scan, no-scan, scan), each run in its
+   own process: one JSON line with bench.py's metric name, a positive value,
+   0 < mfu <= 1 and ``detail.scan`` as asked, the transformer's B1 launches
+   a step (12 + 12, the capture's under ``--scan``); the img/s and tokens/s
+   of both modes beside the card's name and power limit, and the
+   transformer's tokens/s beside ``[slice]``'s.
 13. ``[eager]``: the eager Horovod API (``horovod_tpu_torch.eager``) through
    ``init()``: the native core (built from ``cpp/src`` into
    ``horovod_tpu_torch/build/`` alongside the nvcc builds) and the NCCL plan
@@ -368,6 +382,7 @@ before that line is printed. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2491,56 +2506,196 @@ def phase_cnn():
     print(f"[cnn] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def phase_bench(slice_tokens_per_s: float):
-    """The port's bench for resnet50 and transformer at reduced iterations,
-    each in a process of its own: its one JSON line, the metric name, a
-    positive value and 0 < mfu <= 1."""
+# [scan]: the bench's DP steps held as captured graphs against eager steps.
+SCAN_WARMUP = 3          # eager steps before the capture (and before the eager copy's steps)
+SCAN_STEPS = 3           # graph replays against as many eager steps
+SCAN_CASES = {           # name: (bench arguments, the pinned knobs a --tuned run would apply)
+    "transformer": (["--model", "transformer", "--batch-size", str(BATCH)], {}),
+    "transformer --overlap": (["--model", "transformer", "--batch-size", str(BATCH),
+                               "--overlap"], {}),
+    "transformer --quantized": (["--model", "transformer", "--batch-size", str(BATCH),
+                                 "--quantized"], {}),
+    "transformer --zero1": (["--model", "transformer", "--batch-size", str(BATCH),
+                             "--zero1"], {}),
+    "transformer --overlap --zero1": (["--model", "transformer", "--batch-size", str(BATCH),
+                                       "--overlap", "--zero1"], {}),
+    "transformer (tuned knobs)": (["--model", "transformer", "--batch-size", str(BATCH)],
+                                  {"fusion_threshold_bytes": 2 << 20,
+                                   "first_bucket_bytes": 256 << 10}),
+    "resnet50": (["--model", "resnet50"], {}),
+}
+# [bench]: --scan (the default) and --no-scan in turns, each run a process.
+BENCH_TURNS = (True, False, False, True)
+
+
+def _scan_copy(args, tk, graph: bool):
+    """One copy of the bench's DP step (``bench.build_dp_step``, from the
+    bench's seed): SCAN_WARMUP eager steps, then SCAN_STEPS steps, replayed
+    from one captured graph (``utils/step_graph``) or eager. Returns the
+    losses, the parameters and buffers after them, their names and the
+    capture's kernel launches."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.utils.step_graph import capture_step
+
+    build = bench._build_transformer if args.model == "transformer" else bench._build_cnn
+    model, batch, loss_fn = build(args, hvd.device(), 0, 1)
+    step = bench.build_dp_step(args, model, loss_fn, tk, bool(args.quantized))
+    launches = None
+    if graph:
+        run = capture_step(step, model, batch, length=1, warmup=SCAN_WARMUP)
+        run.capture()
+        losses = [float(run()) for _ in range(SCAN_STEPS)]
+        launches = run.launches
+        check(run.graph is not None and run.replays == SCAN_STEPS,
+              f"[scan] no graph replayed: {run.graph}, {run.replays} replays")
+    else:
+        for _ in range(SCAN_WARMUP):
+            step(model, batch)
+        losses = [float(step(model, batch)) for _ in range(SCAN_STEPS)]
+    names = [n for n, _ in model.named_parameters()] + [n for n, _ in model.named_buffers()]
+    state = [t.detach().clone() for t in list(model.parameters()) + list(model.buffers())]
+    del model, step, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return losses, state, names, launches
+
+
+def phase_scan(card):
+    """``bench --scan``'s CUDA graph of the DP step against the eager step:
+    GPT-2-small at 8 x 1024 (posthoc, overlap, the int8 wire, ZeRO-1 whole
+    and streamed, a tuned pin's knobs) and ResNet-50 at 32 x 224², each as
+    two copies of the bench's step from its seed with the same capturable
+    optimizer: SCAN_WARMUP eager steps each, then one copy replays its
+    captured step SCAN_STEPS times and the other runs as many eager steps.
+    The losses and every parameter and buffer must be bitwise equal; a
+    failed capture fails the run. Where they differ, a second eager copy
+    says whether the eager step itself repeats, and the names that differ
+    are printed."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    hvd.init()
+    torch.backends.cudnn.benchmark = True      # as the bench runs
+    try:
+        for case, (argv, tk) in SCAN_CASES.items():
+            args = bench.parse_args(argv)
+            t0 = time.perf_counter()
+            g_losses, g_state, names, launches = _scan_copy(args, tk, graph=True)
+            e_losses, e_state, _, _ = _scan_copy(args, tk, graph=False)
+            differ = [n for n, a, b in zip(names, g_state, e_state) if not torch.equal(a, b)]
+            worst = max((float((a.float() - b.float()).abs().max())
+                         for a, b in zip(g_state, e_state)), default=0.0)
+            print(f"[scan] {case}: graph losses {g_losses}, eager {e_losses}; "
+                  f"{len(differ)} of {len(names)} parameters and buffers differ (max abs "
+                  f"{worst:.3e}); the capture's launches {launches} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            check(all(math.isfinite(x) for x in g_losses),
+                  f"[scan] {case}: non-finite loss {g_losses}")
+            if args.model == "transformer":
+                check(launches["flash_fwd"] == 12 and launches["flash_bwd"] == 12,
+                      f"[scan] {case}: B1 launches in the capture {launches}")
+            if g_losses != e_losses or differ:
+                r_losses, r_state, _, _ = _scan_copy(args, tk, graph=False)
+                repeat = [n for n, a, b in zip(names, e_state, r_state) if not torch.equal(a, b)]
+                print(f"[scan] {case}: a second eager copy: losses {r_losses}; "
+                      f"{len(repeat)} differ from the first ({repeat[:8]}); the graph's "
+                      f"differ at {differ[:8]}", flush=True)
+            check(g_losses == e_losses and not differ,
+                  f"[scan] {case}: the graph is not bitwise the eager step")
+    finally:
+        torch.backends.cudnn.benchmark = False
+        hvd.shutdown()
+    print(f"[scan] phase took {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+
+
+def _bench_run(model: str, metric: str, scan: bool) -> dict:
+    """One run of the port's bench for ``model`` at reduced iterations in a
+    process of its own: its one JSON line, the metric name, a positive
+    value, 0 < mfu <= 1 and ``detail.scan`` as asked; the transformer's B1
+    launches a step (the capture's under --scan)."""
     import os
 
+    # The transformer at [slice]'s batch of 8 (bench.py's default is 32 a card).
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model", model,
+           "--scan" if scan else "--no-scan",
+           "--num-warmup-batches", "3", "--num-batches-per-iter", "20", "--num-iters", "2",
+           *(["--batch-size", str(BATCH)] if model == "transformer" else [])]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": os.getcwd()})
+    check(proc.returncode == 0, f"bench {model} exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    check(len(lines) == 1, f"bench {model} printed {len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    det = out["detail"]
+    print(f"[bench] {' '.join(cmd[2:])}: {lines[0]}", flush=True)
+    check(out["metric"] == metric, f"bench {model}: metric {out['metric']}")
+    check(out["value"] > 0, f"bench {model}: value {out['value']}")
+    check(det["mfu"] is not None and 0 < det["mfu"] <= 1, f"bench {model}: mfu {det['mfu']}")
+    check(det["scan"] is scan and (not scan or det["scan_form"].startswith("cuda-graph")),
+          f"bench {model}: scan {det['scan']} ({det.get('scan_form')}) for --scan {scan}")
+    mode = "--scan" if scan else "--no-scan"
+    if model == "transformer":
+        per_step = det["kernel_launches_per_step"]
+        check(per_step["flash_fwd"] == 12 and per_step["flash_bwd"] == 12,
+              f"bench transformer: B1 launches a step {per_step}")
+        print(f"[bench] transformer {mode}: {out['value']:.1f} tokens/s, step "
+              f"{det['step_time_s'] * 1e3:.3f} ms, B1 launches a step {per_step}", flush=True)
+    else:
+        print(f"[bench] resnet50 {mode}: {out['value']:.2f} img/s", flush=True)
+    return out
+
+
+def _bench_blocks(out: dict, slice_tokens_per_s: float) -> None:
+    """bench.py's three blocks of the transformer's line; the wire's bytes by
+    the fusion layer's ring formula over GPT-2-small's f32 parameters at
+    one rank."""
+    from horovod_tpu_torch.ops.fusion import ring_wire_bytes
+
+    det = out["detail"]
+    check(all(k in det for k in ("wire", "step_skew", "sim")),
+          f"bench transformer: detail keys {sorted(det)}")
+    grad_bytes = 4 * det["n_params"]
+    want = ring_wire_bytes(grad_bytes, det["n_chips"], "allreduce")
+    check(det["wire"]["gradient_bytes"] == grad_bytes
+          and det["wire"]["bytes_on_wire_per_step_per_chip"] == want
+          and det["wire"]["full_precision_bytes_on_wire_per_step_per_chip"] == want,
+          f"bench transformer: wire {det['wire']} against {grad_bytes} bytes, {want} "
+          "on the wire")
+    check("error" not in det["sim"] and det["sim"]["predicted_step_time_s"] > 0,
+          f"bench transformer: sim {det['sim']}")
+    check(det["step_skew"]["step_spans"]["steps"] > 0,
+          f"bench transformer: step_skew {det['step_skew']}")
+    print(f"[bench] transformer blocks: wire {det['wire']}; step_skew "
+          f"{det['step_skew']}; sim {det['sim']}", flush=True)
+    print(f"[bench] transformer {out['value']:.1f} tokens/s against [slice]'s "
+          f"{slice_tokens_per_s:.1f} in this run ({out['value'] / slice_tokens_per_s:.3f}x)",
+          flush=True)
+
+
+def phase_bench(slice_tokens_per_s: float):
+    """The port's bench for resnet50 and transformer, --scan (the default)
+    and --no-scan in turns (``_bench_run``), and the throughput of the two
+    modes."""
     t_phase = time.perf_counter()
     runs = [("resnet50", "resnet50_synthetic_images_per_sec_per_chip"),
             ("transformer", "transformer_synthetic_tokens_per_sec_per_chip")]
     for model, metric in runs:
-        # The transformer at [slice]'s batch of 8 (bench.py's default is 32 a card).
-        cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model", model,
-               "--num-warmup-batches", "3", "--num-batches-per-iter", "10", "--num-iters", "2",
-               *(["--batch-size", str(BATCH)] if model == "transformer" else [])]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                              env={**os.environ, "PYTHONPATH": os.getcwd()})
-        check(proc.returncode == 0, f"bench {model} exited {proc.returncode}: "
-              f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
-        lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-        check(len(lines) == 1, f"bench {model} printed {len(lines)} JSON lines")
-        out = json.loads(lines[0])
-        mfu = out["detail"]["mfu"]
-        print(f"[bench] {' '.join(cmd[2:])}: {lines[0]}", flush=True)
-        check(out["metric"] == metric, f"bench {model}: metric {out['metric']}")
-        check(out["value"] > 0, f"bench {model}: value {out['value']}")
-        check(mfu is not None and 0 < mfu <= 1, f"bench {model}: mfu {mfu}")
-        if model == "transformer":
-            # bench.py's three blocks; the wire's bytes by the fusion layer's
-            # ring formula over GPT-2-small's f32 parameters at one rank.
-            from horovod_tpu_torch.ops.fusion import ring_wire_bytes
-
-            det = out["detail"]
-            check(all(k in det for k in ("wire", "step_skew", "sim")),
-                  f"bench transformer: detail keys {sorted(det)}")
-            grad_bytes = 4 * det["n_params"]
-            want = ring_wire_bytes(grad_bytes, det["n_chips"], "allreduce")
-            check(det["wire"]["gradient_bytes"] == grad_bytes
-                  and det["wire"]["bytes_on_wire_per_step_per_chip"] == want
-                  and det["wire"]["full_precision_bytes_on_wire_per_step_per_chip"] == want,
-                  f"bench transformer: wire {det['wire']} against {grad_bytes} bytes, {want} "
-                  "on the wire")
-            check("error" not in det["sim"] and det["sim"]["predicted_step_time_s"] > 0,
-                  f"bench transformer: sim {det['sim']}")
-            check(det["step_skew"]["step_spans"]["steps"] > 0,
-                  f"bench transformer: step_skew {det['step_skew']}")
-            print(f"[bench] transformer blocks: wire {det['wire']}; step_skew "
-                  f"{det['step_skew']}; sim {det['sim']}", flush=True)
-            print(f"[bench] transformer {out['value']:.1f} tokens/s against [slice]'s "
-                  f"{slice_tokens_per_s:.1f} in this run ({out['value'] / slice_tokens_per_s:.3f}x)",
-                  flush=True)
+        values = {True: [], False: []}
+        for turn, scan in enumerate(BENCH_TURNS):
+            out = _bench_run(model, metric, scan)
+            values[scan].append(out["value"])
+            if model == "transformer" and turn == 0:
+                _bench_blocks(out, slice_tokens_per_s)
+        det = out["detail"]
+        ratio = statistics.mean(values[True]) / statistics.mean(values[False])
+        print(f"[bench] {model} in turns (scan, no-scan, no-scan, scan) on "
+              f"{det['device_kind']} at {det['power_limit']}: --scan {values[True]} against "
+              f"--no-scan {values[False]} {out['unit']} ({ratio:.3f}x)", flush=True)
     print(f"[bench] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -4579,6 +4734,7 @@ def main() -> int:
     phase_hier(card)
     phase_topo(card)
     phase_cnn()
+    phase_scan(card)
     phase_bench(slice_tokens_per_s)
     phase_eager(card)
     phase_torch_binding(card)

@@ -47,6 +47,7 @@ from .common.basics import (
     size,
 )
 from .common.compression import Compression
+from .common.env import Config
 from .common.types import Adasum, Average, Max, Min, Product, ReduceOp, Status, Sum
 from .eager import (
     ProcessSet,
@@ -67,6 +68,7 @@ from .eager import (
     ddl_built,
     global_process_set,
     gloo_built,
+    grouped_sync_first_error,
     gloo_enabled,
     grouped_allgather,
     grouped_allgather_async,
@@ -98,6 +100,7 @@ from .ops.collectives import (
     hierarchical_broadcast,
     hierarchical_reducescatter,
 )
+from .core.runtime import Runtime
 from .ops.quantized import EFState
 from .train import (
     DistributedOptimizer,
@@ -112,6 +115,9 @@ from .train import (
 )
 
 from . import elastic, metrics, trace  # noqa: E402 - hvd.metrics() is the callable module
+# hvd.serve() stands up the serving engine, as in the JAX package; the
+# subpackage stays importable as horovod_tpu_torch.serve.
+from .serve import serve  # noqa: E402
 
 
 def metrics_snapshot() -> dict:
@@ -139,5 +145,6 @@ __all__ = [
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "make_train_step", "make_decode_step", "GradientAccumulator",
     "allreduce_gradients", "error_feedback_state", "EFState", "HorovodInternalError",
-    "metrics", "metrics_snapshot", "elastic", "mesh",
+    "metrics", "metrics_snapshot", "elastic", "mesh", "serve", "grouped_sync_first_error",
+    "Config", "Runtime",
 ]

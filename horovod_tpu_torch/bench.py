@@ -109,8 +109,19 @@ the live step (the module's parameter names, shapes and dtypes on the flat
 names the file, signature and knobs; a stale pin warns and runs untuned,
 and ``--quantized`` refuses a pin made on another mesh.
 
-Options of ``bench.py`` that the port has not ported exit non-zero and
-name the ROADMAP item that ports them.
+``--scan`` (on by default, as in ``bench.py``; ``--no-scan`` turns it
+off) is ``bench.py``'s on-device loop: each timed iteration is one call of
+``utils/step_graph.capture_step`` over ``--num-batches-per-iter`` steps. On
+the card that call replays one captured CUDA graph of the DP step that
+many times, with no host round-trip between the steps; AdamW is built
+``capturable=True`` for it. The first warm-up step (the FLOP count) runs
+eagerly, the other warm-up steps on a side stream before the capture; on
+the CPU the call runs the same steps eagerly, so ``--scan`` and
+``--no-scan`` end on the same loss there. ``--tp`` turns it off with
+``bench.py``'s stderr line; ``--model moe`` and ``--serve`` report
+``"scan": false``. ``detail`` reports ``scan`` and, under it,
+``scan_form`` (what a call runs); ``kernel_launches_per_step`` is then the
+capture's, the launches every replay repeats.
 """
 
 from __future__ import annotations
@@ -163,11 +174,6 @@ CNN_MODELS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "vgg
 GPT2_SMALL = dict(vocab_size=32768, d_model=768, n_heads=12, n_layers=12)
 GPT_SMOKE = dict(vocab_size=512, d_model=128, n_heads=4, n_layers=2)
 
-# bench.py's options the port does not have yet, and the ROADMAP item
-# that brings each.
-UNPORTED = {
-    "scan": "'Next' 3, a CUDA graph of the step (the counterpart of the on-device scan)",
-}
 # bench.py:1361-1364: the serving benchmark's smoke geometry.
 SERVE_SMOKE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=1, max_len=64)
 # bench.py:1206-1214: the Switch MoE stack and its smoke dims.
@@ -295,7 +301,9 @@ def parse_args(argv=None):
                     help="--serve: tokens generated per request")
     ap.add_argument("--serve-replicas", type=int, default=1,
                     help="--serve: DP serving replicas")
-    ap.add_argument("--scan", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--scan", action=argparse.BooleanOptionalAction, default=True,
+                    help="fold each iteration's batches into one call: a captured CUDA graph "
+                         "of the step replayed --num-batches-per-iter times (utils/step_graph)")
     ap.add_argument("--tp", type=int, default=0,
                     help="transformer: composed DP x TP, the model sharded N ways over a "
                          "'model' mesh axis by the sharding rules (make_train_step(rules=...)); "
@@ -314,9 +322,6 @@ def parse_args(argv=None):
                          "its knobs apply when its signature matches this run's step; "
                          "explicit flags win")
     args = ap.parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
     if args.serve:
         # bench.py's refusals: serving has no optimizer, backward or gradients.
         for flag in ("zero1", "overlap", "quantized"):
@@ -461,11 +466,42 @@ def _launch_counts(reset: bool = False) -> dict:
     backward pairs, B3, B4) since the last reset."""
     from .ops import collective_matmul as cm
     from .ops import flash_attention as fa
+    from .utils.step_graph import kernel_launches
 
     if reset:
         fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = cm.AGMM_LAUNCHES = cm.MRS_LAUNCHES = 0
-    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd": fa.BWD_LAUNCHES,
-            "ag_matmul": cm.AGMM_LAUNCHES, "matmul_reduce_scatter": cm.MRS_LAUNCHES}
+    return kernel_launches()
+
+
+def build_dp_step(args, model, loss_fn, tk: dict, quantized: bool):
+    """The bench's DP step over ``model``: AdamW 3e-4 (weight decay 1e-4)
+    for the transformer, SGD 0.01 with momentum 0.9 for a CNN, through
+    ``DistributedOptimizer`` with the data-axis flags and the pin's knobs
+    ``tk`` (the whole-vector ZeRO-1 step for ``--zero1`` without
+    ``--overlap``). Under ``--scan`` on the card AdamW is built
+    ``capturable=True``, with its step count on the card, so that a CUDA
+    graph replays it; SGD is capturable as it is."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    on_card = next(model.parameters()).device.type == "cuda"
+    if args.model == "transformer":
+        inner = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8,
+                                  capturable=bool(args.scan and on_card))
+    else:
+        inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    if args.zero1 and not args.overlap:
+        from .parallel.zero import make_zero1_train_step
+
+        return make_zero1_train_step(loss_fn, inner, quantized=quantized)
+    opt = hvd.DistributedOptimizer(
+        inner, named_parameters=model.named_parameters(), overlap=args.overlap,
+        zero1=args.zero1, quantized=quantized, error_feedback=False if quantized else None,
+        fusion_threshold_bytes=tk.get("fusion_threshold_bytes"),
+        first_bucket_bytes=tk.get("first_bucket_bytes"), tuned=False)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    return hvd.make_train_step(loss_fn, opt)
 
 
 def _build_composed(args, model, dev, tk: dict, quantized: bool):
@@ -548,11 +584,14 @@ def wire_block(args, reduced, dp: int, quantized: bool, dims: dict):
     return block, tp_block
 
 
-def step_skew_block(args, iter_times, step_ends, rank: int, n: int) -> dict:
+def step_skew_block(args, iter_times, step_ends, rank: int, n: int,
+                    steps_per_span: int = 1) -> dict:
     """``bench.py``'s ``step_skew`` block. The step spans are the trace
-    tap's when it is armed, else the timed iterations'. Over ``n > 1``
+    tap's when it is armed (one span a timed call, ``steps_per_span`` steps:
+    a graph's replays under ``--scan`` on the card), else the timed
+    iterations'. Over ``n > 1``
     ranks (a collective: every rank calls it) the skew is real: for each
-    timed step, the spread of the ranks' host clocks at its end, with the
+    timed call, the spread of the ranks' host clocks at its end, with the
     rank most often last."""
     import collections
 
@@ -567,7 +606,7 @@ def step_skew_block(args, iter_times, step_ends, rank: int, n: int) -> dict:
         spans = {"steps": steps * args.num_iters, "p50_s": round(per_step[len(per_step) // 2], 6),
                  "p99_s": round(per_step[-1], 6), "source": "iter-timing"}
     else:
-        spans["source"] = "trace-step-tap"
+        spans.update(source="trace-step-tap", steps_per_span=steps_per_span)
     if n == 1:
         return {"step_spans": spans, "p50_skew_s": 0.0, "p99_skew_s": 0.0, "worst_rank": None,
                 "ranks_observed": 1, "note": "one rank: no cross-rank skew"}
@@ -663,8 +702,10 @@ def run(args) -> int:
 
     import horovod_tpu_torch as hvd
 
+    from . import trace as _trace
     from .common.basics import resolve_device
     from .tools.launch import STORE_DIR_VAR, store_url
+    from .utils.step_graph import capture_step
 
     device = resolve_device(args.device)
     t0 = time.perf_counter()
@@ -688,53 +729,63 @@ def run(args) -> int:
         tk = tuned_kw or {}
         quantized = bool(args.quantized) or bool(tk.get("quantized"))
         dp, params = n, model
+        if args.tp and args.scan:
+            print("[bench] --tp: on-device scan disabled (the composed "
+                  "step builds on first call)", file=sys.stderr)
+            args.scan = False
         if args.tp:
             dp = n // args.tp
             step, params, batch = _build_composed(args, model, dev, tk, quantized)
         else:
-            if transformer:
-                inner = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
-                                          eps=1e-8)
-            else:
-                inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-            if args.zero1 and not args.overlap:
-                from .parallel.zero import make_zero1_train_step
-
-                step = make_zero1_train_step(loss_fn, inner, quantized=quantized)
-            else:
-                opt = hvd.DistributedOptimizer(
-                    inner, named_parameters=model.named_parameters(), overlap=args.overlap,
-                    zero1=args.zero1, quantized=quantized,
-                    error_feedback=False if quantized else None,
-                    fusion_threshold_bytes=tk.get("fusion_threshold_bytes"),
-                    first_bucket_bytes=tk.get("first_bucket_bytes"), tuned=False)
-                hvd.broadcast_optimizer_state(opt, root_rank=0)
-                step = hvd.make_train_step(loss_fn, opt)
+            step = build_dp_step(args, model, loss_fn, tk, quantized)
 
         def sync():
             if on_card:
                 torch.cuda.synchronize(dev)
 
-        # Warmup; its first step also counts the step's FLOPs.
+        # Warmup; its first step, a plain one, also counts the step's FLOPs.
         with FlopCounterMode(display=False) as counter:
             loss = step(params, batch)
         measured = counter.get_total_flops() or None
-        for _ in range(args.num_warmup_batches - 1):
-            loss = step(params, batch)
+        scanned = None
+        if args.scan:
+            # bench.py's scan_steps: the other warm-up steps and the capture
+            # (one call, untimed), then one call an iteration.
+            scanned = capture_step(step, params, batch, length=args.num_batches_per_iter,
+                                   warmup=max(args.num_warmup_batches - 1, 0))
+            warm = scanned.capture()
+            loss = loss if warm is None else warm
+            # The step tap over a replaying call, as bench.py wraps its scan
+            # (the DP step's own tap fired at the capture); on the CPU the
+            # call's eager steps carry their own.
+            fn = (_trace.wrap_step(scanned, overlap=bool(args.overlap), quantized=quantized,
+                                   wire_dtype="int8" if quantized else "f32")
+                  if scanned.on_card else scanned)
+        else:
+            for _ in range(args.num_warmup_batches - 1):
+                loss = step(params, batch)
+            fn = lambda: step(params, batch)  # noqa: E731
         float(loss)
-        launch_counts = _launch_counts(reset=True)
+        _launch_counts(reset=True)
+        # The tap's spans are the timed calls', as bench.py wraps its step
+        # after the warmup (the DP step's own tap saw the warm-up steps).
+        _trace.TAP.reset_steps()
+        calls = 1 if scanned else args.num_batches_per_iter
         iter_times, step_ends = [], []
         for _ in range(args.num_iters):
             sync()
             t0 = time.perf_counter()
-            for _ in range(args.num_batches_per_iter):
-                loss = step(params, batch)
+            for _ in range(calls):
+                loss = fn()
                 step_ends.append(time.time())
             sync()
             iter_times.append(time.perf_counter() - t0)
         loss = float(loss)
-        launch_counts = {k: v / (args.num_iters * args.num_batches_per_iter)
-                         for k, v in _launch_counts().items()}
+        # Replays move no wrapper's count: a scanned step's launches are
+        # the capture's.
+        launch_counts = (dict(scanned.launches) if scanned and scanned.on_card else
+                         {k: v / (args.num_iters * args.num_batches_per_iter)
+                          for k, v in _launch_counts().items()})
 
         platform = "gpu" if on_card else "cpu"
         kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
@@ -755,7 +806,8 @@ def run(args) -> int:
             "platform": platform,
             "device_kind": kind,
             "power_limit": _power_limit(dev) if on_card else "not measured",
-            "scan": False,
+            "scan": bool(scanned),
+            **({"scan_form": scanned.form} if scanned else {}),
             "tuned": tuned_detail,
             "mfu": _mfu(flops, steps, min(iter_times), kind) if on_card else None,
             "flops_per_step_per_chip": round(flops) if flops else None,
@@ -769,7 +821,9 @@ def run(args) -> int:
             measured_step_s = float(np.mean(iter_times)) / steps
             reduced = (tree_leaves(params) if args.tp else list(model.parameters()))
             wire, tp_block = wire_block(args, reduced, dp, quantized, dims)
-            skew = step_skew_block(args, iter_times, step_ends, rank, n)
+            skew = step_skew_block(
+                args, iter_times, step_ends, rank, n,
+                steps_per_span=args.num_batches_per_iter if scanned and scanned.on_card else 1)
             out = {
                 "metric": "transformer_synthetic_tokens_per_sec_per_chip",
                 "value": round(per_chip, 1),

@@ -29,6 +29,7 @@ import atexit
 import logging
 import os
 import shutil
+import sys
 import tempfile
 from dataclasses import dataclass
 from datetime import timedelta
@@ -259,6 +260,10 @@ def shutdown(abort: bool = False) -> None:
             except Exception:  # noqa: BLE001 - a dead KV server must not fail shutdown
                 pass
     finally:
+        graphs = sys.modules.get("horovod_tpu_torch.utils.step_graph")
+        if graphs is not None:
+            # NCCL frees a communicator only after the graphs that use it.
+            graphs.release_all()
         if dist.is_initialized():
             dist.destroy_process_group()
         if rt.store_dir is not None:

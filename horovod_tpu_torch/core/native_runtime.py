@@ -127,6 +127,11 @@ class NativeRuntime:
         self._outputs: Dict[str, deque] = {}     # name -> FIFO of (output, done event)
         self._ticket_names: Dict[int, str] = {}
         self._done: Dict[int, tuple] = {}
+        # JOIN plans run so far, and each pending join ticket's count at
+        # enqueue: a join whose JOIN plan was dispatched has completed on
+        # every rank, whatever the core says of its ticket afterwards.
+        self._joins_run = 0
+        self._join_tickets: Dict[int, int] = {}
         self._cv = threading.Condition()
         # Inline execution: a caller blocked in synchronize() pops and runs
         # plans itself, skipping the executor thread's wakeup. Pop and
@@ -260,7 +265,12 @@ class NativeRuntime:
             from ..common.basics import HorovodInternalError
 
             raise HorovodInternalError("Horovod runtime is shut down.")
-        return self.core.enqueue_join()
+        with self._cv:
+            seen = self._joins_run
+        ticket = self.core.enqueue_join()
+        with self._cv:
+            self._join_tickets[ticket] = seen
+        return ticket
 
     # --- process sets ---
     def register_process_set(self, psid: int, ranks) -> None:
@@ -355,7 +365,10 @@ class NativeRuntime:
             logger.error("coordinator abort: %s", error)
             if _metrics.ACTIVE:
                 _metrics.TAP.inc("hvd_guard_metadata_aborts_total")
-        elif ptype != ResponseType.JOIN:
+        elif ptype == ResponseType.JOIN:
+            with self._cv:
+                self._joins_run += 1
+        else:
             try:
                 # The "hvd_plan_<id>" string of the core's timeline names the
                 # plan's range in a torch.profiler trace.
@@ -404,6 +417,21 @@ class NativeRuntime:
             self._cv.notify_all()
 
     # --- sync ---
+    def _join_dispatched(self, seen: int) -> bool:
+        """Whether the coordinator's JOIN reached this rank after the join
+        count ``seen``. A peer that completes the join may shut down before
+        this rank takes the JOIN plan from the core's queue; the core then
+        fails the join ticket although the join completed. So run the plans
+        still queued, up to the JOIN (every rank ran the plans before it),
+        under the consumer lock, which a plan in flight holds."""
+        with self._consumer_lock:
+            while self._joins_run == seen:
+                plan = self.core.next_plan(timeout_ms=0)
+                if plan in (0, -1, -2):
+                    break
+                self._execute_plan(plan)
+            return self._joins_run > seen
+
     def poll(self, handle: int) -> bool:
         with self._cv:
             if handle in self._done:
@@ -411,6 +439,10 @@ class NativeRuntime:
         state, err = self.core.ticket_status(handle)
         if state == 0:
             return False
+        with self._cv:
+            join_seen = self._join_tickets.pop(handle, None)
+        if state < 0 and join_seen is not None and self._join_dispatched(join_seen):
+            state = 1
         with self._cv:
             name = self._ticket_names.pop(handle, None)
             if state == 1:

@@ -1433,3 +1433,34 @@ class GradientAccumulator:
 
     def should_reduce(self, step_count: int) -> bool:
         return (step_count + 1) % self.n == 0
+
+
+# The names the JAX package's compiled-mode module re-exports from its
+# other modules, from their counterparts here (ROADMAP "Not to port" lists
+# those without one).
+from .ops.adasum import adasum_reduce_fn  # noqa: E402,F401
+from .ops.fusion import reduce_in_backward, stream_param_groups  # noqa: E402,F401
+from .parallel.mesh import (  # noqa: E402,F401
+    CROSS_AXIS,
+    DATA_AXIS,
+    LOCAL_AXIS,
+    POD_AXIS,
+    build_hierarchical_mesh,
+    build_mesh,
+    build_three_level_mesh,
+    hierarchy_axes,
+)
+from .parallel.reshard import (  # noqa: E402,F401
+    LayoutManifest,
+    Zero1Layout,
+    build_manifest,
+    reshard_zero1_state,
+    zero1_layout_from_params,
+)
+from .parallel.rules import GPT_RULES, local_shard_tree, match_partition_rules  # noqa: E402,F401
+from .parallel.zero import (  # noqa: E402,F401
+    Zero1State,
+    init_zero1_stream_state,
+    zero1_posthoc_reduce,
+    zero1_stream_update,
+)

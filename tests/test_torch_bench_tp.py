@@ -57,7 +57,11 @@ def test_tp_defaults_and_scan_still_refused(capsys):
     args = bench.parse_args(["--model", "transformer", "--tp", "2", "--ranks", "4",
                              "--device", "cpu"])
     assert (args.rules, args.tp, args.ranks) == ("gpt", 2, 4)
-    assert "tp" not in bench.UNPORTED and list(bench.UNPORTED) == ["scan"]
+    # Nothing is refused any more: --scan is on by default, as in bench.py,
+    # and the run turns it off under --tp (tests/test_torch_scan.py).
+    assert not hasattr(bench, "UNPORTED") and args.scan is True
+    assert bench.parse_args(["--model", "transformer", "--no-scan", "--device", "cpu"]).scan \
+        is False
     assert bench.reduction_mode(bench.parse_args(
         ["--model", "transformer", "--tp", "2", "--ranks", "2", "--zero1", "--overlap",
          "--device", "cpu"])) == \

@@ -258,12 +258,25 @@ def test_bench_variant_flags_report_bench_py_detail(flag, mode, state, wire):
     (["--serve", "--tp", "2"], "A6"), (["--scan"], "'Next' 3"), (["--tuned", "t.json"], "A13"),
 ])
 def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys, tmp_path):
-    """The unported option, ``--scan``, exits naming its item. The ported
-    ones run: ``--tp`` and ``--serve --tp`` (A6's remainder) on 2 gloo ranks
-    give the JAX bench's mode, ``mesh`` and ``rules``; ``--tuned`` (A13): a
-    pin keyed on the smoke step gives the JAX bench's ``+tuned`` mode and
-    ``tuned`` block, a pin made on another mesh refuses ``--quantized``."""
+    """The options the port once refused, each naming its item, now run:
+    ``--tp`` and ``--serve --tp`` (A6's remainder) on 2 gloo ranks give the
+    JAX bench's mode, ``mesh`` and ``rules``; ``--scan`` ('Next' 3) times
+    the scanned step and reports ``scan`` and what a call runs; ``--tuned``
+    (A13): a pin keyed on the smoke step gives the JAX bench's ``+tuned``
+    mode and ``tuned`` block, a pin made on another mesh refuses
+    ``--quantized``."""
     from horovod_tpu_torch import bench
+
+    if item == "'Next' 3":
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.bench", "--smoke", "--device", "cpu",
+             "--model", "resnet18", "--num-warmup-batches", "1", *argv],
+            env=_subprocess_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        detail = json.loads(proc.stdout.strip().splitlines()[-1])["detail"]
+        assert detail["scan"] is True and np.isfinite(detail["loss"])
+        assert detail["scan_form"].startswith("eager loop") and CNN_DETAIL <= set(detail)
+        return
 
     if item == "A6":
         proc = subprocess.run(
@@ -313,11 +326,6 @@ def test_bench_unported_options_exit_and_name_their_item(argv, item, capsys, tmp
         with pytest.raises(SystemExit, match="refusing --quantized"):
             bench._resolve_tuned(args, meta, 1)
         return
-    with pytest.raises(SystemExit) as exc:
-        bench.parse_args(argv + ["--device", "cpu"])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP {item}" in err
 
 
 def test_bench_moe_takes_the_reference_smoke_dims(capsys):

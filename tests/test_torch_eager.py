@@ -792,6 +792,65 @@ def test_join_uneven_ranks_participants_divisor(flat2):
                                        np.full(2, sum(s + 1 for s in live) / len(live)))
 
 
+JOIN_RACE_WORKER = r'''
+import json, os, time
+import numpy as np
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common.types import ResponseType
+from horovod_tpu_torch.core import native_runtime as nr
+d = os.environ["HVD_TEST_DIR"]
+slow = json.load(open(f"{d}/cfg.json"))["slow"]
+os.environ["HOROVOD_CYCLE_TIME"] = "1"
+hvd.init(device="cpu", init_method=f"file://{d}/store")
+r = hvd.rank()
+hvd.allreduce(np.ones(2, np.float32), name="warm")
+if r == 0 and slow == "taken":
+    # This rank takes the JOIN plan but runs it only after its peer,
+    # whose join completed, has shut down.
+    run = nr.NativeRuntime._execute_plan
+    def late(self, plan):
+        if int(plan["type"]) == ResponseType.JOIN:
+            time.sleep(1.0)
+        return run(self, plan)
+    nr.NativeRuntime._execute_plan = late
+if r == 0 and slow == "queued":
+    # This rank takes no plan until its core has failed the join ticket
+    # on the peer's shutdown: the JOIN plan is still queued then.
+    core = basics._runtime.eager.core
+    held = [True]
+    take, status = core.next_plan, core.ticket_status
+    def next_plan(timeout_ms=100, **kw):
+        if held[0]:
+            time.sleep(timeout_ms / 1000.0)
+            return 0
+        return take(timeout_ms, **kw)
+    def ticket_status(ticket):
+        got = status(ticket)
+        if got[0] < 0:
+            held[0] = False
+        return got
+    core.next_plan, core.ticket_status = next_plan, ticket_status
+if r == 0:
+    time.sleep(0.3)     # rank 1 joins first and waits
+hvd.join()
+print("JOINED", flush=True)
+hvd.shutdown()
+'''
+
+
+@pytest.mark.parametrize("slow", ["taken", "queued"])
+def test_join_completes_when_the_peer_shuts_down_first(tmp_path, slow):
+    """C7: rank 1's join completes and it shuts down while rank 0 has not
+    yet run the JOIN plan (``taken``: in flight; ``queued``: still in the
+    core's queue). The core then fails rank 0's join ticket on the peer's
+    shutdown; the runtime reports the join that the coordinator dispatched
+    as complete on both ranks."""
+    (tmp_path / "cfg.json").write_text(json.dumps({"slow": slow}))
+    outs = run_ranks(JOIN_RACE_WORKER, 2, tmp_path, timeout=60.0)
+    assert all("JOINED" in o for o in outs), outs
+
+
 def test_disjoint_process_sets_four_ranks(sets4):
     x, e = sets4.inputs["f32"], sets4.inputs["even"]
     sub = {0: [0, 1], 1: [0, 1], 2: [2, 3], 3: [2, 3]}

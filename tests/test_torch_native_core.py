@@ -268,3 +268,29 @@ def test_jax_runtime_and_port_runtime_together():
     finally:
         hvd.shutdown()
         jhvd.shutdown()
+
+
+def test_reference_core_build_waits_for_the_lock():
+    """The harness makes the JAX package's lazy in-place build of
+    ``cpp/libhvd_core.so`` one process at a time: a loader waits while
+    another process holds the lock, so it never opens a library that a
+    concurrent ``make`` is still linking (a segmentation fault in an xdist
+    worker otherwise)."""
+    import fcntl
+    import threading
+
+    import torch_port_harness
+
+    assert getattr(jbasics.ensure_built, "serialized", False)
+    lock_path = os.path.join(torch_port_harness.REPO, "horovod_tpu_torch", "build",
+                             "reference_core.lock")
+    os.makedirs(os.path.dirname(lock_path), exist_ok=True)
+    got = []
+    with open(lock_path, "w") as held:
+        fcntl.flock(held, fcntl.LOCK_EX)
+        t = threading.Thread(target=lambda: got.append(jbasics.ensure_built()), daemon=True)
+        t.start()
+        t.join(timeout=0.5)
+        assert t.is_alive() and not got
+    t.join(timeout=300)
+    assert got and os.path.exists(got[0]) and got[0].endswith("libhvd_core.so")

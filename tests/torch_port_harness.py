@@ -7,11 +7,43 @@ imports only ``horovod_tpu_torch``; it finds its directory in
 ``HVD_TEST_DIR`` and its store at ``file://$HVD_TEST_DIR/store``.
 """
 
+import fcntl
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _serialize_reference_core_build() -> None:
+    """Make the JAX package's lazy build of ``cpp/libhvd_core.so`` one at a
+    time across the test processes. Its loader runs ``make -C cpp`` when the
+    library is missing, and ``make`` links it in place: a second xdist
+    worker that finds the half-written file and loads it dies of a
+    segmentation fault. The wrapper holds a lock (in the port's ignored
+    build directory) around the check and the build, so a loader sees no
+    library or a whole one. Installed when this module is first imported,
+    before any test of the worker loads the library."""
+    try:
+        from horovod_tpu.common import basics as jbasics
+    except ImportError:
+        return
+    build = jbasics.ensure_built
+    if getattr(build, "serialized", False):
+        return
+    lock_dir = os.path.join(REPO, "horovod_tpu_torch", "build")
+
+    def ensure_built(rebuild: bool = False) -> str:
+        os.makedirs(lock_dir, exist_ok=True)
+        with open(os.path.join(lock_dir, "reference_core.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            return build(rebuild)
+
+    ensure_built.serialized = True
+    jbasics.ensure_built = ensure_built
+
+
+_serialize_reference_core_build()
 
 
 def job_env(**extra) -> dict:
@@ -31,10 +63,7 @@ def run_ranks(script: str, n: int, workdir, timeout: float = 180.0) -> list:
     path = os.path.join(str(workdir), "worker.py")
     with open(path, "w") as f:
         f.write(script)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
-    env["HVD_TEST_DIR"] = str(workdir)
-    env["OMP_NUM_THREADS"] = "2"
+    env = job_env(HVD_TEST_DIR=str(workdir), OMP_NUM_THREADS="2")
     procs = []
     try:
         for r in range(n):
