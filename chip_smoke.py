@@ -372,6 +372,15 @@ Phases, each printed as it ends:
    installed, the binding's eager allreduce (Sum, then Average) of a TF
    tensor runs through the port's runtime on the card and must give the
    tensor back.
+25. ``[tools]``: the reference's measuring tools (ROADMAP A15), in two
+   processes: ``tools/eager_latency_breakdown`` at one rank (six finite,
+   positive medians) and ``tools/profile_overlap`` phase A for GPT-2-small
+   8 x 1024 and ResNet-50 32 x 224² (3 reps; fwd, fwd + bwd and the step,
+   eager and as a captured CUDA graph: positive times, fwd + bwd above fwd,
+   a busy share in (0, 1.05]) in one; its structural mode's four builds on
+   the card with ``--assert-overlap`` in the other (the reference's gates,
+   and profiled overlap and posthoc steps: some streamed group issued while
+   the backward still had kernels to launch, no posthoc group).
 
 The line before the last is a JSON object with one entry per kernel (the
 B3/B4 rows also carry ``device_ms``, the TMA kernel's device time); the
@@ -4694,6 +4703,84 @@ def phase_bindings(card):
         hvd.shutdown()
 
 
+# [tools]: the reference's measuring tools on the card, in two processes
+# (each process costs seconds to reach the card): tools/eager_latency_breakdown
+# at one rank (the single-rank path) and tools/profile_overlap phase A for
+# GPT-2-small 8 x 1024 and ResNet-50 32 x 224^2 (few reps; the step eager
+# and, --scan, as a captured CUDA graph: fwd, fwd+bwd, step, the backward
+# window, the busy share and exposed NCCL ms of a profiled step) in one; the
+# structural mode's four builds with --assert-overlap, which on the card
+# also reads profiled overlap and posthoc steps, in the other.
+TOOLS_OUT = "profiles_torch/tools"
+BREAKDOWN_FIELDS = ("enq_to_plan", "plan_to_exec", "exec", "done_to_ret", "ready_wait", "total")
+
+
+def _tools_run(calls, timeout: float = 300) -> list:
+    """``horovod_tpu_torch.tools.<name>.main(<args>)`` for each ``(name,
+    args)`` of ``calls``, in order, in one process: each must return 0. The
+    JSON objects of the results' lines (``{...}`` or ``BREAKDOWN {...}``),
+    in order."""
+    import os
+
+    t0 = time.perf_counter()
+    script = ("import importlib, sys\n"
+              f"for name, argv in {list(calls)!r}:\n"
+              "    rc = importlib.import_module('horovod_tpu_torch.tools.' + name).main(argv)\n"
+              "    if rc:\n"
+              "        sys.exit(rc)\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=timeout, env={**os.environ, "PYTHONPATH": os.getcwd()})
+    what = "; ".join(f"{n} {' '.join(a)}" for n, a in calls)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    print(f"[tools] {what}: {time.perf_counter() - t0:.1f} s", flush=True)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith(("{", "BREAKDOWN "))]
+    check(len(lines) == len(calls), f"{what} printed {len(lines)} results: {proc.stdout[-2000:]}")
+    return [json.loads(l.split(" ", 1)[1] if l.startswith("B") else l) for l in lines]
+
+
+def phase_tools(card):
+    import os
+
+    os.makedirs(TOOLS_OUT, exist_ok=True)
+    models = (("transformer", 8), ("resnet50", 32))
+    outs = _tools_run([("eager_latency_breakdown", ["--reps", "80"])] + [
+        ("profile_overlap", ["--model", model, "--batch-size", str(batch), "--reps", "3",
+                             "--scan", "--trace-dir", TOOLS_OUT,
+                             "--out", f"{TOOLS_OUT}/phase_a_{model}.json"])
+        for model, batch in models])
+    out = outs[0]
+    print(f"[tools] breakdown (1 rank, 1 KiB, {card}): {json.dumps(out)}", flush=True)
+    for k in BREAKDOWN_FIELDS:
+        check(math.isfinite(out[k]) and out[k] > 0, f"breakdown {k} = {out[k]}")
+    for (model, batch), doc in zip(models, outs[1:]):
+        rows = doc["phase_a"]["timings"]
+        for prog in ("fwd", "grad", "step", "step_graph"):
+            check(rows[prog]["median_s"] > 0, f"phase A {model} {prog}: {rows[prog]}")
+        check(rows["grad"]["median_s"] > rows["fwd"]["median_s"],
+              f"phase A {model}: fwd+bwd {rows['grad']} not above fwd {rows['fwd']}")
+        for prog in ("step", "step_graph"):
+            share = rows[prog]["device_busy_share"]
+            check(0 < share <= 1.05, f"phase A {model} {prog}: busy share {share}")
+        print(f"[tools] phase A {model} b{batch}: fwd {rows['fwd']['median_s'] * 1e3:.3f} ms, "
+              f"fwd+bwd {rows['grad']['median_s'] * 1e3:.3f} ms, backward window "
+              f"{rows['backward_window_s'] * 1e3:.3f} ms, step "
+              f"{rows['step']['median_s'] * 1e3:.3f} ms (busy "
+              f"{rows['step']['device_busy_share']:.3f}, exposed NCCL "
+              f"{rows['step']['exposed_nccl_ms']:.3f} ms), graph "
+              f"{rows['step_graph']['median_s'] * 1e3:.3f} ms (busy "
+              f"{rows['step_graph']['device_busy_share']:.3f})", flush=True)
+    doc, = _tools_run([("profile_overlap", ["--structural", "--assert-overlap",
+                                            "--out", f"{TOOLS_OUT}/structural.json"])])
+    check(doc["ok"], f"structural mode: {doc}")
+    res = doc["results"]
+    print(f"[tools] structural on the card: overlap groups "
+          f"{[res['overlap'][p]['independent_all_reduce_groups'] for p in ('mlp3', 'transformer')]}"
+          f", pairs_with_overlap "
+          f"{[res['overlap'][p]['pairs_with_overlap'] for p in ('mlp3', 'transformer')]}, trace "
+          f"{doc['trace']}, posthoc {doc['trace_posthoc']}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4748,6 +4835,7 @@ def main() -> int:
     phase_tune(card)
     phase_analysis(card)
     phase_bindings(card)
+    phase_tools(card)
     # The B3/B4 rows: the q/k/v call (B3) and the MLP-down call (B4), the
     # largest of each at the main path's shapes; every call is printed above.
     rows["ag_matmul"] = dict(tp_rows["qkv"], replaces=f"{CM_REPLACED}:274")

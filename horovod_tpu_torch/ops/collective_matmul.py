@@ -63,7 +63,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, fusion
 from .collectives import Group, Ring
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -471,46 +471,68 @@ def _mrs_bwd(y, w, ct, ring: _Ring, chunks: int):
     return dy, dw
 
 
+def _charge(payload_bytes: int, ring, axis: Optional[str], collective: str) -> None:
+    """The ring's wire bytes in a step's first call (``fusion.charge``), as
+    the JAX package's ``_record`` charges them at trace time
+    (``horovod_tpu/ops/collective_matmul.py:449-499``)."""
+    fusion.charge(payload_bytes, getattr(ring, "group", None), collective, axis=axis)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class _AllGatherMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, ring, chunks):
+    def forward(ctx, x, w, ring, chunks, axis):
         ctx.save_for_backward(x, w)
-        ctx.ring, ctx.chunks = ring, chunks
+        ctx.ring, ctx.chunks, ctx.axis = ring, chunks, axis
+        _charge(_nbytes(x) * ring.n, ring, axis, "all_gather_matmul")
         return _ag_matmul(x, w, ring, chunks)
 
     @staticmethod
     def backward(ctx, ct):
-        return (*_agmm_bwd(*ctx.saved_tensors, ct, ctx.ring, ctx.chunks), None, None)
+        x, _ = ctx.saved_tensors
+        _charge(_nbytes(ct), ctx.ring, ctx.axis, "matmul_reduce_scatter")
+        _charge(_nbytes(x) * ctx.ring.n, ctx.ring, ctx.axis, "all_gather_matmul")
+        return (*_agmm_bwd(*ctx.saved_tensors, ct, ctx.ring, ctx.chunks), None, None, None)
 
 
 class _MatmulReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, w, ring, chunks):
+    def forward(ctx, y, w, ring, chunks, axis):
         ctx.save_for_backward(y, w)
-        ctx.ring, ctx.chunks = ring, chunks
+        ctx.ring, ctx.chunks, ctx.axis = ring, chunks, axis
+        # The full product y @ w: [..., T, F] in y's dtype.
+        _charge(y.numel() // max(y.shape[-1], 1) * w.shape[-1] * y.element_size(), ring, axis,
+                "matmul_reduce_scatter")
         return _mrs(y, w, ring, chunks)
 
     @staticmethod
     def backward(ctx, ct):
-        return (*_mrs_bwd(*ctx.saved_tensors, ct, ctx.ring, ctx.chunks), None, None)
+        for _ in range(2):      # dy's all-gather and dw's ring pass
+            _charge(_nbytes(ct) * ctx.ring.n, ctx.ring, ctx.axis, "all_gather_matmul")
+        return (*_mrs_bwd(*ctx.saved_tensors, ct, ctx.ring, ctx.chunks), None, None, None)
 
 
 def all_gather_matmul(x_shard: torch.Tensor, w: torch.Tensor, *, group: Group = None,
-                      chunks: int = 0) -> torch.Tensor:
+                      chunks: int = 0, axis: Optional[str] = None) -> torch.Tensor:
     """``all_gather(x_shard, tiled over tokens) @ w`` with the gather fused
     into the matmul. ``x_shard`` [..., T/n, D] (token dim -2), ``w`` [D,
     F]; returns [..., T, F] in x's dtype. ``chunks`` sub-splits each rank's
     chunk (0: ``HOROVOD_TP_OVERLAP_CHUNKS``, else 1). Every rank of
-    ``group`` must call it, in the same order. Differentiable."""
+    ``group`` must call it, in the same order. Differentiable. ``axis``
+    names the group's mesh axis in its wire bytes (``fusion.charge``)."""
     return _AllGatherMatmul.apply(x_shard.contiguous(), w.contiguous(), _Ring(group),
-                                  int(chunks))
+                                  int(chunks), axis)
 
 
 def matmul_reduce_scatter(y: torch.Tensor, w: torch.Tensor, *, group: Group = None,
-                          chunks: int = 0) -> torch.Tensor:
+                          chunks: int = 0, axis: Optional[str] = None) -> torch.Tensor:
     """``reduce_scatter(y @ w, tiled over tokens)`` with the reduction fused
     into the matmul. ``y`` [..., T, Fl], ``w`` [Fl, D]; returns this rank's
     [..., T/n, D] chunk in y's dtype. Every rank of ``group`` must call it,
-    in the same order. Differentiable."""
+    in the same order. Differentiable. ``axis`` as in
+    :func:`all_gather_matmul`."""
     return _MatmulReduceScatter.apply(y.contiguous(), w.contiguous(), _Ring(group),
-                                      int(chunks))
+                                      int(chunks), axis)

@@ -46,6 +46,7 @@ step count.
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -167,24 +168,63 @@ def ring_wire_bytes(payload_bytes: int, n: int, collective: str = "allreduce",
 
 
 def record_axis_wire_bytes(payload_bytes: int, group: Any, collective: str,
-                           wire_dtype: str = "f32") -> None:
+                           wire_dtype: str = "f32", axis: Optional[str] = None) -> None:
     """Per-axis bytes-on-wire of one reduction plan (``horovod_tpu/ops/
     fusion.py:132``): ring accounting of what ONE step moves per rank over
     ``group``, ``hvd_axis_wire_bytes_total{axis,collective}`` plus a plan
-    note. Nothing for a group of one rank; no-op when neither tap is armed.
-    Called once per plan (:func:`first_sight`)."""
+    note. ``axis`` names the group's mesh axis (default
+    :func:`axis_label`). Nothing for a group of one rank; no-op when neither
+    tap is armed. Called once per plan (:func:`first_sight`), or for a
+    collective a step issues call by call, in its first call
+    (:func:`charge`)."""
     if not (_metrics.ACTIVE or _trace.ACTIVE):
         return
     n = collectives.group_rank_size(group)[1]
     if n <= 1:
         return
     onwire = ring_wire_bytes(payload_bytes, n, collective, wire_dtype)
-    label = axis_label(group)
+    label = axis or axis_label(group)
     if _metrics.ACTIVE:
         _metrics.TAP.inc("hvd_axis_wire_bytes_total", float(onwire), axis=label,
                          collective=collective)
     if _trace.ACTIVE:
         _trace.TAP.note_plan(**{f"axis_wire_bytes:{label}:{collective}": int(onwire)})
+
+
+# Nonzero while a built step's call is the first its taps see
+# (:func:`first_call`): the collectives a step issues call by call (the
+# tensor-parallel psums, the fused rings, ZeRO-1's parameter all-gather)
+# charge ``hvd_axis_wire_bytes_total`` then, each once (:func:`charge`), as
+# the JAX package charges them when it traces the step. A count, not a
+# thread-local: the backward's collectives run on autograd's threads.
+_FIRST_CALL = [0]
+
+
+@contextlib.contextmanager
+def first_call(step_key: Any):
+    """The scope of one call of the built step ``step_key``. It is a first
+    call when the live taps have not seen the step (:func:`first_sight`,
+    keyed per tap as the plans are), so a tap installed between two calls
+    is charged the step's collectives at the next call."""
+    if not first_sight(("step", step_key)):
+        yield
+        return
+    _FIRST_CALL[0] += 1
+    try:
+        yield
+    finally:
+        _FIRST_CALL[0] -= 1
+
+
+def charge(payload_bytes: int, group: Any, collective: str, axis: Optional[str] = None) -> None:
+    """Charge one collective that a step issues call by call to
+    ``hvd_axis_wire_bytes_total`` (:func:`record_axis_wire_bytes`), in the
+    step's first call only (:func:`first_call`); ``axis`` is the group's
+    mesh axis name. The JAX package charges these at trace time
+    (``horovod_tpu/parallel/tp.py:52``, ``:127``, ``:238``;
+    ``ops/collective_matmul.py:117``; ``parallel/zero.py:448``)."""
+    if _FIRST_CALL[0] > 0:
+        record_axis_wire_bytes(payload_bytes, group, collective, axis=axis)
 
 
 def _record_plan(label: Optional[str], leaves: Sequence[torch.Tensor], buckets: List[List[int]],

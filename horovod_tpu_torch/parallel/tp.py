@@ -39,7 +39,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..common import env as _env
-from ..ops import collectives
+from ..ops import collectives, fusion
 from ..ops.collectives import Group
 
 MODEL_AXIS = "model"
@@ -84,6 +84,24 @@ def axis_index(group: Group) -> int:
     return dist.get_rank(group)
 
 
+def axis_name_of(group: Group) -> str:
+    """The mesh axis a group is, by the innermost :func:`mesh_scope`'s mesh
+    (``model`` outside one): the ``axis`` label of its wire bytes."""
+    if _MESH_SCOPE:
+        mesh = _MESH_SCOPE[-1]
+        for d in mesh.mesh_dim_names:
+            if mesh.get_group(d) is group:
+                return d
+    return MODEL_AXIS
+
+
+def _charge_psum(t: torch.Tensor, group: Group) -> None:
+    """Charge one model-axis psum of ``t`` in a step's first call
+    (``fusion.charge``), as the JAX package does at trace time
+    (``horovod_tpu/parallel/tp.py:52``, ``:127``, ``:238``)."""
+    fusion.charge(t.numel() * t.element_size(), group, "psum", axis=axis_name_of(group))
+
+
 # --- the conjugate pairs ------------------------------------------------------
 
 
@@ -97,6 +115,7 @@ class _BlockInput(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        _charge_psum(grad, ctx.group)
         return collectives.allreduce(grad.contiguous(), group=ctx.group), None
 
 
@@ -107,6 +126,7 @@ class _ReplicatedSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
+        _charge_psum(x, group)
         return collectives.allreduce(x.contiguous(), group=group)
 
     @staticmethod
@@ -130,6 +150,7 @@ class _ScatterTokens(torch.autograd.Function):
         tc = grad.shape[-2]
         full = grad.new_zeros(*grad.shape[:-2], tc * ctx.n, grad.shape[-1])
         full[..., ctx.i * tc:(ctx.i + 1) * tc, :] = grad
+        _charge_psum(full, ctx.group)
         return collectives.allreduce_(full, group=ctx.group), None
 
 
@@ -278,7 +299,9 @@ def column_parallel_fused(x_shard: torch.Tensor, w_shard: torch.Tensor,
     feature-sharded output."""
     from ..ops.collective_matmul import all_gather_matmul
 
-    y = all_gather_matmul(x_shard, w_shard, group=resolve_group(axis_name), chunks=chunks)
+    group = resolve_group(axis_name)
+    y = all_gather_matmul(x_shard, w_shard, group=group, chunks=chunks,
+                          axis=axis_name_of(group))
     if b_shard is not None:
         y = y + b_shard
     return y
@@ -296,7 +319,8 @@ def row_parallel_fused(x_shard: torch.Tensor, w_shard: torch.Tensor,
     from ..ops.collective_matmul import matmul_reduce_scatter
 
     group = resolve_group(axis_name)
-    z = matmul_reduce_scatter(x_shard, w_shard, group=group, chunks=chunks)
+    z = matmul_reduce_scatter(x_shard, w_shard, group=group, chunks=chunks,
+                              axis=axis_name_of(group))
     if b_shard is not None:
         _check_row_bias(b_shard, w_shard, axis_size(group), "row_parallel_fused")
         z = z + collectives.allgather(b_shard, group=group, dim=0)

@@ -234,6 +234,12 @@ def zero1_stream_update(
             for leaf, new in zip(leaves, F.unpack_bucket(full, [l.shape for l in leaves])):
                 leaf.copy_(new)
             shard.grad = None
+        if live:
+            # The parameter all-gather, always full precision, charged in a
+            # step's first call as the JAX package charges it at trace time
+            # (horovod_tpu/parallel/zero.py:448).
+            F.charge(sum(n * s.numel() * s.element_size() for s, _, _ in live), group,
+                     "all_gather")
 
 
 def _allgather(shard: torch.Tensor, group) -> torch.Tensor:

@@ -26,11 +26,11 @@ def store_url() -> str:
     return f"file://{os.environ[STORE_DIR_VAR]}/store"
 
 
-def launch_ranks(module: str, argv: Sequence[str], n: int) -> int:
-    """Run ``module`` as ranks 0..n-1 and wait up to ten minutes for all of
-    them; returns the largest exit code (a rank killed by a signal counts as
-    failed). Every rank still running at the end, or on an error, is
-    killed."""
+def launch_ranks(module: str, argv: Sequence[str], n: int, timeout: float = 600) -> int:
+    """Run ``module`` as ranks 0..n-1 and wait up to ``timeout`` seconds
+    (ten minutes) for all of them; returns the largest exit code (a rank
+    killed by a signal counts as failed). Every rank still running at the
+    end, or on an error, is killed."""
     store_dir = tempfile.mkdtemp(prefix="hvd_torch_ranks_")
     procs = []
     try:
@@ -41,7 +41,7 @@ def launch_ranks(module: str, argv: Sequence[str], n: int) -> int:
                      "HOROVOD_LOCAL_RANK": str(r), "HOROVOD_LOCAL_SIZE": str(n),
                      STORE_DIR_VAR: store_dir},
             ))
-        codes = [p.wait(timeout=600) for p in procs]
+        codes = [p.wait(timeout=timeout) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:

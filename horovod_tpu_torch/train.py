@@ -1021,22 +1021,27 @@ def _build_train_step(
             tuned=False,
         )
     dist_opt._mesh = mesh
-    # The loss is averaged over the reduction's ranks (every rank, unless
-    # the optimizer reduces over the flattened group of an axis tuple).
-    loss_group = getattr(dist_opt._group, "flat", None)
+    # The loss is averaged over the reduction's ranks: the optimizer's group
+    # (every rank for None; the flattened group of an axis tuple).
+    loss_group = dist_opt._group
+    if isinstance(loss_group, tuple):
+        loss_group = getattr(loss_group, "flat", None)
 
     def average(t: torch.Tensor) -> torch.Tensor:
         return collectives.allreduce(t.detach(), op=ReduceOp.AVERAGE, group=loss_group)
+
+    step_key = object()     # this step's first call under the live taps
 
     def step(params, batch):
         dist_opt._check_open()
         if isinstance(params, torch.nn.Module):
             dist_opt.bind_module(params)
         dist_opt.zero_grad(set_to_none=True)
-        out = loss_fn(params, batch)
-        loss, aux = out if has_aux else (out, None)
-        loss.backward()
-        dist_opt.step()
+        with fusion.first_call(step_key):
+            out = loss_fn(params, batch)
+            loss, aux = out if has_aux else (out, None)
+            loss.backward()
+            dist_opt.step()
         if isinstance(params, torch.nn.Module):
             _average_buffers(params)
         if has_aux:
@@ -1193,6 +1198,7 @@ def _build_composed_train_step(
     model_group = mesh.get_group(model_axis)
     d_idx, n_data = collectives.group_rank_size(data_group)
     built: dict = {}
+    step_key = object()     # this step's first call under the live taps
 
     def rows(t: torch.Tensor) -> torch.Tensor:
         b = t.shape[0]
@@ -1239,11 +1245,12 @@ def _build_composed_train_step(
         dist_opt = built["opt"]
         dist_opt._check_open()
         dist_opt.zero_grad(set_to_none=True)
-        with _tp.mesh_scope(mesh), _tp.overlap_scope(tp_overlap):
-            out = loss_fn(params, _tree_map(rows, batch))
-        loss, aux = out if has_aux else (out, None)
-        loss.backward()
-        dist_opt.step()
+        with _tp.mesh_scope(mesh), fusion.first_call(step_key):
+            with _tp.overlap_scope(tp_overlap):
+                out = loss_fn(params, _tree_map(rows, batch))
+            loss, aux = out if has_aux else (out, None)
+            loss.backward()
+            dist_opt.step()
         if has_aux:
             return average(loss), _tree_map(average, aux)
         return average(loss)
