@@ -13,6 +13,16 @@ current stream, the executor's stream waits on it before it reads the
 input, and ``synchronize`` makes the caller's current stream wait on the
 plan's done event, so the host never waits on the device for an operation
 on the card.
+
+Tracing: while a ``torch.profiler`` session records, a plan runs inside
+an ``hvd_plan_<id>`` range and ``synchronize`` opens ``hvd.sync.wait``
+over the time its caller polls with no plan to run. With the trace or
+metrics tap on, each entry is stamped ``enqueue_ns`` and each plan
+``taken_ns`` as a consumer starts on it, both on the wall clock the
+profiler stamps its events on. ``hvd_op_negotiate_seconds`` runs from an
+entry's enqueue to its plan's ``taken_ns``: the negotiation and the wait
+for a consumer together, since the core stamps no emission time. The
+ring's ``hvd_plan`` span starts at ``taken_ns``, one a plan.
 """
 
 from __future__ import annotations
@@ -80,6 +90,18 @@ def _output_faults(entries, outputs: Dict[str, Any]) -> Dict[str, Any]:
             outputs[entry.name] = _fault.payload_fault("output", entry.name,
                                                        outputs[entry.name])
     return outputs
+
+
+def _plan_args(plan: dict, entries, op_label: str, nbytes: int, ok: bool) -> dict:
+    """The ring's ``hvd_plan`` span arguments: the correlation id, the
+    payload, the consumer's ``taken_ns`` and the first and last enqueue of
+    the plan's tensors."""
+    args = {"plan": f"hvd_plan_{plan['id']}", "op": op_label, "tensors": len(entries),
+            "bytes": nbytes, "ok": ok, "taken_ns": plan["taken_ns"]}
+    enqueued = [e.context["enqueue_ns"] for e in entries if "enqueue_ns" in e.context]
+    if enqueued:
+        args["enqueue_first_ns"], args["enqueue_last_ns"] = min(enqueued), max(enqueued)
+    return args
 
 
 class LocalPlanExecutor(PlanExecutor):
@@ -205,8 +227,9 @@ class NativeRuntime:
             reduce_op=reduce_op, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor,
             context={"host": host, "ready": record_ready(tensor)})
+        if _metrics.ACTIVE or _trace.ACTIVE:
+            entry.context["enqueue_ns"] = time.time_ns()
         if _metrics.ACTIVE:
-            entry.context["metrics_enqueue_ts"] = time.monotonic()
             _metrics.TAP.inc("hvd_ops_submitted_total", op=request_type.name)
         with self._entries_lock:
             self._entries.setdefault(name, deque()).append(entry)
@@ -323,6 +346,8 @@ class NativeRuntime:
 
     def _execute_plan(self, plan: dict) -> None:
         t0 = time.perf_counter()
+        if _metrics.ACTIVE or _trace.ACTIVE:
+            plan["taken_ns"] = time.time_ns()
         names = plan.get("names", [])
         shapes = plan.get("shapes", [])
         entries = []
@@ -347,11 +372,11 @@ class NativeRuntime:
         ptype = int(plan["type"])
         op_label = ResponseType(ptype).name if ptype <= ResponseType.ERROR else str(ptype)
         if _metrics.ACTIVE:
-            now = time.monotonic()
             for entry in entries:
-                ts = entry.context.pop("metrics_enqueue_ts", None)
-                if ts is not None:
-                    _metrics.TAP.observe("hvd_op_negotiate_seconds", now - ts, op=op_label)
+                enqueued = entry.context.get("enqueue_ns")
+                if enqueued is not None:
+                    _metrics.TAP.observe("hvd_op_negotiate_seconds",
+                                         (plan["taken_ns"] - enqueued) / 1e9, op=op_label)
             with self._entries_lock:
                 depth = sum(len(q) for q in self._entries.values())
             _metrics.TAP.set("hvd_queue_depth", float(depth))
@@ -372,7 +397,7 @@ class NativeRuntime:
             try:
                 # The "hvd_plan_<id>" string of the core's timeline names the
                 # plan's range in a torch.profiler trace.
-                with torch.profiler.record_function(f"hvd_plan_{plan['id']}"):
+                with _trace.profiled(f"hvd_plan_{plan['id']}"):
                     outputs = self.executor.execute(plan, entries, self.topology)
                 if _fault.ACTIVE:
                     # The output tap: a scheduled corrupt flips a bit of THIS
@@ -387,10 +412,10 @@ class NativeRuntime:
         duration = time.perf_counter() - t0
         status = Status.OK() if status_code == 0 else Status(StatusType(status_code), error)
         nbytes = int(plan.get("total_bytes", 0) or 0)
-        if _trace.ACTIVE:
-            _trace.TAP.event("hvd_plan", ph="X", cat="plan", ts=time.time() - duration,
-                             dur=duration, plan=f"hvd_plan_{plan['id']}", op=op_label,
-                             tensors=len(names), bytes=nbytes, ok=status_code == 0)
+        if _trace.ACTIVE and "taken_ns" in plan:
+            _trace.TAP.event("hvd_plan", ph="X", cat="plan", ts=plan["taken_ns"] / 1e9,
+                             dur=duration, **_plan_args(plan, entries, op_label, nbytes,
+                                                        status_code == 0))
         if _metrics.ACTIVE:
             _metrics.TAP.inc("hvd_plans_total", op=op_label)
             _metrics.TAP.observe("hvd_op_execute_seconds", duration, op=op_label)
@@ -489,6 +514,9 @@ class NativeRuntime:
             # This thread is committed to waiting: the core may seal the
             # next cycle at once.
             self.core.flush_hint()
+        # The profiler's hvd.sync.wait: open while this thread polls and
+        # waits, closed while it runs a plan inline (a leaf range).
+        waiting = None
         try:
             while True:
                 if self.poll(handle):
@@ -499,6 +527,9 @@ class NativeRuntime:
 
                         raise HorovodInternalError(status.reason)
                     return self._hand_over(out)
+                if waiting is None:
+                    waiting = _trace.profiled("hvd.sync.wait")
+                    waiting.__enter__()
                 if deadline is not None and time.monotonic() > deadline:
                     with self._cv:
                         name = self._ticket_names.get(handle, "")
@@ -515,6 +546,8 @@ class NativeRuntime:
                             self._core_down.set()
                             self._no_waiters.set()
                         elif plan not in (0, -2):
+                            waiting.__exit__(None, None, None)
+                            waiting = None
                             self._execute_plan(plan)
                         continue
                     finally:
@@ -522,6 +555,8 @@ class NativeRuntime:
                 with self._cv:
                     self._cv.wait(timeout=0.001 if self._inline_sync else 0.01)
         finally:
+            if waiting is not None:
+                waiting.__exit__(None, None, None)
             if self._inline_sync:
                 with self._cv:
                     self._sync_waiters -= 1

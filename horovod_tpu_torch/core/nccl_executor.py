@@ -44,6 +44,11 @@ the inputs as used on its stream (``record_stream``) and records a done
 event after the unpack, on which ``synchronize`` orders the caller's
 stream. CPU inputs and numpy arrays travel to the card and come back on
 the CPU.
+
+An allreduce or Adasum plan's three phases open the profiler ranges
+``hvd.pack`` (the concatenation and the prescale), ``hvd.allreduce`` (the
+collective) and ``hvd.unpack`` (the divide, the postscale and the slices)
+while a profiler session records.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from .. import metrics as _metrics
+from .. import trace as _trace
 from ..common.topology import Topology
 from ..common.types import ReduceOp, ResponseType
 from ..ops.collectives import _TORCH_OPS, _maybe_scale
@@ -303,38 +309,40 @@ class NcclPlanExecutor(PlanExecutor):
                 and tplan.nbytes:
             algorithm, split_fraction = "split", tplan.split_bytes[0] / tplan.nbytes
         shapes = [tuple(t.shape) for t in tensors]
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-        r = _maybe_scale(flat, pre)
-        if adasum:
-            from ..ops.adasum import adasum_allreduce, hierarchical_adasum_allreduce
+        with _trace.profiled("hvd.pack"):
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            r = _maybe_scale(flat, pre)
+        with _trace.profiled("hvd.allreduce"):
+            if adasum:
+                from ..ops.adasum import adasum_allreduce, hierarchical_adasum_allreduce
 
-            if hier:
-                # Node averages, so that Adasum of identical inputs is the
-                # identity, as the flat exchange's is.
-                cross, local = self._grid
-                r = hierarchical_adasum_allreduce(
-                    (r / self._topo.local_size).to(r.dtype), local_group=local,
-                    cross_group=cross)
+                if hier:
+                    # Node averages, so that Adasum of identical inputs is
+                    # the identity, as the flat exchange's is.
+                    cross, local = self._grid
+                    r = hierarchical_adasum_allreduce(
+                        (r / self._topo.local_size).to(r.dtype), local_group=local,
+                        cross_group=cross)
+                else:
+                    r = adasum_allreduce(r, group=self._group_of(ctx))
+            elif hier:
+                from ..topo import compositor
+
+                r = compositor.lower_allreduce(r, self._grid, op=ReduceOp.SUM,
+                                               algorithm=algorithm,
+                                               split_fraction=split_fraction)
             else:
-                r = adasum_allreduce(r, group=self._group_of(ctx))
-        elif hier:
-            from ..topo import compositor
-
-            r = compositor.lower_allreduce(r, self._grid, op=ReduceOp.SUM, algorithm=algorithm,
-                                           split_fraction=split_fraction)
-            if op == ReduceOp.AVERAGE:
+                # torch.cat copies: the caller's tensors are never reduced into.
+                dist.all_reduce(r, op=_TORCH_OPS[op], group=self._group_of(ctx))
+        with _trace.profiled("hvd.unpack"):
+            if not adasum and op == ReduceOp.AVERAGE:
                 r = _divide(r, participants)
-        else:
-            # torch.cat copies: the caller's tensors are never reduced into.
-            dist.all_reduce(r, op=_TORCH_OPS[op], group=self._group_of(ctx))
-            if op == ReduceOp.AVERAGE:
-                r = _divide(r, participants)
-        r = _maybe_scale(r, post)
-        outputs, off = {}, 0
-        for e, shape in zip(entries, shapes):
-            n = math.prod(shape)
-            outputs[e.name] = self._restore(r[off:off + n].reshape(shape), e.tensor)
-            off += n
+            r = _maybe_scale(r, post)
+            outputs, off = {}, 0
+            for e, shape in zip(entries, shapes):
+                n = math.prod(shape)
+                outputs[e.name] = self._restore(r[off:off + n].reshape(shape), e.tensor)
+                off += n
         return outputs
 
     # --- the one-collective-an-entry plans ---

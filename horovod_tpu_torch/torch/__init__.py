@@ -18,6 +18,11 @@ caller's stream, ordered after the plan; the host does not wait on the
 card. The elastic state and ``ElasticSampler`` are :mod:`.elastic`
 (``horovod_tpu/torch/elastic.py``).
 
+While a ``torch.profiler`` session records, the optimizer's hook opens an
+``hvd.enqueue`` range (its input the tensor's name), ``synchronize`` an
+``hvd.sync`` range and, inside it, one ``hvd.sync.copyback`` range over
+the loop that takes each reduced gradient and writes it into ``p.grad``.
+
 Run a script that imports this module with ``python -m`` or from the
 repository root: run by path from inside ``horovod_tpu_torch/``, Python
 would find this directory's ``torch`` before PyTorch.
@@ -31,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .. import eager
+from .. import trace as _trace
 from ..common import basics as _basics
 from ..common.basics import (  # noqa: F401 - the reference exposes these here too
     cross_rank,
@@ -137,50 +143,53 @@ class _DistributedOptimizer:
             self._allreduce_grad_async(param)
 
     def _allreduce_grad_async(self, p) -> None:
-        name = self._param_names.get(p, f"param.{id(p)}")
-        grad = p.grad
-        if grad.is_sparse:
-            # The collectives are dense: sparse_as_dense densifies the
-            # gradient (on its device) before the allreduce.
-            if not self._sparse_as_dense:
-                raise ValueError(
-                    "Gradient for parameter is sparse; construct "
-                    "DistributedOptimizer with sparse_as_dense=True to "
-                    "densify sparse gradients before the allreduce.")
-            grad = grad.to_dense()
-            with torch.no_grad():
-                p.grad = grad
-        if self.backward_passes_per_step > 1:
-            grad = grad / self.backward_passes_per_step
-        compressed, ctx = self._compression.compress(grad)
-        handle = allreduce_async(compressed, name=f"DistributedOptimizer.{name}", op=self._op)
+        name = f"DistributedOptimizer.{self._param_names.get(p, f'param.{id(p)}')}"
+        with _trace.profiled("hvd.enqueue", name):
+            grad = p.grad
+            if grad.is_sparse:
+                # The collectives are dense: sparse_as_dense densifies the
+                # gradient (on its device) before the allreduce.
+                if not self._sparse_as_dense:
+                    raise ValueError(
+                        "Gradient for parameter is sparse; construct "
+                        "DistributedOptimizer with sparse_as_dense=True to "
+                        "densify sparse gradients before the allreduce.")
+                grad = grad.to_dense()
+                with torch.no_grad():
+                    p.grad = grad
+            if self.backward_passes_per_step > 1:
+                grad = grad / self.backward_passes_per_step
+            compressed, ctx = self._compression.compress(grad)
+            handle = allreduce_async(compressed, name=name, op=self._op)
         with self._lock:
             self._handles[p] = (handle, ctx)
 
     def synchronize(self) -> None:
-        try:
-            with self._lock:
-                missing = [p for group in self._opt.param_groups for p in group["params"]
-                           if p not in self._handles and p.requires_grad
-                           and p.grad is not None]
-            # A gradient no hook reduced (backward() not run through the
-            # hooks): reduce it now, the reference's missing-handle path.
-            for p in missing:
-                self._allreduce_grad_async(p)
-            with self._lock:
-                pending = list(self._handles.items())
-            for p, (handle, ctx) in pending:
-                out = self._compression.decompress(synchronize(handle), ctx)
-                with torch.no_grad():
-                    p.grad.copy_(out.reshape(p.grad.shape))
-            with self._lock:
-                self._handles.clear()
-        except Exception:
-            # A failed collective leaves the whole in-flight set dead: drop
-            # it and the accumulation counters, so that training can start
-            # again without tripping zero_grad()'s guard.
-            self.reset()
-            raise
+        with _trace.profiled("hvd.sync"):
+            try:
+                with self._lock:
+                    missing = [p for group in self._opt.param_groups for p in group["params"]
+                               if p not in self._handles and p.requires_grad
+                               and p.grad is not None]
+                # A gradient no hook reduced (backward() not run through the
+                # hooks): reduce it now, the reference's missing-handle path.
+                for p in missing:
+                    self._allreduce_grad_async(p)
+                with self._lock:
+                    pending = list(self._handles.items())
+                with _trace.profiled("hvd.sync.copyback"):
+                    for p, (handle, ctx) in pending:
+                        out = self._compression.decompress(synchronize(handle), ctx)
+                        with torch.no_grad():
+                            p.grad.copy_(out.reshape(p.grad.shape))
+                with self._lock:
+                    self._handles.clear()
+            except Exception:
+                # A failed collective leaves the whole in-flight set dead:
+                # drop it and the accumulation counters, so that training
+                # can start again without tripping zero_grad()'s guard.
+                self.reset()
+                raise
 
     def step(self, closure=None):
         self.synchronize()

@@ -38,6 +38,24 @@ entirely (``if _trace.ACTIVE: ...`` is the whole overhead), and
 :func:`wrap_step` returns the step function UNCHANGED (``wrap_step(f)
 is f`` — the zero-overhead proof the tests assert).
 
+Profiler ranges: the hook-driven path also opens ``torch.profiler``
+ranges (:func:`profiled`), under a gate of their own: a profiler session
+is recording. They cost one flag check a call site without one.
+
+- ``hvd.enqueue``: a gradient hook's compress and enqueue; its input is
+  the tensor's name (``DistributedOptimizer.<param>``).
+- ``hvd.sync``: ``DistributedOptimizer.synchronize``, and inside it
+  ``hvd.sync.copyback``, the loop that takes each reduced gradient and
+  writes it into ``p.grad``.
+- ``hvd.sync.wait``: ``NativeRuntime.synchronize`` polling the core with
+  no plan to run; closed while the caller runs a plan inline, a leaf.
+- ``hvd_plan_<id>``: one plan's execution, the id of the core's timeline;
+  inside it ``hvd.pack``, ``hvd.allreduce`` and ``hvd.unpack`` on allreduce
+  and Adasum plans.
+
+A session records the thread that started it and autograd's threads; the
+executor thread's plans only under ``profile_all_threads``.
+
 Clock caveat: rings are stamped with ``time.time()`` (wall clock). The
 per-worker offset the pusher estimates against the driver's ``/clock``
 endpoint (KV ping RTT/2) is RECORDED as trace metadata, never silently
@@ -54,8 +72,10 @@ import sys
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, Optional
+
+import torch.autograd.profiler as _autograd_profiler
 
 logger = logging.getLogger("horovod_tpu_torch.trace")
 
@@ -536,6 +556,21 @@ def wrap_step(fn, **meta):
     traced_step.__hvd_trace_wrapped__ = True
     traced_step.__name__ = getattr(fn, "__name__", "step")
     return traced_step
+
+
+_NO_RANGE = nullcontext()
+
+
+def profiled(name: str, args: Optional[str] = None):
+    """A ``torch.profiler`` range named ``name`` while a profiler session
+    records (``torch.autograd.profiler._is_profiler_enabled``, set for the
+    whole process), else a shared no-op context: no ``RecordFunction`` is
+    built. ``args`` travels as the range's input. A session records the
+    ranges of the thread that started it and of autograd's threads; the
+    executor thread's only under ``profile_all_threads``."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name, args)
+    return _NO_RANGE
 
 
 def flight_dump(reason: str) -> Optional[str]:

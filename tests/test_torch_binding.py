@@ -416,6 +416,49 @@ for i, g in enumerate(gag):
 for i, g in enumerate(grs):
     out[f"grs{i}"] = g.numpy()
 
+# The tracing of the hook-driven path (tests/test_torch_trace_ranges.py):
+# no range with no session and both taps off, then the ranges of every
+# thread and the ring's plan spans under a session with both taps on.
+import sys
+from torch.autograd import profiler as autograd_profiler
+from torch.profiler import ProfilerActivity, profile
+from torch._C._profiler import _ExperimentalConfig
+from horovod_tpu_torch import metrics as port_metrics, trace as port_trace
+
+built = []
+rf_init = autograd_profiler.record_function.__init__
+
+def spy(self, name, args=None):
+    if "horovod_tpu_torch" in sys._getframe(1).f_code.co_filename:
+        built.append(name)
+    rf_init(self, name, args)
+
+autograd_profiler.record_function.__init__ = spy
+m = model_linear()
+opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
+                               named_parameters=m.named_parameters())
+
+def traced_step():
+    opt.zero_grad()
+    torch.nn.functional.mse_loss(m(X), y).backward()
+    opt.step()
+
+traced_step()
+info["ranges_off"] = list(built)
+port_trace.install(True)
+port_metrics.install(True)
+with profile(activities=[ProfilerActivity.CPU],
+             experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+    for _ in range(3):
+        traced_step()
+info["ranges"] = [[e.name, e.thread, e.time_range.start, e.time_range.end]
+                  for e in prof.events() if e.name.startswith("hvd")]
+info["plans"] = [e["args"] for e in port_trace.TAP.window()["events"]
+                 if e["name"] == "hvd_plan"]
+autograd_profiler.record_function.__init__ = rf_init
+port_trace.reset()
+port_metrics.reset()
+
 np.savez(f"{d}/rank{r}.npz", **out)
 json.dump(info, open(f"{d}/info{r}.json", "w"))
 hvd.shutdown()
@@ -588,3 +631,30 @@ def test_grouped_allgather_reducescatter_ranks(request, n):
         np.testing.assert_array_equal(p["grs0"], np.full(2, (n + 1) / 2, np.float32))
         np.testing.assert_array_equal(p["grs1"], np.arange(2.0 * r, 2.0 * r + 2,
                                                            dtype=np.float32))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_executor_ranges_nest_in_their_plan(request, n):
+    """Each allreduce plan's range holds its pack, collective and unpack
+    ranges, in that order on its thread; no range was built before the
+    session with both taps off."""
+    for info in _jobs(request, n).info:
+        assert info["ranges_off"] == []
+        ranges = info["ranges"]
+        plans = [r for r in ranges if r[0].startswith("hvd_plan_")]
+        assert plans
+        for p in plans:
+            inner = [r for r in ranges if r[1] == p[1] and p[2] <= r[2] and r[3] <= p[3]
+                     and r is not p]
+            phases = sorted((r for r in inner if r[0] in ("hvd.pack", "hvd.allreduce",
+                                                          "hvd.unpack")), key=lambda r: r[2])
+            assert [r[0] for r in phases] == ["hvd.pack", "hvd.allreduce", "hvd.unpack"], inner
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_plan_stamps_ordered_across_ranks(request, n):
+    """enqueue <= the consumer's taken_ns on every plan of every rank."""
+    for info in _jobs(request, n).info:
+        assert info["plans"]
+        for a in info["plans"]:
+            assert a["enqueue_first_ns"] <= a["enqueue_last_ns"] <= a["taken_ns"], a
